@@ -1,0 +1,498 @@
+// Whole-forecast scan kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces roadsurf_tpu/ops/pallas_step.py:pallas_scan / _make_kernel (the
+// Pallas TPU kernel, point-major mode).  Plain version with the same
+// semantics: roadsurf_tpu_torch/ops/scan_kernel.py:scan_reference.
+//
+// What it computes, per road point, for every step t < nsteps of a chunk
+// (pallas_step.py:411-568): the CheckValues failure flag; obs forcing of
+// layers 1-2; precipitation into storage; the boundary-layer conductance
+// fixed point (at most bl_iters iterations, carried 1/ustar); latent heat
+// and evaporation with the one-exp Magnus esat; net radiation; the explicit
+// L-layer conduction stencil with HStor; the melting limiter; the storage
+// machine (water, snow, ice, secondary ice, deposit, wear, albedo, the
+// very-cold flag); a commit masked by the failure flag; and an output row
+// where the GLOBAL step (off + t) is a multiple of out_stride.
+//
+// What bounds it on this card.  A step reads 64 B of forcing per point
+// (16 floats, coalesced: forcing is [T, 16, P] point-minor) and writes
+// nothing but a rare output row, while each thread runs a serial chain of
+// dependent divides, logs, square roots and exps: the boundary-layer fixed
+// point alone is 5-40 iterations of one IEEE divide, one log and one sqrt,
+// and the stencil adds one divide per layer.  So the kernel is expected to
+// be bound by arithmetic latency and issue, not by memory bandwidth
+// (64 B / point-step against several hundred instructions).
+//
+// What the design does about it.  One thread per point in a 1-D grid of
+// 128-thread blocks (a ragged edge is masked with p < P, so no padding):
+// thousands of independent points in flight hide the latency of each
+// thread's serial chain.  The profile (L+2 nodes) and the 13 live scalar
+// rows stay in registers for the whole launch -- read once, written once --
+// with every loop over layers unrolled at compile-time indices (a template
+// on the register capacity LM, dispatched on nlayers) so the profile is not
+// indexed at run time; the runtime output-depth node is picked with an
+// unrolled bit-masked OR for the same reason.  Each thread leaves the boundary-layer loop on
+// its own at convergence, which equals the TPU kernel's masked freeze.  The
+// TPU's double-buffered forcing DMA and its inner time chunk are dropped:
+// the point-minor layout already coalesces the reads.
+//
+// Numerics: float32 only, IEEE divide and sqrt, no fast math, no flush to
+// zero (built with -prec-div=true -prec-sqrt=true -ftz=false); FMA
+// contraction is allowed.  There are no matrix products, so TF32 never
+// arises.  min/max propagate NaN like torch.minimum/maximum.  Flat offsets
+// are 64-bit: T * 16 * P passes 2^31 at 128 steps x 1M points.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define LMAX_ALL 32
+
+// Mirror of ScanConsts in ops/scan_kernel.py (ints first, then floats, all
+// 4 bytes: no padding).
+struct ScanConsts {
+  int L, lpad, out_stride, n_out, bl_iters, use_depth, depth_idx,
+      force_snow, force_ice, melt_change;
+  float dt, tph, depth_w;
+  float vk, log_ustar, log_cond, log_mom, log_heat, stab_c, lvap, lfus, emiss,
+      emiss_sb, dry1, dry2, t_lim_cold_h, t_lim_cold_l, max_por_mms,
+      por_eva_f, w_wear_lim, w_wet_lim, damp_wear_f, min_wat_mms,
+      max_wat_mms, t_lim_dew, wet_snow_form_r, t_lim_melt_snow, melt_heat,
+      wet_snow_melt_r, t_lim_freeze, min_snow_mms, max_snow_mms,
+      half_max_snow, t_lim_melt_ice, min_ice_mms, max_ice_mms,
+      t_lim_melt_dep, min_dep_mms, max_dep_mms, alb_dry, alb_snow, alb_span;
+  float dyc[LMAX_ALL], cond_dz[LMAX_ALL], wcont[LMAX_ALL];
+};
+
+// packed scalar rows (pallas_step.py:54-57)
+enum {
+  R_TSURF = 0, R_WAT, R_SNOW, R_ICE, R_ICE2, R_DEP, R_Q2MELT, R_T4MELT,
+  R_EVAP, R_BLCOND, R_ALBEDO, R_VERYCOLD, R_FAILED, NROWS = 16
+};
+// forcing channels (pallas_step.py:63-67)
+enum {
+  C_TAIR = 0, C_VZ, C_EAIR, C_RAIN, C_SNOW, C_SW, C_LW, C_TSURF_OBS,
+  C_VALID, C_TRF, C_SWCOF, C_LWCOF, C_INCPL, C_CPLOBS, C_AIRVCAP, NCH = 16
+};
+#define N_OUT_FIELDS 8
+#define BLOCK 128
+
+// NaN-propagating min/max (jnp.minimum / torch.minimum semantics)
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Magnus over ice/water, one exp (pallas_step.py:95-101)
+__device__ __forceinline__ float esat1(float t) {
+  const float a = t < 0.0f ? 21.875f : 17.269f;
+  const float b = t < 0.0f ? 265.5f : 237.3f;
+  return 0.61078f * expf(a * t / (t + b));
+}
+
+// TsurfAve (pallas_step.py:211-215): (T1+T2)/2, or the interpolation at
+// the configured output depth.  The runtime node index is resolved by an
+// unrolled OR of bit patterns under all-ones/all-zero masks: a select chain
+// (if k == idx) is folded back into a dynamic index by the compiler, which
+// moves the whole profile to local memory (an 80-byte stack frame at
+// LM = 16, ptxas -v).  Exactly one mask is all ones, so the result is the
+// selected node's bits, whatever the other nodes hold (inf and NaN too).
+template <int LM, bool DEPTH>
+__device__ __forceinline__ float surf_ave(const float (&tmp)[LM + 3],
+                                          const ScanConsts& c) {
+  if (DEPTH) {
+    unsigned ti = 0u, tj = 0u;
+#pragma unroll
+    for (int k = 1; k <= LM + 1; ++k) {
+      const unsigned m = 0u - (unsigned)(k == c.depth_idx);
+      ti |= __float_as_uint(tmp[k]) & m;
+      tj |= __float_as_uint(tmp[k + 1]) & m;
+    }
+    const float fi = __uint_as_float(ti), fj = __uint_as_float(tj);
+    return fi + c.depth_w * (fj - fi);
+  }
+  return (tmp[1] + tmp[2]) / 2.0f;
+}
+
+// LM: register capacity for the profile (nlayers <= LM).  tmp[k] holds
+// profile row k for k < L + 3 (row L+1 climatology, row L+2 the first
+// padded row, read only by the depth interpolation's w == 0 edge).
+// DEPTH: a global output depth is configured (StepConfig.use_depth); the
+// plain (T1+T2)/2 instantiation needs fewer registers.
+template <int LM, bool DEPTH>
+__global__ void __launch_bounds__(BLOCK)
+scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
+            const float* __restrict__ scal0,
+            const float* __restrict__ forcing, float* __restrict__ tmp_out,
+            float* __restrict__ scal_out, float* __restrict__ out, int P,
+            int nsteps, int off, int out_base) {
+  const int p = blockIdx.x * BLOCK + threadIdx.x;
+  if (p >= P) return;
+  const int64_t PP = P;
+  const int L = c.L;
+
+  float tmp[LM + 3];
+#pragma unroll
+  for (int k = 0; k < LM + 3; ++k)
+    tmp[k] = (k < c.lpad && k < L + 3) ? tmp0[k * PP + p] : 0.0f;
+
+  float tsurf = scal0[R_TSURF * PP + p];
+  float wat = scal0[R_WAT * PP + p];
+  float snow = scal0[R_SNOW * PP + p];
+  float ice = scal0[R_ICE * PP + p];
+  float ice2 = scal0[R_ICE2 * PP + p];
+  float dep = scal0[R_DEP * PP + p];
+  float q2m = scal0[R_Q2MELT * PP + p];
+  float t4m = scal0[R_T4MELT * PP + p];
+  float evap_s = scal0[R_EVAP * PP + p];
+  float blc = scal0[R_BLCOND * PP + p];
+  float alb = scal0[R_ALBEDO * PP + p];
+  float vcold_f = scal0[R_VERYCOLD * PP + p];
+  float failed_f = scal0[R_FAILED * PP + p];
+
+  const float dt = c.dt;
+  const float tph = c.tph;
+  const float s2i = (float)(0.25 / 0.45);
+
+  for (int t = 0; t < nsteps; ++t) {
+    const float* f = forcing + ((int64_t)t * NCH) * PP + p;
+    const int tg = off + t;
+    const bool hit = (tg % c.out_stride) == 0;
+    const int row = tg / c.out_stride - out_base;
+    const bool failed_prev = failed_f > 0.5f;
+
+    if (failed_prev) {
+      // frozen point: state unchanged, R_FAILED stays set, output poisoned
+      if (hit && row < c.n_out) {
+        float* o = out + ((int64_t)row * N_OUT_FIELDS) * PP + p;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) o[k * PP] = -9999.0f;
+        o[6 * PP] = 0.0f;
+        o[7 * PP] = 0.0f;
+      }
+      continue;
+    }
+
+    const float tair = __ldg(f + C_TAIR * PP);
+    const bool abnormal = (tsurf < -100.0f) || (tsurf > 100.0f);
+    const bool failed = (__ldg(f + C_VALID * PP) < 0.5f) || abnormal;
+
+    // SetCurrentValues + obs forcing
+    const float obs = __ldg(f + C_TSURF_OBS * PP);
+    tmp[0] = tair;
+    if (obs > -100.0f) {
+      tmp[1] = obs;
+      tmp[2] = obs;
+      tsurf = surf_ave<LM, DEPTH>(tmp, c);
+    }
+
+    // precipitation to storage
+    wat = wat + __ldg(f + C_RAIN * PP);
+    snow = snow + __ldg(f + C_SNOW * PP);
+
+    // boundary-layer fixed point (pallas_step.py:104-172): each thread
+    // stops at its own convergence, which equals the masked freeze
+    const float vz = __ldg(f + C_VZ * PP);
+    const float air_vcap = __ldg(f + C_AIRVCAP * PP);
+    const float tak = tair + 273.15f;
+    const float dt_ts = tsurf - tair;
+    const float inv_kvz = 1.0f / (c.vk * vz);
+    const float inv_avt = 1.0f / (air_vcap * tak);
+    float bl = blc, psim = 0.0f, psih = 0.0f;
+    for (int j = 0; j < c.bl_iters; ++j) {
+      const float ustar_inv = (c.log_ustar + psim) * inv_kvz;
+      const float bl_new = air_vcap * c.vk / ((c.log_cond + psih) * ustar_inv);
+      float stab = c.stab_c * bl_new * dt_ts * inv_avt * ustar_inv *
+                   ustar_inv * ustar_inv;
+      stab = nmin(stab, 1.0f);
+      const float psih_s = 4.7f * stab;
+      const float psih_u =
+          -2.0f * logf((1.0f + sqrtf(nmax(1.0f - 16.0f * stab, 0.0f))) / 2.0f);
+      const bool stable = stab > 0.0f;
+      const float psih_n = stable ? psih_s : psih_u;
+      const float psim_n = stable ? psih_n : 0.6f * psih_n;
+      const bool newly = (fabsf(bl_new - bl) < 1e-3f) && (j + 1 >= 5);
+      bl = bl_new;
+      psim = psim_n;
+      psih = psih_n;
+      if (newly) break;
+    }
+    const float raero = nmin((c.log_mom + psim) * (c.log_heat + psih) *
+                                 (inv_kvz / c.vk),
+                             30.0f);
+    const float psych_c = 0.1f * (0.00063f * tak + 0.47496f);
+    const float wat_den = -0.0050f * tsurf * tsurf + 0.0079f * tsurf +
+                          1000.0028f;
+    const float esurf = esat1(tsurf);
+    float le = air_vcap * (esurf - __ldg(f + C_EAIR * PP)) / (psych_c * raero);
+    const float lheat = tsurf >= 0.0f ? c.lvap : c.lfus;
+    float evap = le / (lheat * wat_den) * 1000.0f * dt;
+    if ((le > 0.0f) && (wat <= 0.0f)) {
+      le = 0.0f;
+      evap = 0.0f;
+    }
+
+    // net radiation
+    const float tk = tsurf + 273.15f;
+    const float tk2 = tk * tk;
+    const float rnet =
+        (1.0f - alb) * __ldg(f + C_SW * PP) * __ldg(f + C_SWCOF * PP) +
+        c.emiss * __ldg(f + C_LW * PP) * __ldg(f + C_LWCOF * PP) -
+        c.emiss_sb * tk2 * tk2;
+
+    // conduction stencil + HStor (pallas_step.py:175-208), in place: layer
+    // j's flux uses the old j and j+1, computed before j is overwritten
+    const float t1a = (tmp[1] + 3.0f * tmp[2]) / 4.0f;
+    float g_prev = rnet - le + __ldg(f + C_TRF * PP) + bl * (tmp[0] - tmp[1]);
+    float hs1 = 0.0f;
+#pragma unroll
+    for (int j = 1; j <= LM; ++j) {
+      if (j <= L) {
+        const float tj = tmp[j];
+        const float t2_ = tj * tj;
+        const float roo =
+            tj < 0.0f ? 920.0f : -0.0050f * t2_ + 0.0079f * tj + 1000.0028f;
+        const float cw = tj < 0.0f
+                             ? 2100.0f
+                             : 0.0000102f * t2_ * t2_ - 0.0017169f * t2_ * tj +
+                                   0.11516f * t2_ - 3.4739f * tj + 4217.2f;
+        const float chwt = roo * cw;
+        const float vsh = (j <= 2 ? c.dry1 : c.dry2) + c.wcont[j - 1] * chwt;
+        if (j == 1) hs1 = vsh * c.dyc[0] / dt;
+        const float cap_dz = -1.0f / (c.dyc[j - 1] * vsh);
+        const float gflux = c.cond_dz[j - 1] * (tmp[j + 1] - tj);
+        tmp[j] = tj + dt * cap_dz * (gflux - g_prev);
+        g_prev = gflux;
+      }
+    }
+    const float tna = (tmp[1] + 3.0f * tmp[2]) / 4.0f;
+    const float hstor = hs1 * (tna - t1a);
+
+    // melting limiter (pallas_step.py:218-241)
+    const bool has_frozen = (snow > 0.0f) || (ice > 0.0f) || (ice2 > 0.0f);
+    float q2 = has_frozen ? q2m : 0.0f;
+    if (c.melt_change) {
+      const bool in_cpl = __ldg(f + C_INCPL * PP) > 0.5f;
+      const bool guard = (hstor <= 0.00001f) || (tsurf <= t4m) ||
+                         (q2m <= 0.0f) ||
+                         (in_cpl && (__ldg(f + C_CPLOBS * PP) < t4m));
+      const bool cold = guard && (tsurf < 0.5f);
+      const bool hot = guard && (tsurf > 2.0f);
+      const float qavail = hs1 * (tmp[1] - t4m);
+      const bool pin = has_frozen && !cold && !hot;
+      const bool all_used = q2m >= qavail;
+      if (pin) {
+        tmp[1] = all_used ? t4m + 0.01f : t4m + (qavail - q2m) / hs1;
+        tmp[2] = t4m + 0.01f;
+      }
+      if (has_frozen && cold) q2 = 0.0f;
+      if (has_frozen && hot) q2 = nmin(q2, qavail);
+      if (pin && all_used) q2 = qavail;
+    }
+    const float tsurf_new = surf_ave<LM, DEPTH>(tmp, c);
+    const float ts = tsurf_new;
+
+    // WearFactors + RoadCond + CalcAlbedo (pallas_step.py:244-350)
+    bool vcold = vcold_f > 0.5f;
+    vcold = vcold && !(vcold && (ts > c.t_lim_cold_h));
+    vcold = vcold || (!vcold && (ts < c.t_lim_cold_l));
+
+    float snow_tran = nmax(0.45f * snow, 0.01f);
+    snow_tran = (snow < 0.2f ? snow_tran * 3.0f : snow_tran) * tph;
+    const float ice_wear = nmax((float)(1.1 * 2.0 * 0.145) * ice, 0.01f) * tph;
+    const float ice_wear2 =
+        nmax((float)(1.1 * 2.0 * 4.0 * 0.290) * ice2, 0.01f) * tph;
+    const float dep_wear =
+        nmax((float)(0.5 * 2.0 * 4.0 * 0.290) * dep, 0.01f) * tph;
+    const float wat_wear = 10.0f * nmax(0.145f * wat, 0.06f) * tph;
+
+    const bool bare =
+        (snow <= 0.0f) && (ice <= 0.0f) && (dep <= 0.0f) && (ts > c.t_lim_dew);
+    const float loss = wat > c.max_por_mms ? evap : c.por_eva_f * evap;
+    if (bare) wat = wat - loss;
+    if (wat > 0.0f) {
+      const float ww = wat < c.w_wear_lim ? 0.0f : wat_wear;
+      const float amt = wat > c.w_wet_lim ? ww : c.damp_wear_f * ww;
+      wat = wat - amt;
+    }
+    if (wat < c.min_wat_mms) wat = 0.0f;
+    wat = nmin(wat, c.max_wat_mms);
+    const float srf_ext = nmax(wat - c.max_por_mms, 0.0f);
+
+    const float rd = srf_ext + snow;
+    const float wsr = rd > 0.001f ? srf_ext / rd : 0.0f;
+    const bool snow_wet = (snow > 0.0f) && (wsr > c.wet_snow_form_r);
+    if (snow > 0.0f) {
+      ice = ice + dep;
+      dep = 0.0f;
+    }
+    const float mm = 1000.0f * (q2 * dt) / c.melt_heat;
+    {
+      const bool has_snow = snow > 0.0f;
+      const bool melt_f = has_snow && c.force_snow;
+      const bool melts =
+          has_snow && !melt_f && (q2 > 0.0f) && (ts >= c.t_lim_melt_snow);
+      if (melt_f) {
+        wat = wat + snow;
+        snow = 0.0f;
+      } else if (melts) {
+        wat = wat + mm;
+        snow = snow - mm;
+      }
+    }
+    if (snow > 0.0f) {
+      snow = snow - snow_tran;
+      ice = ice + s2i * snow_tran;
+      ice2 = ice2 + s2i * snow_tran;
+    }
+    {
+      const bool wet_block = (snow > 0.0f) && snow_wet;
+      if (wet_block && (wsr > c.wet_snow_melt_r)) {
+        wat = wat + snow;
+        snow = 0.0f;
+      }
+      if (wet_block && (ts < c.t_lim_freeze)) {
+        const float amt2 = snow + wat;
+        ice = ice + amt2;
+        ice2 = ice2 + amt2;
+        snow = 0.0f;
+        wat = 0.0f;
+      }
+    }
+    if (snow < c.min_snow_mms) snow = 0.0f;
+    if (snow > c.max_snow_mms) snow = snow - c.half_max_snow;
+
+    if ((ts < c.t_lim_freeze) && (wat > 0.0f)) {
+      ice = ice + wat;
+      ice2 = ice2 + wat;
+      wat = 0.0f;
+    }
+    {
+      const bool meltable = (snow <= 0.0f) && (ice > 0.0f);
+      const bool melt_f = meltable && c.force_ice;
+      const bool melts =
+          meltable && !melt_f && (q2 > 0.0f) && (ts >= c.t_lim_melt_ice);
+      if (melt_f) {
+        wat = wat + ice;
+        ice = 0.0f;
+        ice2 = 0.0f;
+      } else if (melts) {
+        wat = wat + mm;
+        ice = ice - mm;
+        ice2 = ice2 - mm;
+      }
+    }
+    if (ice > 0.0f) ice = ice - ice_wear;
+    if (ice2 > 0.0f) ice2 = ice2 - ice_wear2;
+    if (ice < c.min_ice_mms) ice = 0.0f;
+    ice = nmin(ice, c.max_ice_mms);
+    if (ice2 < c.min_ice_mms) ice2 = 0.0f;
+    ice2 = nmin(ice2, c.max_ice_mms);
+
+    if (evap < 0.0f) dep = dep - evap;
+    if (ts > c.t_lim_melt_dep) {
+      wat = wat + dep;
+      dep = 0.0f;
+    }
+    if ((snow <= 0.0f) && (dep > 0.0f)) dep = dep - dep_wear;
+    if (dep < c.min_dep_mms) dep = 0.0f;
+    if (dep > c.max_dep_mms) wat = wat + dep - c.max_dep_mms;
+    dep = nmin(dep, c.max_dep_mms);
+
+    if (wat < c.min_wat_mms) wat = 0.0f;
+    wat = nmin(wat, c.max_wat_mms);
+
+    float q2n = 0.0f;
+    float t4n = t4m;
+    if (snow > 0.0f) {
+      q2n = c.melt_heat * (snow / 1000.0f) / dt;
+      t4n = c.t_lim_melt_snow;
+    } else if (ice > 0.0f) {
+      q2n = c.melt_heat * (ice / 1000.0f) / dt;
+      t4n = c.t_lim_melt_ice;
+    }
+    q2n = nmax(q2n, 0.0f);
+
+    const float ice_sum = nmax(0.5f * (ice + ice2) + dep, 0.0f);
+    const bool snowy_a = (snow > 0.01f) && (snow > ice);
+    const bool icy_a = (ice > 0.01f) || (dep > 0.01f);
+    const float icy_alb =
+        ice_sum < 1.5f ? c.alb_dry + (ice_sum / 1.5f) * c.alb_span : c.alb_snow;
+    alb = snowy_a ? c.alb_snow : (icy_a ? icy_alb : c.alb_dry);
+
+    // commit (this point was active): the profile was updated in place
+    tsurf = tsurf_new;
+    q2m = q2n;
+    t4m = t4n;
+    evap_s = evap;
+    blc = bl;
+    vcold_f = vcold ? 1.0f : 0.0f;
+    failed_f = nmax(failed ? 1.0f : 0.0f, failed_f);
+
+    if (hit && row < c.n_out) {
+      float* o = out + ((int64_t)row * N_OUT_FIELDS) * PP + p;
+      o[0] = tsurf;
+      o[1 * PP] = wat;
+      o[2 * PP] = snow;
+      o[3 * PP] = ice;
+      o[4 * PP] = ice2;
+      o[5 * PP] = dep;
+      o[6 * PP] = 0.0f;
+      o[7 * PP] = 0.0f;
+    }
+  }
+
+  // write back: rows 0..L from registers, the rest passed through
+#pragma unroll
+  for (int k = 0; k <= LM; ++k)
+    if (k <= L) tmp_out[k * PP + p] = tmp[k];
+  for (int k = L + 1; k < c.lpad; ++k) tmp_out[k * PP + p] = tmp0[k * PP + p];
+  scal_out[R_TSURF * PP + p] = tsurf;
+  scal_out[R_WAT * PP + p] = wat;
+  scal_out[R_SNOW * PP + p] = snow;
+  scal_out[R_ICE * PP + p] = ice;
+  scal_out[R_ICE2 * PP + p] = ice2;
+  scal_out[R_DEP * PP + p] = dep;
+  scal_out[R_Q2MELT * PP + p] = q2m;
+  scal_out[R_T4MELT * PP + p] = t4m;
+  scal_out[R_EVAP * PP + p] = evap_s;
+  scal_out[R_BLCOND * PP + p] = blc;
+  scal_out[R_ALBEDO * PP + p] = alb;
+  scal_out[R_VERYCOLD * PP + p] = vcold_f;
+  scal_out[R_FAILED * PP + p] = failed_f;
+  for (int r = R_FAILED + 1; r < NROWS; ++r)
+    scal_out[r * PP + p] = scal0[r * PP + p];
+}
+
+extern "C" {
+
+// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
+int roadsurf_scan(const ScanConsts* c, const float* tmp0, const float* scal0,
+                  const float* forcing, float* tmp_out, float* scal_out,
+                  float* out, int P, int nsteps, int off, int out_base,
+                  void* stream) {
+  if (P <= 0 || c->L < 1 || c->L > LMAX_ALL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((P + BLOCK - 1) / BLOCK);
+  cudaStream_t s = (cudaStream_t)stream;
+#define LAUNCH(LM, DEPTH)                                                 \
+  scan_kernel<LM, DEPTH><<<grid, BLOCK, 0, s>>>(*c, tmp0, scal0, forcing, \
+                                                tmp_out, scal_out, out, P, \
+                                                nsteps, off, out_base)
+  if (c->L <= 16) {
+    if (c->use_depth) LAUNCH(16, true); else LAUNCH(16, false);
+  } else {
+    if (c->use_depth) LAUNCH(32, true); else LAUNCH(32, false);
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// sizeof(ScanConsts), checked against the ctypes mirror before any launch
+int roadsurf_consts_size(void) { return (int)sizeof(ScanConsts); }
+
+const char* roadsurf_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,0 +1,282 @@
+"""Forcing preparation: one vectorized [T, P] pass over the weather inputs.
+
+The counterpart of ``roadsurf_tpu/forcing.py``.  The reference evaluates
+input validation, relaxation smoothing, precipitation typing, solar position
+and sky-view radiation correction scalar-per-step inside the time loop
+(examples/example1/src/Simulation.f90:58-95).  All of those are pure
+functions of (forcing, time, location) -- none touch prognostic state -- so
+they are hoisted out of the sequential scan into a single batched pass here.
+The scan step then only consumes the channels in :class:`Prepared`.
+
+Index conventions: step t (0-based) corresponds to the reference's 1-based
+loop index i = t + 1 and consumes forcing row t.  The final step t = T-1
+replicates the reference's ``lastValues`` quirks (no CheckValues, no
+relaxation, no obs forcing, frozen coupling flags;
+examples/example1/src/Simulation.f90:100-113, src/InputOutput.f90:169-198).
+
+Dtypes follow the JAX package under 64-bit mode: the relaxation decay is
+float64 and promotes what it touches; every channel is cast to the run dtype
+at the end (forcing.py:278-283).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import ModelSettings, PhysicsParams, MISSING
+from .physics import storage
+from .physics.radiation import modify_radiation
+from .physics.sun import elevation_azimuth, julian_ephemeris_day
+from .state import PointParams
+
+
+class Calendar(NamedTuple):
+    """Per-step UTC calendar of the simulation grid, [T] int numpy arrays."""
+    year: np.ndarray
+    month: np.ndarray
+    day: np.ndarray
+    hour: np.ndarray
+    minute: np.ndarray
+    second: np.ndarray
+
+    @classmethod
+    def from_epochs(cls, epochs: np.ndarray) -> "Calendar":
+        dt64 = np.asarray(epochs, dtype="datetime64[s]")
+        y = dt64.astype("datetime64[Y]").astype(int) + 1970
+        mo = dt64.astype("datetime64[M]").astype(int) % 12 + 1
+        d = (dt64.astype("datetime64[D]") - dt64.astype("datetime64[M]")).astype(int) + 1
+        h = (dt64.astype("datetime64[h]") - dt64.astype("datetime64[D]")).astype(int)
+        mi = (dt64.astype("datetime64[m]") - dt64.astype("datetime64[h]")).astype(int)
+        s = (dt64.astype("datetime64[s]") - dt64.astype("datetime64[m]")).astype(int)
+        return cls(y, mo, d, h, mi, s)
+
+    @classmethod
+    def from_start(cls, start_epoch: int, dt: float, sim_len: int) -> "Calendar":
+        epochs = start_epoch + (np.arange(sim_len) * dt).astype(np.int64)
+        return cls.from_epochs(epochs)
+
+    @property
+    def jde(self) -> np.ndarray:
+        return julian_ephemeris_day(self.year, self.month, self.day,
+                                    self.hour, self.minute, self.second)
+
+
+class RawForcing(NamedTuple):
+    """Interpolated-to-grid weather inputs, [P, T] float (missing = -9999.9
+    except lw_net whose missing threshold is -1000; src/InputArrays.f90.inc)."""
+    tair: torch.Tensor
+    tdew: torch.Tensor
+    vz: torch.Tensor
+    rhz: torch.Tensor
+    prec: torch.Tensor       #: mm/h
+    sw: torch.Tensor
+    lw: torch.Tensor
+    sw_dir: torch.Tensor
+    lw_net: torch.Tensor
+    tsurf_obs: torch.Tensor
+    prec_phase: torch.Tensor  #: int codes, missing = -9999
+
+
+class Prepared(NamedTuple):
+    """Scan-ready forcing, time-major [T, P] (plus [T] shared channels)."""
+    tair: torch.Tensor
+    vz: torch.Tensor          #: relaxed + calm-limit floored
+    rhz: torch.Tensor
+    rain: torch.Tensor        #: mm added to water storage this step
+    snow: torch.Tensor        #: mm added to snow storage this step
+    sw: torch.Tensor          #: effective SW (sky-view modified)
+    lw: torch.Tensor          #: effective LW
+    tsurf_obs: torch.Tensor   #: obs to force into the profile, else -9999.9
+    valid: torch.Tensor       #: bool, CheckValues outcome
+    in_coupling: torch.Tensor  #: bool, melting-guard coupling phase flag
+    trf_fric: torch.Tensor    #: [T] traffic friction heat
+
+
+def relax_anchors(raw: RawForcing, pts: PointParams):
+    """Relaxation anchor values (X_initEnd, src/Relaxation.f90:10-47): the
+    forcing at the 0-based anchor step init_len-1, with the first-step wind
+    floor applied first (Initialization.f90:121-123).  raw: [P, T];
+    returns ([P] tair, vz, rhz).
+
+    numpy in -> numpy out (host data plane); tensors in -> tensors out."""
+    if not isinstance(raw.tair, torch.Tensor):
+        tair = np.asarray(raw.tair)
+        vz = np.array(raw.vz)
+        rhz = np.asarray(raw.rhz)
+        vz[..., 0] = np.maximum(vz[..., 0], 0.4)
+        t0 = np.maximum(np.asarray(pts.init_len, np.int64) - 1, 0)[..., None]
+        anchor = lambda x: np.take_along_axis(x, t0, axis=-1)[..., 0]
+        return anchor(tair), anchor(vz), anchor(rhz)
+    vz = raw.vz.clone()
+    vz[..., 0] = torch.clamp(vz[..., 0], min=0.4)
+    t0 = torch.clamp(torch.as_tensor(pts.init_len, device=vz.device)
+                     .to(torch.int64) - 1, min=0)[..., None]
+    anchor = lambda x: torch.gather(x, -1, t0)[..., 0]
+    return anchor(raw.tair), anchor(vz), anchor(raw.rhz)
+
+
+def prepare_window(rawT: RawForcing, pts: PointParams, hour, settings, p,
+                   t_offset=0, t_total: int = None, anchors=None, jde=None,
+                   enable_skyview: bool = False) -> Prepared:
+    """Window-parameterized, time-major forcing preparation
+    (forcing.py:127-283, the ``[Tc, P]`` layout).
+
+    The production engine streams forcing in time chunks; every
+    step-dependent rule here is written analytically in the GLOBAL step
+    index, so chunked calls compose to exactly ``prepare``'s output.
+
+    rawT: RawForcing with TIME-MAJOR [Tc, P] tensor leaves covering global
+    steps [t_offset, t_offset + Tc); pts: [P] tensors on the same device;
+    hour: [Tc] UTC hours tensor; t_total: full simulation length T (for the
+    first/last-step quirks); anchors: the ``relax_anchors`` triple (required
+    when settings.use_relaxation); jde: [Tc] julian ephemeris day tensor
+    (required when ``enable_skyview``).
+    """
+    dtype = rawT.tair.dtype
+    dev = rawT.tair.device
+    Tc = rawT.tair.shape[0]
+    t_idx = t_offset + torch.arange(Tc, device=dev)   # [Tc] global step index
+
+    def tb(x):                                    # [Tc] -> [Tc, 1]
+        return x[:, None]
+
+    def pvec(x):                                  # [P] -> [1, P]
+        return x[None, :]
+
+    last = tb(t_idx == t_total - 1)               # the lastValues step
+
+    skyview_active = (pts.sky_view < 1.0) & (pts.sky_view > -0.01)
+
+    # --- CheckValues (src/InputOutput.f90:45-84); the final step skips it
+    # (Simulation.f90:100-113) --------------------------------------------
+    ok = ((rawT.tair >= -90.0) & (rawT.tair <= 100.0)
+          & (rawT.tdew >= -90.0) & (rawT.tdew <= 100.0)
+          & (rawT.rhz >= -0.1) & (rawT.rhz <= 120.0)
+          & (rawT.vz >= -1.0) & (rawT.vz <= 100.0)
+          & (rawT.sw >= -0.1) & (rawT.sw <= 4000.0)
+          & (rawT.lw >= -0.1) & (rawT.lw <= 1000.0)
+          & (rawT.prec >= -0.1) & (rawT.prec <= 500.0))
+    sky_ok = ((rawT.sw_dir >= -0.1) & (rawT.sw_dir <= 4000.0)
+              & (rawT.lw_net >= -1000.0) & (rawT.lw_net <= 1000.0))
+    ok = ok & (sky_ok | ~pvec(skyview_active))
+    valid = ok | last
+
+    # Initialization.f90:121-123 -- first wind value floored before anything
+    vz = torch.where(tb(t_idx == 0), torch.clamp(rawT.vz, min=0.4), rawT.vz)
+
+    # CheckValues SW_dir <= SW clamp (InputOutput.f90:75-77); the last step
+    # skips CheckValues, so the clamp is masked off there.
+    sw_dir = torch.where(last, rawT.sw_dir,
+                         torch.minimum(rawT.sw_dir, rawT.sw))
+
+    # --- sky view / local horizons (ModRadiation, applied per point where
+    # 0 <= sky_view < 1; Simulation.f90:152-155) -------------------------
+    sw, lw = rawT.sw, rawT.lw
+    if enable_skyview:
+        elev, azim = elevation_azimuth(tb(jde.to(dtype)), pvec(pts.lat),
+                                       pvec(pts.lon))
+        sw_m, lw_m = modify_radiation(sw, sw_dir, lw, rawT.lw_net,
+                                      elev, azim, pvec(pts.sky_view),
+                                      pts.horizons, p)
+        sw = torch.where(pvec(skyview_active), sw_m, sw)
+        lw = torch.where(pvec(skyview_active), lw_m, lw)
+
+    # --- relaxation (RelaxationOperations, src/Relaxation.f90:10-47) ----
+    # atm%TDew's recompute in the reference is a dead store (forcing.py:
+    # 213-218), so the boundary layer consumes rhz directly.
+    tair, rhz = rawT.tair, rawT.rhz
+    relax_valid = ((pts.tair_relax >= -100.0) & (pts.tair_relax <= 100.0)
+                   & (pts.vz_relax >= 0.0) & (pts.vz_relax <= 100.0)
+                   & (pts.rh_relax >= 0.0) & (pts.rh_relax <= 110.0))
+    relax_on = relax_valid & bool(settings.use_relaxation)
+    if settings.use_relaxation:
+        if anchors is None:
+            raise ValueError("relaxation requires relax_anchors()")
+        tair_a, vz_a, rhz_a = anchors
+        t0 = pvec(pts.init_len.to(torch.int64) - 1)  # 0-based anchor step
+        tcol = tb(t_idx)
+        # adjustment applies for 1-based i > InitLenI, i.e. t >= init_len,
+        # and never to the final step (lastValues)
+        adj_mask = (tcol >= t0 + 1) & (~last) & pvec(relax_on)
+        decay = torch.exp(-(settings.dt * (tcol - t0).to(torch.float64))
+                          / (4.0 * 3600.0))
+        tair = torch.where(adj_mask,
+                           tair - (pvec(pts.tair_relax) - pvec(tair_a)) * decay,
+                           tair)
+        vz = torch.where(adj_mask,
+                         vz - (pvec(pts.vz_relax) - pvec(vz_a)) * decay, vz)
+        rhz_adj = rhz - (pvec(pts.rh_relax) - pvec(rhz_a)) * decay
+        rhz = torch.where(adj_mask, torch.clamp(rhz_adj, max=100.0), rhz)
+
+    # --- day/night traffic + wind floor (SetDayDependendVariables,
+    # src/BalanceModel.f90:354-387) --------------------------------------
+    is_night = (hour >= p.night_on) | (hour <= p.night_off)
+    pick = lambda a, b: torch.where(
+        is_night, torch.tensor(a, dtype=dtype, device=dev),
+        torch.tensor(b, dtype=dtype, device=dev))
+    calm_lim = pick(p.calm_lim_ngt, p.calm_lim_day)
+    trf_fric = pick(p.trf_fric_ngt, p.trf_fric_day)
+    vz = torch.maximum(vz, tb(calm_lim))
+
+    # --- precipitation typing (pure in forcing after relaxation) --------
+    prec_step = rawT.prec / 3600.0 * settings.dt  # SetCurrentValues :111
+    rain, snow, _ = storage.calc_prec_type(rawT.prec_phase, prec_step,
+                                           tair, rhz, p)
+
+    # --- obs forcing of the surface temperature (SetCurrentValues,
+    # src/InputOutput.f90:116-148) ---------------------------------------
+    tcol = tb(t_idx)
+    in_init = (tcol + 1) <= pvec(pts.init_len)
+    force_phase = in_init | bool(settings.force_tsurf)
+    coupling_on = ((pts.coupling_end >= 1)
+                   & (pts.coupling_tsurf > -100.0)
+                   & bool(settings.use_coupling))
+    before_window = (~pvec(coupling_on)) | ((tcol + 1) < pvec(pts.coupling_start))
+    obs_ok = rawT.tsurf_obs > -100.0
+    forced = force_phase & obs_ok & before_window & (~last)
+    tsurf_obs = torch.where(forced, rawT.tsurf_obs,
+                            torch.full_like(rawT.tsurf_obs, MISSING))
+
+    # --- coupling-phase flag for the melting guard ----------------------
+    # the final step keeps the previous flag (no CouplingOperations1 there):
+    # the flag is analytic in t, so the last step evaluates it at t-1.
+    te = torch.where((t_idx == t_total - 1) & (t_total >= 2), t_idx - 1,
+                     t_idx)
+    tecol = tb(te)
+    in_coupling = (pvec(coupling_on)
+                   & ((tecol + 1) >= pvec(pts.coupling_start))
+                   & ((tecol + 1) <= pvec(pts.coupling_end)))
+
+    f = lambda x: x.to(dtype)
+    return Prepared(
+        tair=f(tair), vz=f(vz), rhz=f(rhz), rain=f(rain), snow=f(snow),
+        sw=f(sw), lw=f(lw), tsurf_obs=f(tsurf_obs),
+        valid=valid, in_coupling=in_coupling, trf_fric=trf_fric,
+    )
+
+
+def prepare(raw: RawForcing, pts: PointParams, cal: Calendar,
+            settings: ModelSettings, p: PhysicsParams) -> Prepared:
+    """Build the prepared forcing tensors.  raw/pts: [P, T] / [P] tensors on
+    one device; output [T, P].
+
+    Thin wrapper over :func:`prepare_window` with the full [0, T) window."""
+    T = raw.tair.shape[-1]
+    dtype = raw.tair.dtype
+    dev = raw.tair.device
+
+    skyview_active = (pts.sky_view < 1.0) & (pts.sky_view > -0.01)
+    enable_skyview = bool(skyview_active.any())
+    anchors = relax_anchors(raw, pts) if settings.use_relaxation else None
+    # the Julian day is rounded to the run dtype (forcing.py:301): a float32
+    # run sees the same rounded day as the JAX package
+    jde = (torch.as_tensor(cal.jde, device=dev).to(dtype)
+           if enable_skyview else None)
+    rawT = RawForcing(*(x.transpose(-1, 0) for x in raw))
+    return prepare_window(rawT, pts,
+                          torch.as_tensor(np.asarray(cal.hour), device=dev),
+                          settings, p, t_offset=0, t_total=T,
+                          anchors=anchors, jde=jde,
+                          enable_skyview=enable_skyview)

@@ -1,0 +1,77 @@
+"""Observability: phase timers and progress reporting.
+
+The counterpart of ``roadsurf_tpu/observability.py`` (``RunMetrics`` and
+``Progress``).  The reference's observability is stdout progress prints every
+1000 points (examples/example1/src/roadrunner.cpp:396-397).  Here:
+structured phase timers around setup/build/stream/output and a progress
+callback for chunked runs.
+"""
+from __future__ import annotations
+
+import contextlib
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import Dict
+
+
+@dataclass
+class RunMetrics:
+    """Collected phase timings + counters for one simulation run.
+
+    ``announce=True`` prints (flushed) phase start/end lines to stderr so
+    long device-bound phases (first device op waiting on a free chip, large
+    host->device transfers, kernel builds) are visible while in flight --
+    piped/verbose runs would otherwise sit silent for minutes."""
+    phases: Dict[str, float] = field(default_factory=dict)
+    counters: Dict[str, float] = field(default_factory=dict)
+    announce: bool = False
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        if self.announce:
+            print(f"[phase] {name} ...", file=sys.stderr, flush=True)
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.phases[name] = self.phases.get(name, 0.0) + dt
+            if self.announce:
+                print(f"[phase] {name} done in {dt:.1f}s", file=sys.stderr,
+                      flush=True)
+
+    def count(self, name: str, value: float):
+        self.counters[name] = value
+
+    def note(self, msg: str):
+        """One-line engine decision note (fast-path fallbacks etc.); printed
+        only in announce (verbose) mode so slow paths are never silent."""
+        if self.announce:
+            print(f"[engine] {msg}", file=sys.stderr, flush=True)
+
+
+class Progress:
+    """Chunk-level progress reporting (reference: every-1000-points prints;
+    here the batch is one device call, so progress is over time chunks)."""
+
+    def __init__(self, total_steps: int, every_s: float = 5.0,
+                 stream=sys.stderr):
+        self.total = total_steps
+        self.done = 0
+        self.every = every_s
+        self.stream = stream
+        self._last = 0.0
+        self._t0 = time.perf_counter()
+
+    def update(self, steps: int):
+        # chunk updates may overshoot on the padded tail; clamp to total
+        self.done = min(self.done + steps, self.total)
+        now = time.perf_counter()
+        if now - self._last >= self.every or self.done >= self.total:
+            rate = self.done / max(now - self._t0, 1e-9)
+            eta = (self.total - self.done) / max(rate, 1e-9)
+            print(f"\t{self.done} / {self.total} steps "
+                  f"({100.0 * self.done / self.total:.0f}%, eta {eta:.0f}s)",
+                  file=self.stream, flush=True)
+            self._last = now

@@ -1,0 +1,641 @@
+"""The whole-forecast scan: CUDA kernel wrapper, its plain torch version, and
+the packed state/forcing layouts.
+
+The counterpart of ``roadsurf_tpu/ops/pallas_step.py`` (``pallas_scan`` in
+its point-major mode, ``_make_kernel``, and the packing helpers at
+pallas_step.py:736-821).  The kernel itself is ``csrc/scan_kernel.cu``: one
+CUDA thread per road point runs every step of the chunk with the profile and
+the scalar state in registers.  ``scan`` dispatches on the tensors' device:
+CPU tensors take :func:`scan_reference`, CUDA tensors launch the kernel (or
+raise); nothing falls back.
+
+Layouts (unchanged from the JAX package, so both sides compare like with
+like): the profile is ``tmp [LPAD, P]`` (row 0 air, rows 1..L ground, row
+L+1 climatology, padded rows carried through); the per-point scalar state is
+row-packed into ``scal [NROWS, P]`` (rows ``R_*``); forcing is point-minor
+``[T, NCH, P]`` (channels ``C_*``), so one step's read of a channel is
+coalesced across a warp; output rows are ``[n_out, N_OUT_FIELDS, P]``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..config import PhysicsParams
+from ..grid import LayerGrid
+from ..step import StepConfig
+
+# ---- row indices into the packed scalar state [NROWS, P] (pallas_step.py:54-57)
+R_TSURF, R_WAT, R_SNOW, R_ICE, R_ICE2, R_DEP = 0, 1, 2, 3, 4, 5
+R_Q2MELT, R_T4MELT, R_EVAP, R_BLCOND, R_ALBEDO = 6, 7, 8, 9, 10
+R_VERYCOLD, R_FAILED = 11, 12          # 0.0 / 1.0 flags
+NROWS = 16
+
+# ---- forcing channel indices (axis 1 of [T, NCH, P]; pallas_step.py:59-67)
+# C_EAIR and C_AIRVCAP are pure functions of the raw forcing (tair, rhz),
+# precomputed once in pack_forcing: one exp and one divide fewer per step.
+C_TAIR, C_VZ, C_EAIR, C_RAIN, C_SNOW, C_SW, C_LW = 0, 1, 2, 3, 4, 5, 6
+C_TSURF_OBS, C_VALID, C_TRF, C_SWCOF, C_LWCOF, C_INCPL, C_CPLOBS = \
+    7, 8, 9, 10, 11, 12, 13
+C_AIRVCAP = 14
+NCH = 16
+
+N_OUT_FIELDS = 8  # tsurf, wat, snow, ice, ice2, dep, (2 zero pad)
+
+#: largest ``ModelSettings.nlayers`` the kernel holds in registers
+#: (the template buckets of csrc/scan_kernel.cu)
+LMAX = 32
+
+#: kernel launches by :func:`scan_cuda` in this process (the plain version
+#: does not count)
+LAUNCHES = 0
+
+
+class ScanConsts(ctypes.Structure):
+    """Mirror of ``struct ScanConsts`` in csrc/scan_kernel.cu: StepConfig,
+    the derived PhysicsParams and the grid arrays, passed to the kernel by
+    value.  Products of parameters are formed in float64 on the host and
+    rounded once, as the JAX kernel's weakly typed python constants are."""
+    _fields_ = (
+        [(n, ctypes.c_int) for n in (
+            "L", "lpad", "out_stride", "n_out", "bl_iters", "use_depth",
+            "depth_idx", "force_snow", "force_ice", "melt_change")]
+        + [(n, ctypes.c_float) for n in (
+            "dt", "tph", "depth_w",
+            "vk", "log_ustar", "log_cond", "log_mom", "log_heat", "stab_c",
+            "lvap", "lfus", "emiss", "emiss_sb", "dry1", "dry2",
+            "t_lim_cold_h", "t_lim_cold_l", "max_por_mms", "por_eva_f",
+            "w_wear_lim", "w_wet_lim", "damp_wear_f", "min_wat_mms",
+            "max_wat_mms", "t_lim_dew", "wet_snow_form_r",
+            "t_lim_melt_snow", "melt_heat", "wet_snow_melt_r",
+            "t_lim_freeze", "min_snow_mms", "max_snow_mms", "half_max_snow",
+            "t_lim_melt_ice", "min_ice_mms", "max_ice_mms", "t_lim_melt_dep",
+            "min_dep_mms", "max_dep_mms", "alb_dry", "alb_snow",
+            "alb_span")]
+        + [(n, ctypes.c_float * LMAX) for n in ("dyc", "cond_dz", "wcont")])
+
+
+def make_consts(cfg: StepConfig, p: PhysicsParams, grid: LayerGrid,
+                lpad: int, out_stride: int, n_out: int) -> ScanConsts:
+    L = grid.nlayers
+    c = ScanConsts(
+        L=L, lpad=lpad, out_stride=out_stride, n_out=n_out,
+        bl_iters=int(cfg.bl_max_iter), use_depth=int(bool(cfg.use_depth)),
+        depth_idx=int(cfg.depth_idx),
+        force_snow=int(bool(cfg.force_snow_melting)),
+        force_ice=int(bool(cfg.force_ice_melting)),
+        melt_change=int(bool(cfg.melting_can_change_temperature)),
+        dt=cfg.dt, tph=cfg.tph, depth_w=cfg.depth_w,
+        vk=p.vk_const, log_ustar=p.log_ustar, log_cond=p.log_cond,
+        log_mom=p.log_mom, log_heat=p.log_heat,
+        stab_c=-p.vk_const * p.zref_t * p.grav,
+        lvap=p.lvap, lfus=p.lfus, emiss=p.emiss,
+        emiss_sb=p.emiss * p.sb_const,
+        dry1=(1.0 - p.poro1) * p.vsh1, dry2=(1.0 - p.poro2) * p.vsh2,
+        t_lim_cold_h=p.t_lim_cold_h, t_lim_cold_l=p.t_lim_cold_l,
+        max_por_mms=p.max_por_mms, por_eva_f=p.por_eva_f,
+        w_wear_lim=p.w_wear_lim, w_wet_lim=p.w_wet_lim,
+        damp_wear_f=p.damp_wear_f, min_wat_mms=p.min_wat_mms,
+        max_wat_mms=p.max_wat_mms, t_lim_dew=p.t_lim_dew,
+        wet_snow_form_r=p.wet_snow_form_r,
+        t_lim_melt_snow=p.t_lim_melt_snow,
+        melt_heat=p.wat_m_heat * p.wat_dens,
+        wet_snow_melt_r=p.wet_snow_melt_r, t_lim_freeze=p.t_lim_freeze,
+        min_snow_mms=p.min_snow_mms, max_snow_mms=p.max_snow_mms,
+        half_max_snow=p.max_snow_mms / 2.0,
+        t_lim_melt_ice=p.t_lim_melt_ice, min_ice_mms=p.min_ice_mms,
+        max_ice_mms=p.max_ice_mms, t_lim_melt_dep=p.t_lim_melt_dep,
+        min_dep_mms=p.min_dep_mms, max_dep_mms=p.max_dep_mms,
+        alb_dry=p.alb_dry, alb_snow=p.alb_snow,
+        alb_span=p.alb_snow - p.alb_dry)
+    for name in ("dyc", "cond_dz", "wcont"):
+        arr = getattr(c, name)
+        for j, v in enumerate(np.asarray(getattr(grid, name), np.float32)):
+            arr[j] = float(v)
+    return c
+
+
+def _out_geometry(nsteps: int, out_stride: int, out_offset, n_out):
+    """(global offset, rows allocated, first global output row index):
+    pallas_step.py:639-645 and :380-382."""
+    if out_offset is None:
+        if n_out is not None:
+            raise ValueError("n_out is only given with out_offset")
+        off, n_rows = 0, -(-nsteps // out_stride)
+    else:
+        if n_out is None:
+            raise ValueError("out_offset requires an explicit n_out")
+        off, n_rows = int(out_offset), max(int(n_out), 1)
+    if off < 0:
+        raise ValueError(f"out_offset must be >= 0, got {off}")
+    return off, n_rows, -(-off // out_stride)
+
+
+# ---------------------------------------------------------------------------
+# the plain torch version (the kernel's own formulation, pallas_step.py:95-576)
+# ---------------------------------------------------------------------------
+
+def _sel(cond, a: float, b: float, like):
+    return torch.where(cond, torch.full_like(like, a),
+                       torch.full_like(like, b))
+
+
+def _esat(t):
+    # Magnus over ice/water with the coefficients selected per point, one
+    # exp (pallas_step.py:95-101; BoundaryLayer.f90:156-170)
+    a = _sel(t < 0.0, 21.875, 17.269, t)
+    b = _sel(t < 0.0, 265.5, 237.3, t)
+    return 0.61078 * torch.exp(a * t / (t + b))
+
+
+def _bl_fixed_point(blcond, tsurf, tair, vz, air_vcap, p: PhysicsParams,
+                    n_iter: int):
+    """Masked-freeze boundary-layer iteration with the carried 1/ustar
+    (pallas_step.py:104-172; BoundaryLayer.f90:60-101)."""
+    tak = tair + 273.15
+    dt_ts = tsurf - tair
+    inv_kvz = 1.0 / (p.vk_const * vz)
+    inv_avt = 1.0 / (air_vcap * tak)
+    stab_c = -p.vk_const * p.zref_t * p.grav
+    bl = blcond
+    psim = torch.zeros_like(blcond)
+    psih = torch.zeros_like(blcond)
+    done = torch.zeros_like(blcond, dtype=torch.bool)
+    for j in range(n_iter):
+        ustar_inv = (p.log_ustar + psim) * inv_kvz
+        bl_new = air_vcap * p.vk_const / ((p.log_cond + psih) * ustar_inv)
+        stab = (stab_c * bl_new * dt_ts * inv_avt
+                * ustar_inv * ustar_inv * ustar_inv)
+        stab = torch.clamp(stab, max=1.0)
+        psih_s = 4.7 * stab
+        psih_u = -2.0 * torch.log(
+            (1.0 + torch.sqrt(torch.clamp(1.0 - 16.0 * stab, min=0.0))) / 2.0)
+        stable = stab > 0.0
+        psih_n = torch.where(stable, psih_s, psih_u)
+        psim_n = torch.where(stable, psih_n, 0.6 * psih_n)
+        newly = (torch.abs(bl_new - bl) < 1e-3) & (j + 1 >= 5)
+        bl = torch.where(done, bl, bl_new)
+        psim = torch.where(done, psim, psim_n)
+        psih = torch.where(done, psih, psih_n)
+        done = done | newly
+        # frozen points stop changing, so leaving once all are done gives
+        # the fixed n_iter loop's result (pallas_step.py:144-150)
+        if (j + 1) % 5 == 0 and bool(done.all()):
+            break
+    return bl, psim, psih, inv_kvz
+
+
+def _surf_ave(tmp, cfg: StepConfig):
+    if cfg.use_depth:
+        i = cfg.depth_idx
+        return tmp[i] + cfg.depth_w * (tmp[i + 1] - tmp[i])
+    return (tmp[1] + tmp[2]) / 2.0
+
+
+def _stencil(tmp, bl, rnet, le, trf, dt, p, dyc, cond_dz, wcont, nlayers):
+    """CalcHCapHCond + calcProfile + calcHStor over the layers
+    (pallas_step.py:175-208; BalanceModel.f90:90-129, :189-251, :311-322);
+    tmp: list of [P] rows."""
+    sens = bl * (tmp[0] - tmp[1])
+    g_prev = rnet - le + trf + sens
+    hs1 = None
+    new = list(tmp)
+    for j in range(1, nlayers + 1):
+        t = tmp[j]
+        t2_ = t * t
+        roo = torch.where(t < 0.0, 920.0,
+                          -0.0050 * t2_ + 0.0079 * t + 1000.0028)
+        cw = torch.where(t < 0.0, 2100.0,
+                         0.0000102 * t2_ * t2_ - 0.0017169 * t2_ * t
+                         + 0.11516 * t2_ - 3.4739 * t + 4217.2)
+        chwt = roo * cw
+        if j <= 2:
+            vsh = (1.0 - p.poro1) * p.vsh1 + wcont[j - 1] * chwt
+        else:
+            vsh = (1.0 - p.poro2) * p.vsh2 + wcont[j - 1] * chwt
+        if j == 1:
+            hs1 = vsh * dyc[0] / dt
+        cap_dz = -1.0 / (dyc[j - 1] * vsh)
+        gflux = cond_dz[j - 1] * (tmp[j + 1] - tmp[j])
+        new[j] = tmp[j] + dt * cap_dz * (gflux - g_prev)
+        g_prev = gflux
+    t1a = (tmp[1] + 3.0 * tmp[2]) / 4.0
+    tna = (new[1] + 3.0 * new[2]) / 4.0
+    hstor = hs1 * (tna - t1a)
+    return new, hs1, hstor
+
+
+def _melting(tmp_new, tsurf, snow, ice, ice2, q2, t4, hstor, hs1,
+             in_cpl, last_obs, cfg, p):
+    """Storage.f90:319-402 on row layout (pallas_step.py:218-241)."""
+    zero = torch.zeros_like(q2)
+    has_frozen = (snow > 0.0) | (ice > 0.0) | (ice2 > 0.0)
+    q2_out = torch.where(has_frozen, q2, zero)
+    if not cfg.melting_can_change_temperature:
+        return tmp_new, q2_out
+    guard = ((hstor <= 0.00001) | (tsurf <= t4) | (q2 <= 0.0)
+             | (in_cpl & (last_obs < t4)))
+    cold = guard & (tsurf < 0.5)
+    hot = guard & (tsurf > 2.0)
+    qavail = hs1 * (tmp_new[1] - t4)
+    pin = has_frozen & (~cold) & (~hot)
+    all_used = q2 >= qavail
+    t1p = torch.where(all_used, t4 + 0.01, t4 + (qavail - q2) / hs1)
+    t2p = t4 + 0.01
+    tmp_out = list(tmp_new)
+    tmp_out[1] = torch.where(pin, t1p, tmp_new[1])
+    tmp_out[2] = torch.where(pin, t2p, tmp_new[2])
+    q2_out = torch.where(has_frozen & cold, zero, q2_out)
+    q2_out = torch.where(has_frozen & hot, torch.minimum(q2_out, qavail),
+                         q2_out)
+    q2_out = torch.where(pin & all_used, qavail, q2_out)
+    return tmp_out, q2_out
+
+
+def _road_cond(wat, snow, ice, ice2, dep, tsurf, evap, q2, t4, vcold,
+               cfg: StepConfig, p: PhysicsParams):
+    """WearFactors + RoadCond + CalcAlbedo (pallas_step.py:244-350;
+    src/Cond.f90, src/Storage.f90)."""
+    tph, dt = cfg.tph, cfg.dt
+    zero = torch.zeros_like(wat)
+    vcold = vcold & ~(vcold & (tsurf > p.t_lim_cold_h))
+    vcold = vcold | ((~vcold) & (tsurf < p.t_lim_cold_l))
+
+    snow_tran = torch.clamp(0.45 * snow, min=0.01)
+    snow_tran = torch.where(snow < 0.2, snow_tran * 3.0, snow_tran) * tph
+    ice_wear = torch.clamp(1.1 * 2.0 * 0.145 * ice, min=0.01) * tph
+    ice_wear2 = torch.clamp(1.1 * 2.0 * 4.0 * 0.290 * ice2, min=0.01) * tph
+    dep_wear = torch.clamp(0.5 * 2.0 * 4.0 * 0.290 * dep, min=0.01) * tph
+    wat_wear = 10.0 * torch.clamp(0.145 * wat, min=0.06) * tph
+    s2i = 0.25 / 0.45
+
+    bare = (snow <= 0.0) & (ice <= 0.0) & (dep <= 0.0) & (tsurf > p.t_lim_dew)
+    loss = torch.where(wat > p.max_por_mms, evap, p.por_eva_f * evap)
+    wat = torch.where(bare, wat - loss, wat)
+    wearing = wat > 0.0
+    ww = torch.where(wat < p.w_wear_lim, zero, wat_wear)
+    amt = torch.where(wat > p.w_wet_lim, ww, p.damp_wear_f * ww)
+    wat = torch.where(wearing, wat - amt, wat)
+    wat = torch.where(wat < p.min_wat_mms, zero, wat)
+    wat = torch.clamp(wat, max=p.max_wat_mms)
+    srf_ext = torch.clamp(wat - p.max_por_mms, min=0.0)
+
+    rd = srf_ext + snow
+    wsr = torch.where(rd > 0.001, srf_ext / rd, zero)
+    snow_wet = (snow > 0.0) & (wsr > p.wet_snow_form_r)
+    under = snow > 0.0
+    ice = torch.where(under, ice + dep, ice)
+    dep = torch.where(under, zero, dep)
+    has_snow = snow > 0.0
+    melt_f = has_snow & bool(cfg.force_snow_melting)
+    melts = has_snow & (~melt_f) & (q2 > 0.0) & (tsurf >= p.t_lim_melt_snow)
+    mm = 1000.0 * (q2 * dt) / (p.wat_m_heat * p.wat_dens)
+    wat = torch.where(melt_f, wat + snow, torch.where(melts, wat + mm, wat))
+    snow = torch.where(melt_f, zero, torch.where(melts, snow - mm, snow))
+    wearing = snow > 0.0
+    snow = torch.where(wearing, snow - snow_tran, snow)
+    ice = torch.where(wearing, ice + s2i * snow_tran, ice)
+    ice2 = torch.where(wearing, ice2 + s2i * snow_tran, ice2)
+    wet_block = (snow > 0.0) & snow_wet
+    melting_wet = wet_block & (wsr > p.wet_snow_melt_r)
+    wat = torch.where(melting_wet, wat + snow, wat)
+    snow = torch.where(melting_wet, zero, snow)
+    freezing = wet_block & (tsurf < p.t_lim_freeze)
+    amt2 = snow + wat
+    ice = torch.where(freezing, ice + amt2, ice)
+    ice2 = torch.where(freezing, ice2 + amt2, ice2)
+    snow = torch.where(freezing, zero, snow)
+    wat = torch.where(freezing, zero, wat)
+    snow = torch.where(snow < p.min_snow_mms, zero, snow)
+    snow = torch.where(snow > p.max_snow_mms, snow - p.max_snow_mms / 2.0,
+                       snow)
+
+    freezing = (tsurf < p.t_lim_freeze) & (wat > 0.0)
+    ice = torch.where(freezing, ice + wat, ice)
+    ice2 = torch.where(freezing, ice2 + wat, ice2)
+    wat = torch.where(freezing, zero, wat)
+    meltable = (snow <= 0.0) & (ice > 0.0)
+    melt_f = meltable & bool(cfg.force_ice_melting)
+    melts = meltable & (~melt_f) & (q2 > 0.0) & (tsurf >= p.t_lim_melt_ice)
+    wat = torch.where(melt_f, wat + ice, torch.where(melts, wat + mm, wat))
+    ice_n = torch.where(melt_f, zero, torch.where(melts, ice - mm, ice))
+    ice2 = torch.where(melt_f, zero, torch.where(melts, ice2 - mm, ice2))
+    ice = ice_n
+    ice = torch.where(ice > 0.0, ice - ice_wear, ice)
+    ice2 = torch.where(ice2 > 0.0, ice2 - ice_wear2, ice2)
+    ice = torch.where(ice < p.min_ice_mms, zero, ice)
+    ice = torch.clamp(ice, max=p.max_ice_mms)
+    ice2 = torch.where(ice2 < p.min_ice_mms, zero, ice2)
+    ice2 = torch.clamp(ice2, max=p.max_ice_mms)
+
+    dep = torch.where(evap < 0.0, dep - evap, dep)
+    melting = tsurf > p.t_lim_melt_dep
+    wat = torch.where(melting, wat + dep, wat)
+    dep = torch.where(melting, zero, dep)
+    wearing = (snow <= 0.0) & (dep > 0.0)
+    dep = torch.where(wearing, dep - dep_wear, dep)
+    dep = torch.where(dep < p.min_dep_mms, zero, dep)
+    over = dep > p.max_dep_mms
+    wat = torch.where(over, wat + dep - p.max_dep_mms, wat)
+    dep = torch.clamp(dep, max=p.max_dep_mms)
+
+    wat = torch.where(wat < p.min_wat_mms, zero, wat)
+    wat = torch.clamp(wat, max=p.max_wat_mms)
+
+    snowy = snow > 0.0
+    q2n = torch.where(snowy,
+                      p.wat_m_heat * p.wat_dens * (snow / 1000.0) / dt, zero)
+    t4n = torch.where(snowy, torch.full_like(t4, p.t_lim_melt_snow), t4)
+    icy = (~snowy) & (ice > 0.0)
+    q2n = torch.where(icy, p.wat_m_heat * p.wat_dens * (ice / 1000.0) / dt,
+                      q2n)
+    t4n = torch.where(icy, torch.full_like(t4, p.t_lim_melt_ice), t4n)
+    q2n = torch.clamp(q2n, min=0.0)
+
+    ice_sum = torch.clamp(0.5 * (ice + ice2) + dep, min=0.0)
+    snowy_a = (snow > 0.01) & (snow > ice)
+    icy_a = (ice > 0.01) | (dep > 0.01)
+    icy_alb = torch.where(
+        ice_sum < 1.5, p.alb_dry + (ice_sum / 1.5) * (p.alb_snow - p.alb_dry),
+        torch.full_like(ice_sum, p.alb_snow))
+    albedo = torch.full_like(wat, p.alb_dry)
+    albedo = torch.where(snowy_a, torch.full_like(wat, p.alb_snow),
+                         torch.where(icy_a & ~snowy_a, icy_alb, albedo))
+    return wat, snow, ice, ice2, dep, vcold, q2n, t4n, albedo
+
+
+def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
+                   grid: LayerGrid, out_stride: int = 1, nsteps: int = None, out_offset=None, n_out: int = None):
+    """The kernel's semantics in plain torch ops, on any device: the same
+    signature, layouts and results as :func:`scan_cuda`.
+
+    tmp0: [LPAD, P] f32 profile; scal0: [NROWS, P] f32 packed state;
+    forcing: [T, NCH, P] f32.  Steps ``t < nsteps`` run (default T); an
+    output row is written where ``(out_offset + t) % out_stride == 0``, at
+    row ``(out_offset + t) // out_stride - ceil(out_offset / out_stride)``
+    of ``n_out`` rows (``n_out`` is required with ``out_offset``; without
+    it, ``ceil(nsteps / out_stride)`` rows from step 0).  Fields 6 and 7
+    are zero; a point that failed before the step outputs -9999.  The
+    boundary-layer fixed point runs at most ``cfg.bl_max_iter`` iterations.
+
+    Returns (tmp [LPAD, P], scal [NROWS, P], out [n_out, N_OUT_FIELDS, P]).
+    """
+    lpad, P = tmp0.shape
+    T = forcing.shape[0]
+    nsteps = T if nsteps is None else int(nsteps)
+    if not 0 < nsteps <= T:
+        raise ValueError(f"nsteps {nsteps} outside (0, {T}]")
+    off, n_rows, out_base = _out_geometry(nsteps, out_stride, out_offset,
+                                          n_out)
+    nlayers = grid.nlayers
+    f32 = lambda a: tuple(float(v) for v in np.asarray(a, np.float32))
+    dyc, cond_dz, wcont = f32(grid.dyc), f32(grid.cond_dz), f32(grid.wcont)
+    dt = cfg.dt
+
+    tmp = [tmp0[j].clone() for j in range(lpad)]
+    sc = [scal0[r].clone() for r in range(NROWS)]
+    out = torch.zeros((n_rows, N_OUT_FIELDS, P), dtype=torch.float32,
+                      device=tmp0.device)
+    for t in range(nsteps):
+        f = forcing[t]
+        tg = off + t
+        tair = f[C_TAIR]
+        failed_prev = sc[R_FAILED] > 0.5
+        tsurf = sc[R_TSURF]
+        abnormal = (tsurf < -100.0) | (tsurf > 100.0)
+        failed = failed_prev | (f[C_VALID] < 0.5) | abnormal
+        active = ~failed_prev
+
+        # SetCurrentValues + obs forcing
+        obs = f[C_TSURF_OBS]
+        force_obs = obs > -100.0
+        cur = list(tmp)
+        cur[0] = tair
+        cur[1] = torch.where(force_obs, obs, tmp[1])
+        cur[2] = torch.where(force_obs, obs, tmp[2])
+        tsurf = torch.where(force_obs, _surf_ave(cur, cfg), tsurf)
+
+        # precipitation to storage
+        wat = sc[R_WAT] + f[C_RAIN]
+        snow = sc[R_SNOW] + f[C_SNOW]
+        ice, ice2, dep = sc[R_ICE], sc[R_ICE2], sc[R_DEP]
+
+        # boundary layer + latent heat
+        vz = f[C_VZ]
+        air_vcap = f[C_AIRVCAP]
+        bl, psim, psih, inv_kvz = _bl_fixed_point(
+            sc[R_BLCOND], tsurf, tair, vz, air_vcap, p, cfg.bl_max_iter)
+        raero = torch.clamp((p.log_mom + psim) * (p.log_heat + psih)
+                            * (inv_kvz / p.vk_const), max=30.0)
+        tak = tair + 273.15
+        psych_c = 0.1 * (0.00063 * tak + 0.47496)
+        wat_den = -0.0050 * tsurf * tsurf + 0.0079 * tsurf + 1000.0028
+        esurf = _esat(tsurf)
+        le = air_vcap * (esurf - f[C_EAIR]) / (psych_c * raero)
+        lheat = _sel(tsurf >= 0.0, p.lvap, p.lfus, tsurf)
+        evap = le / (lheat * wat_den) * 1000.0 * dt
+        dry = (le > 0.0) & (wat <= 0.0)
+        le = torch.where(dry, torch.zeros_like(le), le)
+        evap = torch.where(dry, torch.zeros_like(evap), evap)
+
+        # net radiation
+        tk = tsurf + 273.15
+        tk2 = tk * tk
+        rnet = ((1.0 - sc[R_ALBEDO]) * f[C_SW] * f[C_SWCOF]
+                + p.emiss * f[C_LW] * f[C_LWCOF]
+                - p.emiss * p.sb_const * tk2 * tk2)
+
+        # stencil + melting limiter
+        new_tmp, hs1, hstor = _stencil(cur, bl, rnet, le, f[C_TRF], dt, p,
+                                       dyc, cond_dz, wcont, nlayers)
+        new_tmp, q2 = _melting(new_tmp, tsurf, snow, ice, ice2,
+                               sc[R_Q2MELT], sc[R_T4MELT], hstor, hs1,
+                               f[C_INCPL] > 0.5, f[C_CPLOBS], cfg, p)
+        tsurf_new = _surf_ave(new_tmp, cfg)
+
+        # storages
+        (wat, snow, ice, ice2, dep, vcold, q2, t4, albedo) = _road_cond(
+            wat, snow, ice, ice2, dep, tsurf_new, evap, q2, sc[R_T4MELT],
+            sc[R_VERYCOLD] > 0.5, cfg, p)
+
+        # commit (mask by active)
+        sel = lambda n, o: torch.where(active, n, o)
+        tmp = [sel(n, o) for n, o in zip(new_tmp, tmp)]
+        new_rows = {
+            R_TSURF: tsurf_new, R_WAT: wat, R_SNOW: snow, R_ICE: ice,
+            R_ICE2: ice2, R_DEP: dep, R_Q2MELT: q2, R_T4MELT: t4,
+            R_EVAP: evap, R_BLCOND: bl, R_ALBEDO: albedo,
+            R_VERYCOLD: vcold.to(torch.float32)}
+        for r, v in new_rows.items():
+            sc[r] = sel(v, sc[r])
+        sc[R_FAILED] = torch.maximum(failed.to(torch.float32), sc[R_FAILED])
+
+        # output at the GLOBAL stride; the step failing CheckValues still
+        # emits, later steps are poisoned (step.py semantics)
+        if tg % out_stride == 0:
+            row = tg // out_stride - out_base
+            if row < n_rows:
+                for k, r in enumerate((R_TSURF, R_WAT, R_SNOW, R_ICE,
+                                       R_ICE2, R_DEP)):
+                    out[row, k] = torch.where(
+                        failed_prev, torch.full_like(sc[r], -9999.0), sc[r])
+    return torch.stack(tmp), torch.stack(sc), out
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _check(name, x, shape, device):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, expected {device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
+              grid: LayerGrid, out_stride: int = 1, nsteps: int = None, out_offset=None, n_out: int = None):
+    """Launch csrc/scan_kernel.cu on CUDA tensors; the arguments and results
+    of :func:`scan_reference`.  Runs on the current stream, does not
+    synchronise, and raises if the launch is refused."""
+    global LAUNCHES
+    from . import build
+
+    if tmp0.device.type != "cuda":
+        raise ValueError(f"scan_cuda needs CUDA tensors, got {tmp0.device}")
+    lpad, P = tmp0.shape
+    T = forcing.shape[0]
+    nlayers = grid.nlayers
+    if not 1 <= nlayers <= LMAX:
+        raise ValueError(f"nlayers {nlayers} outside the kernel's 1..{LMAX}")
+    if lpad < nlayers + 2:
+        raise ValueError(f"tmp0 has {lpad} rows, need >= {nlayers + 2}")
+    if P <= 0:
+        raise ValueError("no points")
+    _check("tmp0", tmp0, (lpad, P), tmp0.device)
+    _check("scal0", scal0, (NROWS, P), tmp0.device)
+    _check("forcing", forcing, (T, NCH, P), tmp0.device)
+    nsteps = T if nsteps is None else int(nsteps)
+    if not 0 < nsteps <= T:
+        raise ValueError(f"nsteps {nsteps} outside (0, {T}]")
+    if out_stride < 1 or cfg.bl_max_iter < 0:
+        raise ValueError("out_stride must be >= 1 and bl_max_iter >= 0")
+    off, n_rows, out_base = _out_geometry(nsteps, out_stride, out_offset,
+                                          n_out)
+    if off + nsteps >= 2 ** 31:
+        raise ValueError("global step index overflows int32")
+
+    consts = make_consts(cfg, p, grid, lpad, int(out_stride), n_rows)
+    tmp_f = torch.empty_like(tmp0)
+    scal_f = torch.empty_like(scal0)
+    out = torch.empty((n_rows, N_OUT_FIELDS, P), dtype=torch.float32,
+                      device=tmp0.device)
+    lib = build.load()
+    stream = torch.cuda.current_stream(tmp0.device).cuda_stream
+    with torch.cuda.device(tmp0.device):
+        rc = lib.roadsurf_scan(
+            ctypes.addressof(consts), tmp0.data_ptr(), scal0.data_ptr(),
+            forcing.data_ptr(), tmp_f.data_ptr(), scal_f.data_ptr(),
+            out.data_ptr(), P, nsteps, off, out_base, stream)
+    if rc != 0:
+        raise RuntimeError(f"scan kernel launch failed: CUDA error {rc} "
+                           f"({build.error_string(rc)})")
+    LAUNCHES += 1
+    return tmp_f, scal_f, out
+
+
+def scan(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
+         grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
+         out_offset=None, n_out: int = None):
+    """The whole-scan entry point (pallas_step.py:579 ``pallas_scan``):
+    CPU tensors run :func:`scan_reference`, CUDA tensors the kernel."""
+    args = (tmp0, scal0, forcing, cfg, p, grid, out_stride, nsteps,
+            out_offset, n_out)
+    if tmp0.device.type == "cpu":
+        return scan_reference(*args)
+    if tmp0.device.type == "cuda":
+        return scan_cuda(*args)
+    raise ValueError(f"no scan kernel for device {tmp0.device}")
+
+
+# ---------------------------------------------------------------------------
+# packing helpers: State/Prepared <-> kernel layouts (pallas_step.py:736-821)
+# ---------------------------------------------------------------------------
+
+def pack_state(state, lpad: int = None):
+    """State ([P] leaves, tmp [P, L+2]) -> (tmp0 [LPAD, P],
+    scal0 [NROWS, P]) float32 on the state's device."""
+    tmp = state.tmp.to(torch.float32).T                 # [L+2, P]
+    l2, P = tmp.shape
+    lpad = lpad or -(-l2 // 8) * 8
+    tmp0 = torch.zeros((lpad, P), dtype=torch.float32, device=tmp.device)
+    tmp0[:l2] = tmp
+    scal0 = torch.zeros((NROWS, P), dtype=torch.float32, device=tmp.device)
+    for r, x in ((R_TSURF, state.tsurf_ave), (R_WAT, state.wat),
+                 (R_SNOW, state.snow), (R_ICE, state.ice),
+                 (R_ICE2, state.ice2), (R_DEP, state.dep),
+                 (R_Q2MELT, state.q2melt), (R_T4MELT, state.t4melt),
+                 (R_EVAP, state.evap), (R_BLCOND, state.blcond),
+                 (R_ALBEDO, state.albedo), (R_VERYCOLD, state.very_cold),
+                 (R_FAILED, state.failed)):
+        scal0[r] = x.to(torch.float32)
+    return tmp0, scal0
+
+
+def unpack_state(tmp_f, scal_f, nlayers: int, state_template):
+    """Inverse of pack_state (keeps the template's float dtype)."""
+    dt = state_template.tmp.dtype
+    row = lambda r: scal_f[r].to(dt)
+    return state_template._replace(
+        tmp=tmp_f[:nlayers + 2].T.to(dt).contiguous(),
+        tsurf_ave=row(R_TSURF), wat=row(R_WAT), snow=row(R_SNOW),
+        ice=row(R_ICE), ice2=row(R_ICE2), dep=row(R_DEP),
+        q2melt=row(R_Q2MELT), t4melt=row(R_T4MELT), evap=row(R_EVAP),
+        blcond=row(R_BLCOND), albedo=row(R_ALBEDO),
+        very_cold=scal_f[R_VERYCOLD] > 0.5,
+        failed=scal_f[R_FAILED] > 0.5)
+
+
+def forcing_thermo(tair, rhz):
+    """Pure-forcing thermodynamics, precomputed out of the per-step kernel:
+    eair (Magnus vapour pressure at the air temperature,
+    BoundaryLayer.f90:156-170) and the air volumetric heat capacity
+    rho_air*cp_air (BoundaryLayer.f90:33-36).  float32 in/out; shared by
+    pack_forcing and the station-level prepared channels."""
+    tak = tair + 273.15
+    air_dens = 100000.0 / (287.05 * tak)
+    air_hcap = 1005.0 + (tak - 250.0) ** 2 / 3364.0
+    eair = torch.clamp(0.01 * rhz, max=1.0) * _esat(tair)
+    return eair, air_hcap * air_dens
+
+
+def pack_forcing(prep, sw_cof, lw_cof, coupling_tsurf):
+    """Prepared ([T, P] channels) -> [T, NCH, P] float32."""
+    T, P = prep.tair.shape
+    f32 = lambda x: x.to(torch.float32)
+    out = torch.zeros((T, NCH, P), dtype=torch.float32,
+                      device=prep.tair.device)
+    tair = f32(prep.tair)
+    out[:, C_TAIR] = tair
+    out[:, C_VZ] = f32(prep.vz)
+    out[:, C_EAIR], out[:, C_AIRVCAP] = forcing_thermo(tair, f32(prep.rhz))
+    out[:, C_RAIN] = f32(prep.rain)
+    out[:, C_SNOW] = f32(prep.snow)
+    out[:, C_SW] = f32(prep.sw)
+    out[:, C_LW] = f32(prep.lw)
+    out[:, C_TSURF_OBS] = f32(prep.tsurf_obs)
+    out[:, C_VALID] = f32(prep.valid)
+    out[:, C_TRF] = f32(prep.trf_fric)[:, None]
+    out[:, C_SWCOF] = f32(sw_cof)
+    out[:, C_LWCOF] = f32(lw_cof)
+    out[:, C_INCPL] = f32(prep.in_coupling)
+    out[:, C_CPLOBS] = f32(coupling_tsurf)[None, :]
+    return out

@@ -1,0 +1,51 @@
+"""The port imports no JAX: an AST scan of every module of
+``roadsurf_tpu_torch`` (a subprocess import would not do: the test
+environment may import jax at interpreter start)."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "roadsurf_tpu_torch"
+FORBIDDEN = ("jax", "roadsurf_tpu")
+MODULES = sorted(PKG.rglob("*.py"))
+
+
+def _forbidden(name: str) -> bool:
+    # exact module or a submodule of it: roadsurf_tpu_torch shares the
+    # prefix of roadsurf_tpu and must not match
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_package_has_modules():
+    names = {p.relative_to(PKG).as_posix() for p in MODULES}
+    assert {"__init__.py", "model.py", "production.py", "interop.py",
+            "ops/scan_kernel.py", "ops/build.py"} <= names
+
+
+@pytest.mark.parametrize("path", MODULES,
+                         ids=lambda p: p.relative_to(PKG).as_posix())
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_matcher_is_exact():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("roadsurf_tpu") and _forbidden("roadsurf_tpu.model")
+    assert not _forbidden("roadsurf_tpu_torch")
+    assert not _forbidden("roadsurf_tpu_torch.model")
+    assert not _forbidden("jaxlib_free")
