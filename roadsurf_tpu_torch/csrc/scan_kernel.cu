@@ -1,8 +1,12 @@
 // Whole-forecast scan kernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces roadsurf_tpu/ops/pallas_step.py:pallas_scan / _make_kernel (the
-// Pallas TPU kernel, point-major mode).  Plain version with the same
-// semantics: roadsurf_tpu_torch/ops/scan_kernel.py:scan_reference.
+// Pallas TPU kernel) in two of its modes: K1, point-major (forcing
+// [T, 16, P]), and K2, slim (forcing [T, 11, P], a time-only traffic
+// friction vector, per-point aux rows and the in-kernel post-coupling
+// radiation-coefficient decay; pallas_step.py:362-374, :467-509).  Plain
+// version with the same semantics:
+// roadsurf_tpu_torch/ops/scan_kernel.py:scan_reference.
 //
 // What it computes, per road point, for every step t < nsteps of a chunk
 // (pallas_step.py:411-568): the CheckValues failure flag; obs forcing of
@@ -15,7 +19,8 @@
 // where the GLOBAL step (off + t) is a multiple of out_stride.
 //
 // What bounds it on this card.  A step reads 64 B of forcing per point
-// (16 floats, coalesced: forcing is [T, 16, P] point-minor) and writes
+// (16 floats, coalesced: forcing is [T, 16, P] point-minor; 44 B in the
+// slim mode) and writes
 // nothing but a rare output row, while each thread runs a serial chain of
 // dependent divides, logs, square roots and exps: the boundary-layer fixed
 // point alone is 5-40 iterations of one IEEE divide, one log and one sqrt,
@@ -36,10 +41,20 @@
 // TPU's double-buffered forcing DMA and its inner time chunk are dropped:
 // the point-minor layout already coalesces the reads.
 //
+// The slim mode (K2) is the template flag SLIM: the channel stride and
+// positions change, TRF is one __ldg broadcast per step from the time-only
+// vector (every thread of a step reads the same address), and the four aux
+// rows are read once per thread before the time loop.  With `cofs` (a
+// runtime flag, uniform across the launch) the radiation coefficients decay
+// after each point's window end, computed per step from the aux rows.
+//
 // Numerics: float32 only, IEEE divide and sqrt, no fast math, no flush to
 // zero (built with -prec-div=true -prec-sqrt=true -ftz=false); FMA
-// contraction is allowed.  There are no matrix products, so TF32 never
-// arises.  min/max propagate NaN like torch.minimum/maximum.  Flat offsets
+// contraction is allowed, except in the coefficient decay, which is
+// written with __fmul_rn/__fsub_rn/__fdiv_rn/__fadd_rn and precise expf so
+// that each product rounds on its own, as torch's forcing.cof_window does
+// (K2 with cofs must equal K1 fed cof_window's channels bit for bit).
+// There are no matrix products, so TF32 never arises.  min/max propagate NaN like torch.minimum/maximum.  Flat offsets
 // are 64-bit: T * 16 * P passes 2^31 at 128 steps x 1M points.
 
 #include <cuda_runtime.h>
@@ -73,6 +88,21 @@ enum {
   C_TAIR = 0, C_VZ, C_EAIR, C_RAIN, C_SNOW, C_SW, C_LW, C_TSURF_OBS,
   C_VALID, C_TRF, C_SWCOF, C_LWCOF, C_INCPL, C_CPLOBS, C_AIRVCAP, NCH = 16
 };
+// forcing channel positions of a mode: K1 (all 16) or K2, the slim layout
+// of SLIM_CHANNELS (pallas_step.py:75-78)
+template <bool SLIM>
+struct Ch {
+  enum { TAIR = C_TAIR, VZ = C_VZ, EAIR = C_EAIR, RAIN = C_RAIN,
+         SNOW = C_SNOW, SW = C_SW, LW = C_LW, TSURF_OBS = C_TSURF_OBS,
+         VALID = C_VALID, INCPL = C_INCPL, AIRVCAP = C_AIRVCAP, N = NCH };
+};
+template <>
+struct Ch<true> {
+  enum { TAIR = 0, VZ, EAIR, RAIN, SNOW, SW, LW, TSURF_OBS, VALID, INCPL,
+         AIRVCAP, N };
+};
+// aux rows of the slim mode
+enum { A_SWCORR = 0, A_LWCORR, A_CEND, A_CPLOBS };
 #define N_OUT_FIELDS 8
 #define BLOCK 128
 
@@ -120,17 +150,31 @@ __device__ __forceinline__ float surf_ave(const float (&tmp)[LM + 3],
 // padded row, read only by the depth interpolation's w == 0 edge).
 // DEPTH: a global output depth is configured (StepConfig.use_depth); the
 // plain (T1+T2)/2 instantiation needs fewer registers.
-template <int LM, bool DEPTH>
+// SLIM: K2 (trf [>= off + nsteps], aux [4, P], cofs, t_total, cof_red are
+// read only there).
+template <int LM, bool DEPTH, bool SLIM>
 __global__ void __launch_bounds__(BLOCK)
 scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
             const float* __restrict__ scal0,
-            const float* __restrict__ forcing, float* __restrict__ tmp_out,
-            float* __restrict__ scal_out, float* __restrict__ out, int P,
-            int nsteps, int off, int out_base) {
+            const float* __restrict__ forcing,
+            const float* __restrict__ trf, const float* __restrict__ aux,
+            float* __restrict__ tmp_out, float* __restrict__ scal_out,
+            float* __restrict__ out, int P, int nsteps, int off,
+            int out_base, int cofs, int t_total, float cof_red) {
+  using K = Ch<SLIM>;
   const int p = blockIdx.x * BLOCK + threadIdx.x;
   if (p >= P) return;
   const int64_t PP = P;
   const int L = c.L;
+
+  // K2's per-point aux rows, read once
+  float a_swc = 0.0f, a_lwc = 0.0f, a_cend = 0.0f, a_obs = 0.0f;
+  if (SLIM) {
+    a_swc = aux[A_SWCORR * PP + p];
+    a_lwc = aux[A_LWCORR * PP + p];
+    a_cend = aux[A_CEND * PP + p];
+    a_obs = aux[A_CPLOBS * PP + p];
+  }
 
   float tmp[LM + 3];
 #pragma unroll
@@ -156,7 +200,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
   const float s2i = (float)(0.25 / 0.45);
 
   for (int t = 0; t < nsteps; ++t) {
-    const float* f = forcing + ((int64_t)t * NCH) * PP + p;
+    const float* f = forcing + ((int64_t)t * K::N) * PP + p;
     const int tg = off + t;
     const bool hit = (tg % c.out_stride) == 0;
     const int row = tg / c.out_stride - out_base;
@@ -174,12 +218,12 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       continue;
     }
 
-    const float tair = __ldg(f + C_TAIR * PP);
+    const float tair = __ldg(f + K::TAIR * PP);
     const bool abnormal = (tsurf < -100.0f) || (tsurf > 100.0f);
-    const bool failed = (__ldg(f + C_VALID * PP) < 0.5f) || abnormal;
+    const bool failed = (__ldg(f + K::VALID * PP) < 0.5f) || abnormal;
 
     // SetCurrentValues + obs forcing
-    const float obs = __ldg(f + C_TSURF_OBS * PP);
+    const float obs = __ldg(f + K::TSURF_OBS * PP);
     tmp[0] = tair;
     if (obs > -100.0f) {
       tmp[1] = obs;
@@ -188,13 +232,13 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     }
 
     // precipitation to storage
-    wat = wat + __ldg(f + C_RAIN * PP);
-    snow = snow + __ldg(f + C_SNOW * PP);
+    wat = wat + __ldg(f + K::RAIN * PP);
+    snow = snow + __ldg(f + K::SNOW * PP);
 
     // boundary-layer fixed point (pallas_step.py:104-172): each thread
     // stops at its own convergence, which equals the masked freeze
-    const float vz = __ldg(f + C_VZ * PP);
-    const float air_vcap = __ldg(f + C_AIRVCAP * PP);
+    const float vz = __ldg(f + K::VZ * PP);
+    const float air_vcap = __ldg(f + K::AIRVCAP * PP);
     const float tak = tair + 273.15f;
     const float dt_ts = tsurf - tair;
     const float inv_kvz = 1.0f / (c.vk * vz);
@@ -225,7 +269,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     const float wat_den = -0.0050f * tsurf * tsurf + 0.0079f * tsurf +
                           1000.0028f;
     const float esurf = esat1(tsurf);
-    float le = air_vcap * (esurf - __ldg(f + C_EAIR * PP)) / (psych_c * raero);
+    float le = air_vcap * (esurf - __ldg(f + K::EAIR * PP)) / (psych_c * raero);
     const float lheat = tsurf >= 0.0f ? c.lvap : c.lfus;
     float evap = le / (lheat * wat_den) * 1000.0f * dt;
     if ((le > 0.0f) && (wat <= 0.0f)) {
@@ -236,15 +280,41 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     // net radiation
     const float tk = tsurf + 273.15f;
     const float tk2 = tk * tk;
-    const float rnet =
-        (1.0f - alb) * __ldg(f + C_SW * PP) * __ldg(f + C_SWCOF * PP) +
-        c.emiss * __ldg(f + C_LW * PP) * __ldg(f + C_LWCOF * PP) -
-        c.emiss_sb * tk2 * tk2;
+    float rnet;
+    if (SLIM) {
+      // K2's coefficients are 1, or with cofs the decay after the window
+      // end (pallas_step.py:475-493): i_eff = tg + 1, but tg at the
+      // lastValues step t_total - 1, compared in float32
+      float sw_cof = 1.0f, lw_cof = 1.0f;
+      if (cofs) {
+        const float i_eff =
+            (float)((t_total >= 2 && tg == t_total - 1) ? tg : tg + 1);
+        const float expo = __fdiv_rn(
+            -__fsub_rn(__fmul_rn(dt, i_eff), __fmul_rn(dt, a_cend)), cof_red);
+        const float dec = expf(nmin(expo, 0.0f));
+        if ((i_eff >= a_cend) && (a_cend >= 1.0f)) {
+          sw_cof = __fadd_rn(1.0f, __fmul_rn(a_swc, dec));
+          lw_cof = __fadd_rn(1.0f, __fmul_rn(a_lwc, dec));
+        }
+      }
+      // opaque to the optimiser, like K1's loaded channels: a coefficient
+      // known to be 1 (or a select against 1) would let the products below
+      // be folded or split, and round unlike K1's contracted expression
+      asm("" : "+f"(sw_cof), "+f"(lw_cof));
+      rnet = (1.0f - alb) * __ldg(f + K::SW * PP) * sw_cof +
+             c.emiss * __ldg(f + K::LW * PP) * lw_cof - c.emiss_sb * tk2 * tk2;
+    } else {
+      rnet = (1.0f - alb) * __ldg(f + C_SW * PP) * __ldg(f + C_SWCOF * PP) +
+             c.emiss * __ldg(f + C_LW * PP) * __ldg(f + C_LWCOF * PP) -
+             c.emiss_sb * tk2 * tk2;
+    }
 
     // conduction stencil + HStor (pallas_step.py:175-208), in place: layer
     // j's flux uses the old j and j+1, computed before j is overwritten
     const float t1a = (tmp[1] + 3.0f * tmp[2]) / 4.0f;
-    float g_prev = rnet - le + __ldg(f + C_TRF * PP) + bl * (tmp[0] - tmp[1]);
+    float g_prev = rnet - le +
+                   (SLIM ? __ldg(trf + tg) : __ldg(f + C_TRF * PP)) +
+                   bl * (tmp[0] - tmp[1]);
     float hs1 = 0.0f;
 #pragma unroll
     for (int j = 1; j <= LM; ++j) {
@@ -273,10 +343,10 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     const bool has_frozen = (snow > 0.0f) || (ice > 0.0f) || (ice2 > 0.0f);
     float q2 = has_frozen ? q2m : 0.0f;
     if (c.melt_change) {
-      const bool in_cpl = __ldg(f + C_INCPL * PP) > 0.5f;
-      const bool guard = (hstor <= 0.00001f) || (tsurf <= t4m) ||
-                         (q2m <= 0.0f) ||
-                         (in_cpl && (__ldg(f + C_CPLOBS * PP) < t4m));
+      const bool in_cpl = __ldg(f + K::INCPL * PP) > 0.5f;
+      const bool guard =
+          (hstor <= 0.00001f) || (tsurf <= t4m) || (q2m <= 0.0f) ||
+          (in_cpl && ((SLIM ? a_obs : __ldg(f + C_CPLOBS * PP)) < t4m));
       const bool cold = guard && (tsurf < 0.5f);
       const bool hot = guard && (tsurf > 2.0f);
       const float qavail = hs1 * (tmp[1] - t4m);
@@ -465,20 +535,21 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     scal_out[r * PP + p] = scal0[r * PP + p];
 }
 
-extern "C" {
-
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-int roadsurf_scan(const ScanConsts* c, const float* tmp0, const float* scal0,
-                  const float* forcing, float* tmp_out, float* scal_out,
-                  float* out, int P, int nsteps, int off, int out_base,
-                  void* stream) {
+// Dispatch on the layer bucket and the output-depth option; returns
+// cudaGetLastError() after the launch (0 = ok).
+template <bool SLIM>
+static int launch(const ScanConsts* c, const float* tmp0, const float* scal0,
+                  const float* forcing, const float* trf, const float* aux,
+                  float* tmp_out, float* scal_out, float* out, int P,
+                  int nsteps, int off, int out_base, int cofs, int t_total,
+                  float cof_red, void* stream) {
   if (P <= 0 || c->L < 1 || c->L > LMAX_ALL) return (int)cudaErrorInvalidValue;
   const dim3 grid((P + BLOCK - 1) / BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(LM, DEPTH)                                                 \
-  scan_kernel<LM, DEPTH><<<grid, BLOCK, 0, s>>>(*c, tmp0, scal0, forcing, \
-                                                tmp_out, scal_out, out, P, \
-                                                nsteps, off, out_base)
+#define LAUNCH(LM, DEPTH)                                                  \
+  scan_kernel<LM, DEPTH, SLIM><<<grid, BLOCK, 0, s>>>(                     \
+      *c, tmp0, scal0, forcing, trf, aux, tmp_out, scal_out, out, P, nsteps, \
+      off, out_base, cofs, t_total, cof_red)
   if (c->L <= 16) {
     if (c->use_depth) LAUNCH(16, true); else LAUNCH(16, false);
   } else {
@@ -486,6 +557,31 @@ int roadsurf_scan(const ScanConsts* c, const float* tmp0, const float* scal0,
   }
 #undef LAUNCH
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// K1 on `stream`: forcing [T, 16, P].
+int roadsurf_scan(const ScanConsts* c, const float* tmp0, const float* scal0,
+                  const float* forcing, float* tmp_out, float* scal_out,
+                  float* out, int P, int nsteps, int off, int out_base,
+                  void* stream) {
+  return launch<false>(c, tmp0, scal0, forcing, nullptr, nullptr, tmp_out,
+                       scal_out, out, P, nsteps, off, out_base, 0, 0, 1.0f,
+                       stream);
+}
+
+// K2 on `stream`: forcing [T, 11, P], trf [>= off + nsteps], aux [4, P];
+// cofs != 0 decays the radiation coefficients (t_total, cof_red).
+int roadsurf_scan_slim(const ScanConsts* c, const float* tmp0,
+                       const float* scal0, const float* forcing,
+                       const float* trf, const float* aux, float* tmp_out,
+                       float* scal_out, float* out, int P, int nsteps,
+                       int off, int out_base, int cofs, int t_total,
+                       float cof_red, void* stream) {
+  return launch<true>(c, tmp0, scal0, forcing, trf, aux, tmp_out, scal_out,
+                      out, P, nsteps, off, out_base, cofs, t_total, cof_red,
+                      stream);
 }
 
 // sizeof(ScanConsts), checked against the ctypes mirror before any launch

@@ -280,3 +280,59 @@ def prepare(raw: RawForcing, pts: PointParams, cal: Calendar,
                           settings, p, t_offset=0, t_total=T,
                           anchors=anchors, jde=jde,
                           enable_skyview=enable_skyview)
+
+
+def cof_window(sw_corr, lw_corr, coupling_end, t_offset: int, tc: int,
+               T: int, settings: ModelSettings, dtype=torch.float64):
+    """Post-window radiation-coefficient rows [t_offset, t_offset+tc)
+    (0-based rows; row t = 1-based step t+1), valid only for rows at/after
+    every point's coupling_end (forcing.py:309-330).
+
+    Replicates the per-point-PC carry exactly (src/Coupling.f90:82-88 plus
+    the final-step freeze): the final step reuses the step-(T-1) value, which
+    for a window ending at T-1 is the *undecayed* trial coefficient
+    (dec(end)=1), not 1.0.  Each product and the quotient round on their own
+    in ``dtype``, as the kernel's in-kernel decay does."""
+    end = torch.as_tensor(coupling_end)
+    rows = t_offset + torch.arange(tc, device=end.device)
+    i = rows + 1
+    i_eff = torch.where((rows == T - 1) & (T >= 2), i - 1, i)   # lastValues
+    end = end[None, :]
+    dts = settings.dt
+    # a tensor divisor: CUDA turns a Python-scalar divisor into a multiply
+    # by its reciprocal, which the kernel's IEEE division would not match
+    red = torch.tensor(settings.coupling_effect_reduction, dtype=dtype,
+                       device=end.device)
+    expo = -((dts * i_eff.to(dtype))[:, None] - dts * end.to(dtype)) / red
+    dec = torch.exp(torch.clamp(expo, max=0.0))
+    on = (i_eff[:, None] >= end) & (end >= 1)
+    sw = torch.where(on, 1.0 + sw_corr[None, :] * dec, 1.0)
+    lw = torch.where(on, 1.0 + lw_corr[None, :] * dec, 1.0)
+    return sw.to(dtype), lw.to(dtype)
+
+
+def cof_schedule(sw_correction, lw_correction, coupling_end, T: int,
+                 settings: ModelSettings, dtype=torch.float64):
+    """Post-coupling radiation coefficient decay schedule
+    (CouplingOperations1, src/Coupling.f90:82-88; forcing.py:333-351): per
+    (T, P) tensors of SwRadCof/LwRadCof.  Before/at the window end the
+    coefficients are 1 (the in-window values are handled by the coupling
+    engine).  The final step repeats the previous step's value (no
+    CouplingOperations1 there).  The decay is formed in float64, as the
+    JAX package's weakly typed step index is, and cast to ``dtype``."""
+    end = torch.as_tensor(coupling_end)
+    t_idx = torch.arange(T, device=end.device)[:, None]
+    end = end[None, :]
+    dts = settings.dt
+    decay = torch.exp(-((dts * (t_idx + 1).to(torch.float64))
+                        - (dts * end.to(torch.float64)))
+                      / settings.coupling_effect_reduction)
+    after = (t_idx + 1) > end
+    sw = torch.where(after & (end >= 1),
+                     1.0 + sw_correction[None, :] * decay, 1.0)
+    lw = torch.where(after & (end >= 1),
+                     1.0 + lw_correction[None, :] * decay, 1.0)
+    if T >= 2:
+        sw[-1, :] = sw[-2, :]
+        lw[-1, :] = lw[-2, :]
+    return sw.to(dtype), lw.to(dtype)

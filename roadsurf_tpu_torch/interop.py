@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .config import ModelSettings, PhysicsParams
+from .coupling import CouplingVars
 from .forcing import Calendar, Prepared, RawForcing
 from .state import PointParams, State
 
@@ -62,6 +63,12 @@ def state(st, device="cpu", dtype=None) -> State:
 
 def prepared(prep, device="cpu", dtype=None) -> Prepared:
     return to_torch(prep, Prepared, device, dtype)
+
+
+def coupling_vars(cv, device="cpu", dtype=None) -> CouplingVars:
+    """A coupling-iteration state (the JAX package's ``CouplingVars``) ->
+    the port's, float leaves cast to ``dtype`` when given."""
+    return to_torch(cv, CouplingVars, device, dtype)
 
 
 def calendar(cal) -> Calendar:

@@ -142,3 +142,19 @@ class Model:
         depth = self.depth_arrays(pts, dtype)
         return scan_steps(state, prep, ones, ones, pts_t.coupling_tsurf,
                           self.cfg, self.grid, self.params, depth=depth)
+
+    def run_coupled(self, raw: RawForcing, pts: PointParams, cal: Calendar,
+                    out_stride: int = 1):
+        """Full simulation with observation coupling (the per-point-PC
+        engine, model.py:144-154; see roadsurf_tpu_torch.coupling).  Returns
+        (final_state, out [n_out, P, 6])."""
+        from .coupling import run_coupled
+        pts_t = self.point_tensors(pts)
+        prep = prepare(self.raw_tensors(raw), pts_t, cal, self.settings,
+                       self.params)
+        dtype = prep.tair.dtype
+        state = self.init(raw, cal, dtype=dtype, pts=pts)
+        depth = self.depth_arrays(pts, dtype)
+        return run_coupled(state, prep, pts_t, self.settings, self.cfg,
+                           self.grid, self.params, out_stride=out_stride,
+                           depth=depth)

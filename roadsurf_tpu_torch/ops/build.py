@@ -105,6 +105,9 @@ def load() -> ctypes.CDLL:
     lib.roadsurf_scan.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                   ci, vp]
     lib.roadsurf_scan.restype = ci
+    lib.roadsurf_scan_slim.argtypes = [vp] * 9 + [ci] * 6 + [
+        ctypes.c_float, vp]
+    lib.roadsurf_scan_slim.restype = ci
     lib.roadsurf_consts_size.argtypes = []
     lib.roadsurf_consts_size.restype = ci
     lib.roadsurf_error_string.argtypes = [ci]

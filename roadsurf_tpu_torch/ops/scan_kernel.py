@@ -2,12 +2,22 @@
 the packed state/forcing layouts.
 
 The counterpart of ``roadsurf_tpu/ops/pallas_step.py`` (``pallas_scan`` in
-its point-major mode, ``_make_kernel``, and the packing helpers at
-pallas_step.py:736-821).  The kernel itself is ``csrc/scan_kernel.cu``: one
-CUDA thread per road point runs every step of the chunk with the profile and
-the scalar state in registers.  ``scan`` dispatches on the tensors' device:
-CPU tensors take :func:`scan_reference`, CUDA tensors launch the kernel (or
-raise); nothing falls back.
+its point-major mode and its slim mode, ``_make_kernel``, and the packing
+helpers at pallas_step.py:736-821).  The kernel itself is
+``csrc/scan_kernel.cu``: one CUDA thread per road point runs every step of
+the chunk with the profile and the scalar state in registers.  ``scan``
+dispatches on the tensors' device: CPU tensors take :func:`scan_reference`,
+CUDA tensors launch the kernel (or raise); nothing falls back.
+
+Two modes of the one kernel:
+
+ * K1, point-major: forcing ``[T, NCH, P]`` with all 16 channels;
+ * K2, slim (``aux_rows`` given): forcing ``[T, NCH_SLIM, P]`` with only the
+   11 (station, step)-varying channels, the traffic friction read from a
+   time-only vector ``slim_trf [T_pad]`` at the global step, and the
+   coupling obs and the radiation-coefficient decay inputs from per-point
+   ``aux_rows [4, P]``; the coefficients are exactly 1, or with
+   ``aux_cofs`` decayed in kernel (``forcing.cof_window`` semantics).
 
 Layouts (unchanged from the JAX package, so both sides compare like with
 like): the profile is ``tmp [LPAD, P]`` (row 0 air, rows 1..L ground, row
@@ -42,15 +52,27 @@ C_TSURF_OBS, C_VALID, C_TRF, C_SWCOF, C_LWCOF, C_INCPL, C_CPLOBS = \
 C_AIRVCAP = 14
 NCH = 16
 
+# SLIM forcing layout (pallas_step.py:69-78): only the channels that vary
+# per (station, step); TRF is time-only, SWCOF/LWCOF are 1 outside coupling
+# (computed in kernel from aux rows when coupled), CPLOBS is an aux row.
+SLIM_CHANNELS = (C_TAIR, C_VZ, C_EAIR, C_RAIN, C_SNOW, C_SW, C_LW,
+                 C_TSURF_OBS, C_VALID, C_INCPL, C_AIRVCAP)
+NCH_SLIM = len(SLIM_CHANNELS)
+SLIM_POS = {c: i for i, c in enumerate(SLIM_CHANNELS)}
+# aux rows of the slim mode: sw_corr, lw_corr, coupling_end, coupling obs
+A_SWCORR, A_LWCORR, A_CEND, A_CPLOBS = 0, 1, 2, 3
+N_AUX = 4
+
 N_OUT_FIELDS = 8  # tsurf, wat, snow, ice, ice2, dep, (2 zero pad)
 
 #: largest ``ModelSettings.nlayers`` the kernel holds in registers
 #: (the template buckets of csrc/scan_kernel.cu)
 LMAX = 32
 
-#: kernel launches by :func:`scan_cuda` in this process (the plain version
-#: does not count)
+#: kernel launches by :func:`scan_cuda` in this process, K1 (point-major)
+#: and K2 (slim); the plain version does not count
 LAUNCHES = 0
+LAUNCHES_SLIM = 0
 
 
 class ScanConsts(ctypes.Structure):
@@ -366,19 +388,71 @@ def _road_cond(wat, snow, ice, ice2, dep, tsurf, evap, q2, t4, vcold,
     return wat, snow, ice, ice2, dep, vcold, q2n, t4n, albedo
 
 
+def _slim_args(forcing, P, slim_trf, aux_rows, aux_cofs, t_total, cof_red,
+               off, nsteps):
+    """Check the slim-mode arguments; returns whether the call is slim."""
+    slim = aux_rows is not None
+    nch = NCH_SLIM if slim else NCH
+    if forcing.dim() != 3 or forcing.shape[1] != nch or forcing.shape[2] != P:
+        raise ValueError(f"forcing shape {tuple(forcing.shape)}, expected "
+                         f"[T, {nch}, {P}]")
+    if not slim:
+        if slim_trf is not None or aux_cofs:
+            raise ValueError("slim_trf / aux_cofs need aux_rows")
+        return False
+    if slim_trf is None:
+        raise ValueError("the slim mode needs slim_trf")
+    if tuple(aux_rows.shape) != (N_AUX, P):
+        raise ValueError(f"aux_rows shape {tuple(aux_rows.shape)}, expected "
+                         f"({N_AUX}, {P})")
+    if slim_trf.dim() != 1 or slim_trf.shape[0] < off + nsteps:
+        raise ValueError(f"slim_trf must be [T_pad >= {off + nsteps}], got "
+                         f"{tuple(slim_trf.shape)}")
+    if aux_cofs and (t_total is None or cof_red is None):
+        raise ValueError("aux_cofs needs t_total and cof_red")
+    return True
+
+
+def _decayed_cofs(aux, tg: int, t_total: int, dt: float, cof_red: float):
+    """The post-coupling coefficient pair at global step ``tg``
+    (pallas_step.py:475-493, forcing.cof_window semantics): each product,
+    the difference and the quotient round on their own in float32."""
+    i_eff = tg if (t_total >= 2 and tg == t_total - 1) else tg + 1
+    i_eff_f = torch.tensor(float(i_eff), dtype=torch.float32,
+                           device=aux.device)
+    cend = aux[A_CEND]
+    red = torch.tensor(cof_red, dtype=torch.float32, device=aux.device)
+    expo = -(dt * i_eff_f - dt * cend) / red
+    dec = torch.exp(torch.clamp(expo, max=0.0))
+    on = (i_eff_f >= cend) & (cend >= 1.0)
+    return (torch.where(on, 1.0 + aux[A_SWCORR] * dec, 1.0),
+            torch.where(on, 1.0 + aux[A_LWCORR] * dec, 1.0))
+
+
 def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
-                   grid: LayerGrid, out_stride: int = 1, nsteps: int = None, out_offset=None, n_out: int = None):
+                   grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
+                   out_offset=None, n_out: int = None, slim_trf=None,
+                   aux_rows=None, aux_cofs: bool = False, t_total: int = None,
+                   cof_red: float = None):
     """The kernel's semantics in plain torch ops, on any device: the same
     signature, layouts and results as :func:`scan_cuda`.
 
     tmp0: [LPAD, P] f32 profile; scal0: [NROWS, P] f32 packed state;
-    forcing: [T, NCH, P] f32.  Steps ``t < nsteps`` run (default T); an
+    forcing: [T, NCH, P] f32 (K1), or [T, NCH_SLIM, P] with ``aux_rows``
+    (K2, the slim mode).  Steps ``t < nsteps`` run (default T); an
     output row is written where ``(out_offset + t) % out_stride == 0``, at
     row ``(out_offset + t) // out_stride - ceil(out_offset / out_stride)``
     of ``n_out`` rows (``n_out`` is required with ``out_offset``; without
     it, ``ceil(nsteps / out_stride)`` rows from step 0).  Fields 6 and 7
     are zero; a point that failed before the step outputs -9999.  The
     boundary-layer fixed point runs at most ``cfg.bl_max_iter`` iterations.
+
+    Slim mode (pallas_step.py:599-605): ``slim_trf`` [T_pad] f32 traffic
+    friction indexed by the global step; ``aux_rows`` [4, P] f32 (sw_corr,
+    lw_corr, coupling_end, coupling obs).  The radiation coefficients are 1;
+    with ``aux_cofs`` they decay after each point's window end
+    (forcing.cof_window semantics, including the lastValues reuse at
+    ``t_total - 1``; ``cof_red`` is settings.coupling_effect_reduction).
 
     Returns (tmp [LPAD, P], scal [NROWS, P], out [n_out, N_OUT_FIELDS, P]).
     """
@@ -389,6 +463,8 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
         raise ValueError(f"nsteps {nsteps} outside (0, {T}]")
     off, n_rows, out_base = _out_geometry(nsteps, out_stride, out_offset,
                                           n_out)
+    slim = _slim_args(forcing, P, slim_trf, aux_rows, aux_cofs, t_total,
+                      cof_red, off, nsteps)
     nlayers = grid.nlayers
     f32 = lambda a: tuple(float(v) for v in np.asarray(a, np.float32))
     dyc, cond_dz, wcont = f32(grid.dyc), f32(grid.cond_dz), f32(grid.wcont)
@@ -400,16 +476,17 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
                       device=tmp0.device)
     for t in range(nsteps):
         f = forcing[t]
+        ch = (lambda c: f[SLIM_POS[c]]) if slim else (lambda c: f[c])
         tg = off + t
-        tair = f[C_TAIR]
+        tair = ch(C_TAIR)
         failed_prev = sc[R_FAILED] > 0.5
         tsurf = sc[R_TSURF]
         abnormal = (tsurf < -100.0) | (tsurf > 100.0)
-        failed = failed_prev | (f[C_VALID] < 0.5) | abnormal
+        failed = failed_prev | (ch(C_VALID) < 0.5) | abnormal
         active = ~failed_prev
 
         # SetCurrentValues + obs forcing
-        obs = f[C_TSURF_OBS]
+        obs = ch(C_TSURF_OBS)
         force_obs = obs > -100.0
         cur = list(tmp)
         cur[0] = tair
@@ -418,13 +495,13 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
         tsurf = torch.where(force_obs, _surf_ave(cur, cfg), tsurf)
 
         # precipitation to storage
-        wat = sc[R_WAT] + f[C_RAIN]
-        snow = sc[R_SNOW] + f[C_SNOW]
+        wat = sc[R_WAT] + ch(C_RAIN)
+        snow = sc[R_SNOW] + ch(C_SNOW)
         ice, ice2, dep = sc[R_ICE], sc[R_ICE2], sc[R_DEP]
 
         # boundary layer + latent heat
-        vz = f[C_VZ]
-        air_vcap = f[C_AIRVCAP]
+        vz = ch(C_VZ)
+        air_vcap = ch(C_AIRVCAP)
         bl, psim, psih, inv_kvz = _bl_fixed_point(
             sc[R_BLCOND], tsurf, tair, vz, air_vcap, p, cfg.bl_max_iter)
         raero = torch.clamp((p.log_mom + psim) * (p.log_heat + psih)
@@ -433,26 +510,37 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
         psych_c = 0.1 * (0.00063 * tak + 0.47496)
         wat_den = -0.0050 * tsurf * tsurf + 0.0079 * tsurf + 1000.0028
         esurf = _esat(tsurf)
-        le = air_vcap * (esurf - f[C_EAIR]) / (psych_c * raero)
+        le = air_vcap * (esurf - ch(C_EAIR)) / (psych_c * raero)
         lheat = _sel(tsurf >= 0.0, p.lvap, p.lfus, tsurf)
         evap = le / (lheat * wat_den) * 1000.0 * dt
         dry = (le > 0.0) & (wat <= 0.0)
         le = torch.where(dry, torch.zeros_like(le), le)
         evap = torch.where(dry, torch.zeros_like(evap), evap)
 
-        # net radiation
+        # net radiation; the slim mode's coefficients are 1 (multiplying by
+        # the exact 1.0 reproduces K1's ones channels bit for bit), or the
+        # in-kernel post-coupling decay
+        if not slim:
+            sw_cof, lw_cof = f[C_SWCOF], f[C_LWCOF]
+        elif aux_cofs:
+            sw_cof, lw_cof = _decayed_cofs(aux_rows, tg, t_total, dt,
+                                           cof_red)
+        else:
+            sw_cof = lw_cof = 1.0
         tk = tsurf + 273.15
         tk2 = tk * tk
-        rnet = ((1.0 - sc[R_ALBEDO]) * f[C_SW] * f[C_SWCOF]
-                + p.emiss * f[C_LW] * f[C_LWCOF]
+        rnet = ((1.0 - sc[R_ALBEDO]) * ch(C_SW) * sw_cof
+                + p.emiss * ch(C_LW) * lw_cof
                 - p.emiss * p.sb_const * tk2 * tk2)
 
         # stencil + melting limiter
-        new_tmp, hs1, hstor = _stencil(cur, bl, rnet, le, f[C_TRF], dt, p,
+        trf = slim_trf[tg] if slim else f[C_TRF]
+        cplobs = aux_rows[A_CPLOBS] if slim else f[C_CPLOBS]
+        new_tmp, hs1, hstor = _stencil(cur, bl, rnet, le, trf, dt, p,
                                        dyc, cond_dz, wcont, nlayers)
         new_tmp, q2 = _melting(new_tmp, tsurf, snow, ice, ice2,
                                sc[R_Q2MELT], sc[R_T4MELT], hstor, hs1,
-                               f[C_INCPL] > 0.5, f[C_CPLOBS], cfg, p)
+                               ch(C_INCPL) > 0.5, cplobs, cfg, p)
         tsurf_new = _surf_ave(new_tmp, cfg)
 
         # storages
@@ -502,11 +590,15 @@ def _check(name, x, shape, device):
 
 
 def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
-              grid: LayerGrid, out_stride: int = 1, nsteps: int = None, out_offset=None, n_out: int = None):
+              grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
+              out_offset=None, n_out: int = None, slim_trf=None,
+              aux_rows=None, aux_cofs: bool = False, t_total: int = None,
+              cof_red: float = None):
     """Launch csrc/scan_kernel.cu on CUDA tensors; the arguments and results
-    of :func:`scan_reference`.  Runs on the current stream, does not
-    synchronise, and raises if the launch is refused."""
-    global LAUNCHES
+    of :func:`scan_reference` (K1, or K2 with ``aux_rows``).  Runs on the
+    current stream, does not synchronise, and raises if the launch is
+    refused."""
+    global LAUNCHES, LAUNCHES_SLIM
     from . import build
 
     if tmp0.device.type != "cuda":
@@ -520,9 +612,6 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
         raise ValueError(f"tmp0 has {lpad} rows, need >= {nlayers + 2}")
     if P <= 0:
         raise ValueError("no points")
-    _check("tmp0", tmp0, (lpad, P), tmp0.device)
-    _check("scal0", scal0, (NROWS, P), tmp0.device)
-    _check("forcing", forcing, (T, NCH, P), tmp0.device)
     nsteps = T if nsteps is None else int(nsteps)
     if not 0 < nsteps <= T:
         raise ValueError(f"nsteps {nsteps} outside (0, {T}]")
@@ -532,6 +621,15 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
                                           n_out)
     if off + nsteps >= 2 ** 31:
         raise ValueError("global step index overflows int32")
+    slim = _slim_args(forcing, P, slim_trf, aux_rows, aux_cofs, t_total,
+                      cof_red, off, nsteps)
+    _check("tmp0", tmp0, (lpad, P), tmp0.device)
+    _check("scal0", scal0, (NROWS, P), tmp0.device)
+    _check("forcing", forcing, (T, NCH_SLIM if slim else NCH, P),
+           tmp0.device)
+    if slim:
+        _check("slim_trf", slim_trf, tuple(slim_trf.shape), tmp0.device)
+        _check("aux_rows", aux_rows, (N_AUX, P), tmp0.device)
 
     consts = make_consts(cfg, p, grid, lpad, int(out_stride), n_rows)
     tmp_f = torch.empty_like(tmp0)
@@ -541,24 +639,38 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     lib = build.load()
     stream = torch.cuda.current_stream(tmp0.device).cuda_stream
     with torch.cuda.device(tmp0.device):
-        rc = lib.roadsurf_scan(
-            ctypes.addressof(consts), tmp0.data_ptr(), scal0.data_ptr(),
-            forcing.data_ptr(), tmp_f.data_ptr(), scal_f.data_ptr(),
-            out.data_ptr(), P, nsteps, off, out_base, stream)
+        if slim:
+            rc = lib.roadsurf_scan_slim(
+                ctypes.addressof(consts), tmp0.data_ptr(), scal0.data_ptr(),
+                forcing.data_ptr(), slim_trf.data_ptr(), aux_rows.data_ptr(),
+                tmp_f.data_ptr(), scal_f.data_ptr(), out.data_ptr(), P,
+                nsteps, off, out_base, int(bool(aux_cofs)),
+                int(t_total) if aux_cofs else 0,
+                float(cof_red) if aux_cofs else 1.0, stream)
+        else:
+            rc = lib.roadsurf_scan(
+                ctypes.addressof(consts), tmp0.data_ptr(), scal0.data_ptr(),
+                forcing.data_ptr(), tmp_f.data_ptr(), scal_f.data_ptr(),
+                out.data_ptr(), P, nsteps, off, out_base, stream)
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {rc} "
                            f"({build.error_string(rc)})")
-    LAUNCHES += 1
+    if slim:
+        LAUNCHES_SLIM += 1
+    else:
+        LAUNCHES += 1
     return tmp_f, scal_f, out
 
 
 def scan(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
          grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
-         out_offset=None, n_out: int = None):
+         out_offset=None, n_out: int = None, slim_trf=None, aux_rows=None,
+         aux_cofs: bool = False, t_total: int = None, cof_red: float = None):
     """The whole-scan entry point (pallas_step.py:579 ``pallas_scan``):
     CPU tensors run :func:`scan_reference`, CUDA tensors the kernel."""
     args = (tmp0, scal0, forcing, cfg, p, grid, out_stride, nsteps,
-            out_offset, n_out)
+            out_offset, n_out, slim_trf, aux_rows, aux_cofs, t_total,
+            cof_red)
     if tmp0.device.type == "cpu":
         return scan_reference(*args)
     if tmp0.device.type == "cuda":
@@ -617,25 +729,49 @@ def forcing_thermo(tair, rhz):
     return eair, air_hcap * air_dens
 
 
-def pack_forcing(prep, sw_cof, lw_cof, coupling_tsurf):
-    """Prepared ([T, P] channels) -> [T, NCH, P] float32."""
-    T, P = prep.tair.shape
+def _prep_channels(prep):
+    """The 11 (station, step)-varying channels of a Prepared ([T, P]
+    leaves), float32, keyed by channel index (pallas_step.py:798-821)."""
     f32 = lambda x: x.to(torch.float32)
+    tair = f32(prep.tair)
+    eair, airvcap = forcing_thermo(tair, f32(prep.rhz))
+    return {C_TAIR: tair, C_VZ: f32(prep.vz), C_EAIR: eair,
+            C_AIRVCAP: airvcap, C_RAIN: f32(prep.rain),
+            C_SNOW: f32(prep.snow), C_SW: f32(prep.sw), C_LW: f32(prep.lw),
+            C_TSURF_OBS: f32(prep.tsurf_obs), C_VALID: f32(prep.valid),
+            C_INCPL: f32(prep.in_coupling)}
+
+
+def pack_forcing(prep, sw_cof, lw_cof, coupling_tsurf):
+    """Prepared ([T, P] channels) -> [T, NCH, P] float32 (K1)."""
+    T, P = prep.tair.shape
     out = torch.zeros((T, NCH, P), dtype=torch.float32,
                       device=prep.tair.device)
-    tair = f32(prep.tair)
-    out[:, C_TAIR] = tair
-    out[:, C_VZ] = f32(prep.vz)
-    out[:, C_EAIR], out[:, C_AIRVCAP] = forcing_thermo(tair, f32(prep.rhz))
-    out[:, C_RAIN] = f32(prep.rain)
-    out[:, C_SNOW] = f32(prep.snow)
-    out[:, C_SW] = f32(prep.sw)
-    out[:, C_LW] = f32(prep.lw)
-    out[:, C_TSURF_OBS] = f32(prep.tsurf_obs)
-    out[:, C_VALID] = f32(prep.valid)
-    out[:, C_TRF] = f32(prep.trf_fric)[:, None]
-    out[:, C_SWCOF] = f32(sw_cof)
-    out[:, C_LWCOF] = f32(lw_cof)
-    out[:, C_INCPL] = f32(prep.in_coupling)
-    out[:, C_CPLOBS] = f32(coupling_tsurf)[None, :]
+    for c, x in _prep_channels(prep).items():
+        out[:, c] = x
+    out[:, C_TRF] = prep.trf_fric.to(torch.float32)[:, None]
+    out[:, C_SWCOF] = sw_cof
+    out[:, C_LWCOF] = lw_cof
+    out[:, C_CPLOBS] = coupling_tsurf.to(torch.float32)[None, :]
     return out
+
+
+def pack_forcing_slim(prep):
+    """Prepared ([T, P] channels) -> (forcing [T, NCH_SLIM, P], slim_trf
+    [T]) float32 (K2)."""
+    T, P = prep.tair.shape
+    out = torch.empty((T, NCH_SLIM, P), dtype=torch.float32,
+                      device=prep.tair.device)
+    for c, x in _prep_channels(prep).items():
+        out[:, SLIM_POS[c]] = x
+    return out, prep.trf_fric.to(torch.float32).contiguous()
+
+
+def pack_aux(coupling_tsurf, sw_corr=None, lw_corr=None, coupling_end=None):
+    """K2's aux rows [4, P] float32: sw_corr, lw_corr, coupling_end and the
+    coupling obs (production.py:1762-1764); the first three are zero when
+    not given (no coefficient decay)."""
+    obs = coupling_tsurf.to(torch.float32)
+    zero = torch.zeros_like(obs)
+    f32 = lambda x: zero if x is None else x.to(torch.float32)
+    return torch.stack([f32(sw_corr), f32(lw_corr), f32(coupling_end), obs])

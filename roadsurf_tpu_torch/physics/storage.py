@@ -341,6 +341,25 @@ def very_cold_update(very_cold, tsurf, p: PhysicsParams):
     return vc
 
 
+def snow_ice_check(s: Storages, last_tsurf_obs, p: PhysicsParams):
+    """Coupling anti-stuck forced melt (snowIceCheck, src/Coupling.f90:259-289).
+    Note ice2 is zeroed without adding to water, as in the reference."""
+    wat, snow, ice, ice2, dep = s
+    zero = lambda x: torch.zeros_like(x)
+    warm_snow = (last_tsurf_obs > p.t_lim_melt_snow) & (snow > 0.0)
+    wat = torch.where(warm_snow, wat + snow, wat)
+    snow = torch.where(warm_snow, zero(snow), snow)
+    warm_ice = (last_tsurf_obs > p.t_lim_melt_ice) & (ice > 0.0)
+    wat = torch.where(warm_ice, wat + ice, wat)
+    ice = torch.where(warm_ice, zero(ice), ice)
+    warm_ice2 = (last_tsurf_obs > p.t_lim_melt_ice) & (ice2 > 0.0)
+    ice2 = torch.where(warm_ice2, zero(ice2), ice2)
+    warm_dep = (last_tsurf_obs > p.t_lim_melt_dep) & (dep > 0.0)
+    wat = torch.where(warm_dep, wat + dep, wat)
+    dep = torch.where(warm_dep, zero(dep), dep)
+    return Storages(wat, snow, ice, ice2, dep)
+
+
 def road_cond(s: Storages, tsurf, evap, q2melt, t4melt, very_cold,
               tph, dt, settings_force_snow: bool, settings_force_ice: bool,
               p: PhysicsParams):

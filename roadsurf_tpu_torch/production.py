@@ -1,9 +1,9 @@
 """Production-scale streamed execution: the operational nationwide run, on
 one GPU.
 
-The counterpart of the uncoupled station path of
-``roadsurf_tpu/production.py`` (``StationExpander``, ``_Engine``,
-``run_production``).  The reference's operational path is an async
+The counterpart of the station path of ``roadsurf_tpu/production.py``
+(``StationExpander``, ``_Engine``, ``run_production``,
+``run_production_coupled``).  The reference's operational path is an async
 thread-pool runner over the full data plane
 (examples/example2/src/roadrunner.cpp:595-719).  Here:
 
@@ -12,14 +12,20 @@ thread-pool runner over the full data plane
    gather from the nearest-station index, so the full [T, P] forcing tensor
    (hundreds of GB at 1M points) never exists anywhere;
  * with a ``prep_ctx`` the forcing preparation runs once at station rank
-   (the fast path) and each chunk is one row gather into the kernel's
-   packed [Tc, NCH, P] layout; without it, each chunk runs the per-point
-   ``forcing.prepare_window`` + ``pack_forcing`` (the generic path);
+   (the fast path) and each chunk is one row gather: into the slim
+   [Tc, NCH_SLIM, P] layout of K2 (``slim=True``, the counterpart of the
+   JAX package's fused route) or the packed [Tc, NCH, P] layout of K1
+   (``slim=False``, its gather route); without it, each chunk runs the
+   per-point ``forcing.prepare_window`` + ``pack_forcing`` into K1's layout
+   (the generic path);
  * each chunk is one launch of the hand-written CUDA whole-scan kernel
    (``ops/scan_kernel.py``); the prognostic state stays on the device in the
    kernel's packed layout between chunks;
  * the kernel writes only the run-level output-stride rows of each chunk,
-   which are drained to the host chunk by chunk.
+   which are drained to the host chunk by chunk;
+ * the coupled run streams phases A and C through the kernel and runs the
+   coupling window (phase B) with the iteration-major engine of
+   ``coupling.py`` in plain torch on the device.
 
 ``stream`` is a plain loop on the current CUDA stream that synchronises per
 chunk (the drain's device-to-host copy); the JAX engine's two-deep pipelined
@@ -34,7 +40,8 @@ import numpy as np
 import torch
 
 from .config import MISSING
-from .forcing import Calendar, RawForcing, prepare_window
+from .forcing import Calendar, Prepared, RawForcing, cof_window, \
+    prepare_window
 from .model import Model
 from .observability import Progress, RunMetrics
 from .ops import scan_kernel as sk
@@ -65,8 +72,8 @@ def _pad_tail(x: np.ndarray, n: int, axis: int = 0) -> np.ndarray:
 
 
 class StationExpander:
-    """On-device station->point forcing expansion (production.py:166-630,
-    without the fused one-hot plan).
+    """On-device station->point forcing expansion (production.py:166-630;
+    the TPU's one-hot plan becomes a row gather).
 
     The data plane's station-keyed series ([S, T]) go to the device once;
     the nearest-station index map (the NearTree radius pattern,
@@ -80,11 +87,17 @@ class StationExpander:
     ``t_total``.  Its channels are valid for every point whose prep
     parameters equal its station's (checked by the engine).  Float
     channels are float32, the kernel's only dtype.
+
+    ``slim`` (the counterpart of the JAX package's ``fused=True``): on the
+    fast path the engine runs the kernel's slim mode K2 on the 11-channel
+    ``slim_window``; ``slim=False`` keeps K1 on the 16-channel
+    ``packed_window``.  It has no effect without ``prep_ctx``.
     """
 
     def __init__(self, raw_st: RawForcing, st_idx, device, chunk_t: int,
-                 prep_ctx: Optional[dict] = None):
+                 prep_ctx: Optional[dict] = None, slim: bool = True):
         st_idx = np.asarray(st_idx)
+        self.slim = bool(slim)
         self.device = torch.device(device)
         self.num_points = len(st_idx)
         S, T = np.asarray(raw_st.tair).shape
@@ -183,10 +196,11 @@ class StationExpander:
                      (sk.C_INCPL, prep.in_coupling)):
             stf[:, c] = fin(x)
         # time-only traffic friction (SetDayDependendVariables)
-        stf[:, sk.C_TRF] = prep.trf_fric.to(torch.float32)[:, None]
+        trf = prep.trf_fric.to(torch.float32)
+        stf[:, sk.C_TRF] = trf[:, None]
         self._prep_st_pts = st_pts         # host, rank S+1 (contract check)
         self.prep_data = {
-            "stf": stf,
+            "stf": stf, "rhz": fin(prep.rhz), "trf": trf.contiguous(),
             "sidx": torch.tensor(np.where(ok, st_idx, S).astype(np.int64),
                                  device=dev)}
 
@@ -220,6 +234,31 @@ class StationExpander:
         out[:, sk.C_CPLOBS] = obs.to(torch.float32)[None, :]
         return out
 
+    def slim_window(self, t0: int, tc: int):
+        """[tc, NCH_SLIM, P] slim kernel forcing (K2) from the station-level
+        prepared channels: the 11 (station, step)-varying channels, one row
+        gather; the kernel reads TRF from ``prep_data["trf"]`` and the
+        coupling obs from its aux rows (production.py:537-557, whose
+        one-hot expansion this gather replaces)."""
+        pd = self.prep_data
+        sl = pd["stf"][t0:t0 + tc][:, list(sk.SLIM_CHANNELS)]
+        return sl.index_select(2, pd["sidx"])
+
+    def prepared_window(self, t0: int, tc: int) -> Prepared:
+        """[tc, P] Prepared rows from the station-level prepared channels,
+        for the coupling window (production.py:2044-2067): equal, bit for
+        bit, to prepare_window on the expanded raws."""
+        pd = self.prep_data
+        rows = lambda x: x[t0:t0 + tc].index_select(1, pd["sidx"])
+        ch = lambda c: rows(pd["stf"][:, c])
+        return Prepared(
+            tair=ch(sk.C_TAIR), vz=ch(sk.C_VZ), rhz=rows(pd["rhz"]),
+            rain=ch(sk.C_RAIN), snow=ch(sk.C_SNOW), sw=ch(sk.C_SW),
+            lw=ch(sk.C_LW), tsurf_obs=ch(sk.C_TSURF_OBS),
+            valid=ch(sk.C_VALID) != 0.0,
+            in_coupling=ch(sk.C_INCPL) != 0.0,
+            trf_fric=pd["trf"][t0:t0 + tc])
+
 
 class ProductionResult(NamedTuple):
     state: State                 #: final prognostic state (unpadded, host)
@@ -229,8 +268,9 @@ class ProductionResult(NamedTuple):
 
 
 class _Engine:
-    """Device placement + chunk functions + range streaming
-    (production.py:1340-1930, the uncoupled single-device parts)."""
+    """Device placement + chunk functions + range streaming shared by the
+    uncoupled and coupled runs (production.py:1340-1930, the
+    single-device parts)."""
 
     def __init__(self, model: Model, expander: StationExpander,
                  pts: PointParams, cal: Calendar, state: State, *,
@@ -318,15 +358,22 @@ class _Engine:
 
         # station-level prepared channels bypass per-point forcing prep
         self.fast = expander.prep_data is not None
+        self.slim = self.fast and expander.slim
         if self.fast:
             self._check_fast_contract(expander, pts)
-            self.metrics.note("station-level prepared channels active "
-                              "(fast forcing prep, row-gather expansion)")
+            self.metrics.note(
+                "station-level prepared channels active ("
+                + ("slim kernel mode K2" if self.slim
+                   else "packed row gather, kernel mode K1") + ")")
         else:
             self.metrics.note("station expander built without prep_ctx: "
                               "generic per-point forcing prep")
         # fixed output-row allocation: the most stride hits any chunk holds
         self.k_alloc = (chunk_t - 1) // self.os_ + 1
+        if self.device.type == "cuda":
+            from .ops import build
+            with self.metrics.phase("build"):
+                build.load()
 
     def _check_fast_contract(self, expander, pts):
         """The station-level fast path is only valid when every per-point
@@ -380,49 +427,77 @@ class _Engine:
 
     # -- chunk functions ----------------------------------------------------
 
-    def chunk_forcing(self, t0: int):
-        """[chunk_t, NCH, P] packed kernel forcing for global steps
+    def chunk_forcing(self, t0: int, cofs=None):
+        """[chunk_t, NCH, P] packed K1 forcing for global steps
         [t0, t0 + chunk_t): the station-level row gather (fast) or the
-        per-point prep + pack (generic), production.py:1779-1797."""
+        per-point prep + pack (generic), production.py:1767-1797.  ``cofs``:
+        optional (sw_corr, lw_corr) [P] tensors, the post-window decay."""
         tc = self.chunk_t
+        swc = lwc = 1.0
+        if cofs is not None:
+            swc, lwc = cof_window(cofs[0], cofs[1], self.pts_dev.coupling_end,
+                                  t0, tc, self.T, self.settings,
+                                  torch.float32)
         if self.fast:
-            return self.expander.packed_window(t0, tc, 1.0, 1.0,
+            return self.expander.packed_window(t0, tc, swc, lwc,
                                                self.obs_dev)
         rawT = self.expander.window(t0, tc)
         prep = prepare_window(
             rawT, self.pts_dev, self.hour_dev[t0:t0 + tc], self.settings,
             self.params, t_offset=t0, t_total=self.T,
             anchors=self.anchors_dev, enable_skyview=False)
-        ones = torch.ones(prep.tair.shape, dtype=torch.float32,
-                          device=self.device)
-        return sk.pack_forcing(prep, ones, ones, self.obs_dev)
+        if cofs is None:
+            swc = lwc = torch.ones(prep.tair.shape, dtype=torch.float32,
+                                   device=self.device)
+        return sk.pack_forcing(prep, swc, lwc, self.obs_dev)
 
-    def run_chunk(self, tmp, scal, t0: int, nsteps: int):
+    def kernel_inputs(self, t0: int, cofs=None):
+        """(forcing, slim keyword arguments of ``scan``) for the chunk at
+        t0: K2's slim window with the time-only TRF and the aux rows (the
+        coupling obs, and with ``cofs`` the corrections and window ends of
+        the in-kernel decay, production.py:1755-1766) when the engine runs
+        slim, else K1's packed forcing."""
+        if not self.slim:
+            return self.chunk_forcing(t0, cofs), {}
+        kw = dict(slim_trf=self.expander.prep_data["trf"],
+                  aux_rows=sk.pack_aux(self.obs_dev))
+        if cofs is not None:
+            kw.update(aux_rows=sk.pack_aux(self.obs_dev, cofs[0], cofs[1],
+                                           self.pts_dev.coupling_end),
+                      aux_cofs=True, t_total=self.T,
+                      cof_red=self.settings.coupling_effect_reduction)
+        return self.expander.slim_window(t0, self.chunk_t), kw
+
+    def run_chunk(self, tmp, scal, t0: int, nsteps: int, cofs=None):
         """One chunk: forcing -> one whole-scan kernel launch; returns
         (tmp, scal, out rows [k_alloc, 6, P])."""
-        forc = self.chunk_forcing(t0)
+        forc, kw = self.kernel_inputs(t0, cofs)
         tmp2, scal2, out = sk.scan(
             tmp, scal, forc, self.cfg, self.params, self.grid,
             out_stride=self.os_, nsteps=nsteps, out_offset=t0,
-            n_out=self.k_alloc)
+            n_out=self.k_alloc, **kw)
         return tmp2, scal2, out[:, :6]
 
-    def _chunk_grid(self):
-        """[(t0, nsteps)] covering the run's steps [0, T)."""
-        return [(t0, min(self.chunk_t, self.T - t0))
-                for t0 in range(0, self.T, self.chunk_t)]
+    def _chunk_grid(self, t_lo: int, t_hi: int):
+        """[(t0, nsteps)] covering the steps [t_lo, t_hi)."""
+        return [(t0, min(self.chunk_t, t_hi - t0))
+                for t0 in range(t_lo, t_hi, self.chunk_t)]
 
-    def stream(self, tmp, scal, progress: Optional[Progress] = None):
-        """Stream the run's forcing rows [0, T) through the kernel, chunk
-        by chunk, draining each chunk's output rows to the host.  Returns
-        (tmp, scal, collected) with collected = [(steps, [k, 6, P]
-        numpy)]."""
-        collected = []
-        for t0, nsteps_c in self._chunk_grid():
+    def stream(self, tmp, scal, t_lo: int, t_hi: int, cofs=None,
+               progress: Optional[Progress] = None, collected=None):
+        """Stream global forcing rows [t_lo, t_hi) through the kernel, chunk
+        by chunk, draining each chunk's output rows to the host
+        (production.py:1826-1856, without the two-deep pipelining).
+        ``cofs``: optional (sw_corr, lw_corr) [P] tensors enabling the
+        post-window coefficient decay.  Returns (tmp, scal, collected) with
+        collected = [(steps, [k, 6, P] numpy)], appended to ``collected``
+        when given."""
+        collected = collected if collected is not None else []
+        for t0, nsteps_c in self._chunk_grid(t_lo, t_hi):
             # the global-offset output cadence (production.py:1844-1846)
             first_hit = -(-t0 // self.os_) * self.os_
             steps = list(range(first_hit, t0 + nsteps_c, self.os_))
-            tmp, scal, rows = self.run_chunk(tmp, scal, t0, nsteps_c)
+            tmp, scal, rows = self.run_chunk(tmp, scal, t0, nsteps_c, cofs)
             if steps:
                 collected.append((steps, rows[:len(steps)].cpu().numpy()))
             elif self.device.type == "cuda":
@@ -430,6 +505,17 @@ class _Engine:
             if progress:
                 progress.update(nsteps_c)
         return tmp, scal, collected
+
+    def run_uncoupled(self, progress: Optional[Progress] = None):
+        """Stream every step [0, T) and assemble the result."""
+        with self.metrics.phase("stream"):
+            t_start = timelib.perf_counter()
+            tmp, scal, collected = self.stream(self.tmp0, self.scal0, 0,
+                                              self.T, progress=progress)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall = timelib.perf_counter() - t_start
+        return self.assemble(collected, tmp, scal, wall)
 
     def assemble(self, collected, tmp, scal, wall: float) -> ProductionResult:
         with self.metrics.phase("output"):
@@ -475,15 +561,116 @@ def run_production(model: Model, expander: StationExpander,
     """
     eng = _Engine(model, expander, pts, cal, state, anchors=anchors,
                   chunk_t=chunk_t, out_stride=out_stride, metrics=metrics)
-    if eng.device.type == "cuda":
-        from .ops import build
-        with eng.metrics.phase("build"):
-            build.load()
+    return eng.run_uncoupled(progress)
+
+
+def run_production_coupled(model: Model, expander: StationExpander,
+                           pts: PointParams, cal: Calendar, state: State, *,
+                           anchors=None, chunk_t: int = 64,
+                           out_stride: Optional[int] = None,
+                           metrics: Optional[RunMetrics] = None,
+                           progress: Optional[Progress] = None,
+                           wcache_bytes: float = 4e9) -> ProductionResult:
+    """Coupled production run: streamed kernel phases around the
+    iteration-major coupling window (production.py:1966-2129).
+
+    Phase split (1-based steps; ws/we_b from the per-point coupling windows):
+      A [1, ws-1]    streamed kernel, coefficients 1
+      B [ws, we_b]   unpack -> coupling.run_window_passes (first / re-runs /
+                     tail) in plain torch on the device -> repack
+      C [we_b+1, T]  streamed kernel with the post-window coefficient decay
+                     (in kernel on the slim path, cof_window channels on K1)
+
+    With no coupled window the run is the uncoupled stream.
+    ``wcache_bytes``: device-memory budget for caching the pass-invariant
+    phase-B prepared window forcing (prepared once, read by every pass);
+    0 prepares it anew in every pass (the same values either way).
+    Counters: coupling_window_steps, coupling_reruns, coupling_window_rows
+    (rows stepped over all passes), coupling_window_cached and the coupled /
+    succeeded / failed point counts; phases phase_a/phase_b/phase_c.
+    """
+    from .coupling import run_window_passes, window_out_rows, window_span
+
+    eng = _Engine(model, expander, pts, cal, state, anchors=anchors,
+                  chunk_t=chunk_t, out_stride=out_stride, metrics=metrics)
+    settings = eng.settings
+    T, os_ = eng.T, eng.os_
+    coupled_np, span = window_span(settings, pts)
+    if span is None:
+        return eng.run_uncoupled(progress)
+
+    ws, we_b = span
+    W = we_b - ws + 1
+    wck = min(chunk_t, W)
+    rows_b = window_out_rows(ws, we_b, os_)
+    # The window forcing is pass-INVARIANT (only cofs/state change per
+    # re-run pass; the reference snapshots its input radiation slices for
+    # this reason, src/Coupling.f90:172-255): prepare it once for every
+    # pass unless the cache (~38 B/step-point) would exceed the budget
+    nv = -(-(W + 1) // wck)
+    cache_win = 38.0 * nv * wck * eng.P_pad <= float(wcache_bytes)
+    eng.metrics.note(
+        "coupling window forcing cached once (pass-invariant)" if cache_win
+        else f"coupling window forcing prepared per pass (cache would "
+             f"need {38.0 * nv * wck * eng.P_pad / 1e9:.1f} GB)")
+
+    def provider(t0: int) -> Prepared:
+        if eng.fast:
+            # station-level prepared channels: one row gather per chunk
+            return expander.prepared_window(t0, wck)
+        rawT = expander.window(t0, wck)
+        return prepare_window(rawT, eng.pts_dev, eng.hour_dev[t0:t0 + wck],
+                              settings, eng.params, t_offset=t0, t_total=T,
+                              anchors=eng.anchors_dev, enable_skyview=False)
+
+    def phase_b(tmp, scal):
+        st = sk.unpack_state(tmp, scal, eng.grid.nlayers, eng.template)
+        t0s = [ws - 1 + wck * k for k in range(nv)]
+        if cache_win:
+            cached = [provider(t0) for t0 in t0s]
+            valid = [c.valid for c in cached]
+            prov = lambda t0: cached[(t0 - (ws - 1)) // wck]
+        else:
+            valid = [provider(t0).valid for t0 in t0s]
+            prov = provider
+        valid_win = torch.cat(valid)[:W + 1]
+        res = run_window_passes(st, prov, valid_win, ws, we_b, eng.pts_dev,
+                                settings, eng.cfg, eng.grid, eng.params,
+                                out_stride=os_, wchunk=wck)
+        tmp2, scal2 = sk.pack_state(res.state, lpad=tmp.shape[0])
+        return (tmp2, scal2, res.cv,
+                res.out.permute(0, 2, 1).to(torch.float32), res.reruns,
+                res.rows)
+
     with eng.metrics.phase("stream"):
         t_start = timelib.perf_counter()
-        tmp, scal, collected = eng.stream(eng.tmp0, eng.scal0,
-                                          progress=progress)
-        if eng.device.type == "cuda":
-            torch.cuda.synchronize(eng.device)
+        with eng.metrics.phase("phase_a"):
+            tmp, scal, col = eng.stream(eng.tmp0, eng.scal0, 0, ws - 1,
+                                        progress=progress)
+        with eng.metrics.phase("phase_b"):
+            tmp, scal, cv, out_b, reruns, rows = phase_b(tmp, scal)
+            if len(rows_b):
+                col.append((list(rows_b),
+                            out_b[:len(rows_b)].cpu().numpy()))
+            if progress:
+                progress.update(W)
+        with eng.metrics.phase("phase_c"):
+            tmp, scal, col = eng.stream(tmp, scal, we_b, T,
+                                        cofs=(cv.sw_corr, cv.lw_corr),
+                                        progress=progress, collected=col)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)
         wall = timelib.perf_counter() - t_start
-    return eng.assemble(collected, tmp, scal, wall)
+    real = torch.zeros(eng.P_pad, dtype=torch.bool, device=eng.device)
+    real[:eng.n_real] = True
+    cpl = torch.as_tensor(np.pad(coupled_np, (0, eng.P_pad - eng.n_real)),
+                          device=eng.device) & real
+    n_failed = int((cpl & cv.failed).sum())
+    eng.metrics.count("coupling_window_steps", W)
+    eng.metrics.count("coupling_reruns", int(reruns))
+    eng.metrics.count("coupling_window_rows", int(rows))
+    eng.metrics.count("coupling_window_cached", int(cache_win))
+    eng.metrics.count("coupling_points", int(cpl.sum()))
+    eng.metrics.count("coupling_failed", n_failed)
+    eng.metrics.count("coupling_succeeded", int(cpl.sum()) - n_failed)
+    return eng.assemble(col, tmp, scal, wall)

@@ -33,7 +33,7 @@ def _imported_modules(path: pathlib.Path):
 def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"__init__.py", "model.py", "production.py", "interop.py",
-            "ops/scan_kernel.py", "ops/build.py"} <= names
+            "coupling.py", "ops/scan_kernel.py", "ops/build.py"} <= names
 
 
 @pytest.mark.parametrize("path", MODULES,

@@ -13,6 +13,7 @@ from roadsurf_tpu.io.synthetic import synthetic_raw
 from roadsurf_tpu.model import Model
 from roadsurf_tpu.ops import pallas_step as ps
 from roadsurf_tpu.state import default_point_params
+from roadsurf_tpu_torch import forcing as tforcing
 from roadsurf_tpu_torch import interop
 from roadsurf_tpu_torch import model as tmodel
 from roadsurf_tpu_torch.ops import build
@@ -212,3 +213,193 @@ def test_kernel_matches_reference_on_cuda(combo):
         _assert_close(got[2].cpu(), want[2].cpu(), got[0].cpu(),
                       want[0].cpu())
         assert torch.equal(got[1][sk.R_FAILED], want[1][sk.R_FAILED])
+
+
+# ---------------------------------------------------------------------------
+# K2: the slim mode (11 channels, time-only TRF, aux rows, in-kernel decay)
+# ---------------------------------------------------------------------------
+
+def _slim_case(npoints=1024, sim_len=128, off=0, nsteps=None, seed=5):
+    """A slim chunk at global offset ``off`` of a run that ends with its
+    step ``nsteps``: (JAX-side model, port model, pts, prep, state), the
+    run length, and the aux inputs of the decay (windows ending before and
+    inside the chunk, one at the run's last step, some points with none).
+    """
+    model, tm, pts, prep, state = _inputs(npoints=npoints, sim_len=sim_len)
+    nsteps = nsteps or sim_len
+    t_total = off + nsteps
+    rng = np.random.default_rng(seed)
+    cend = rng.integers(max(off - 20, 1), t_total, npoints).astype(np.float32)
+    cend[::9] = -99.0
+    cend[1::9] = t_total - 1
+    sw = rng.uniform(-0.4, 0.6, npoints).astype(np.float32)
+    lw = rng.uniform(-0.4, 0.6, npoints).astype(np.float32)
+    obs = rng.uniform(-3.0, 1.0, npoints).astype(np.float32)
+    return (model, tm, pts, prep, state, t_total,
+            {"cend": cend, "sw": sw, "lw": lw, "obs": obs})
+
+
+def _port_slim(tm, prep, state, aux, off, t_total, cofs):
+    """(tmp0, scal0, forcing [T, 11, P]) and the slim keyword arguments."""
+    tprep = interop.prepared(prep)
+    forc, trf = sk.pack_forcing_slim(tprep)
+    trf_g = torch.zeros(off + trf.shape[0], dtype=torch.float32)
+    trf_g[off:] = trf                      # indexed by the global step
+    t = lambda k: torch.tensor(aux[k])
+    rows = (sk.pack_aux(t("obs"), t("sw"), t("lw"), t("cend")) if cofs
+            else sk.pack_aux(t("obs")))
+    tmp0, scal0 = sk.pack_state(interop.state(state))
+    kw = dict(slim_trf=trf_g, aux_rows=rows)
+    if cofs:
+        kw.update(aux_cofs=True, t_total=t_total,
+                  cof_red=tm.settings.coupling_effect_reduction)
+    return (tmp0, scal0, forc), kw
+
+
+def _k1_forcing(forc, trf_rows, swc, lwc, obs):
+    """K1's 16-channel packing of the very same slim forcing (so both modes
+    read identical inputs wherever the packing was computed), with the
+    given coefficient rows and coupling obs."""
+    T, _, P = forc.shape
+    out = torch.zeros((T, sk.NCH, P), dtype=torch.float32, device=forc.device)
+    out[:, list(sk.SLIM_CHANNELS)] = forc
+    out[:, sk.C_TRF] = trf_rows[:, None]
+    out[:, sk.C_SWCOF] = swc
+    out[:, sk.C_LWCOF] = lwc
+    out[:, sk.C_CPLOBS] = obs[None, :]
+    return out
+
+
+def _decay_rows(kw, off, T, t_total, settings):
+    """forcing.cof_window rows of the chunk from K2's aux rows, computed
+    on their device."""
+    aux = kw["aux_rows"]
+    return tforcing.cof_window(aux[sk.A_SWCORR], aux[sk.A_LWCORR],
+                               aux[sk.A_CEND].to(torch.int32), off, T,
+                               t_total, settings, torch.float32)
+
+
+def _geometry(off, nsteps, stride):
+    n_out = len(range(-(-off // stride) * stride, off + nsteps, stride))
+    return dict(out_stride=stride, nsteps=nsteps, out_offset=off,
+                n_out=n_out)
+
+
+@pytest.mark.parametrize("cofs", [False, True], ids=["plain", "cofs"])
+def test_reference_slim_matches_pallas(cofs):
+    """scan_reference in slim mode against the JAX kernel's slim tile-major
+    mode (one 1024-point tile), at global offset 40 with 100 of 128 steps:
+    the chunk holds window ends and the run's last step."""
+    off, nsteps, stride = 40, 100, 4
+    model, tm, pts, prep, state, t_total, aux = _slim_case(off=off,
+                                                           nsteps=nsteps)
+    packed, kw = _port_slim(tm, prep, state, aux, off, t_total, cofs)
+    geo = _geometry(off, nsteps, stride)
+    tt, ts, tout = sk.scan_reference(*packed, tm.cfg, tm.params, tm.grid,
+                                     **geo, **kw)
+    tmp0, scal0, forc = (np.asarray(x.numpy()) for x in packed)
+    T = forc.shape[0]
+    forc_tm = forc.reshape(T, sk.NCH_SLIM, 1, 8, ps.LANE).transpose(
+        2, 0, 1, 3, 4)                      # [n_tiles, T, 11, subl, LANE]
+    jkw = dict(slim_trf=jnp.asarray(kw["slim_trf"].numpy()),
+               aux_rows=jnp.asarray(kw["aux_rows"].numpy()),
+               aux_cofs=cofs)
+    if cofs:
+        jkw.update(t_total=t_total, cof_red=kw["cof_red"])
+    jt, js, jout = ps.pallas_scan(jnp.asarray(tmp0), jnp.asarray(scal0),
+                                  jnp.asarray(forc_tm), model.cfg,
+                                  model.params, model.grid, chunk_t=64,
+                                  interpret=True, **geo, **jkw)
+    assert tout.shape == jout.shape
+    _assert_close(tout, jout, tt, jt)
+    assert np.array_equal(ts.numpy()[sk.R_FAILED], np.asarray(js)[ps.R_FAILED])
+
+
+@pytest.mark.parametrize("cofs", [False, True], ids=["plain", "cofs"])
+def test_reference_slim_equals_packed_bitwise(cofs):
+    """K2's plain version equals K1's on the same data, bit for bit: without
+    cofs against the 16-channel packing with ones, with cofs against K1
+    fed forcing.cof_window's rows (the run's last step included)."""
+    off, nsteps, stride = 40, 100, 4
+    model, tm, pts, prep, state, t_total, aux = _slim_case(
+        npoints=256, off=off, nsteps=nsteps)
+    packed, kw = _port_slim(tm, prep, state, aux, off, t_total, cofs)
+    geo = _geometry(off, nsteps, stride)
+    got = sk.scan_reference(*packed, tm.cfg, tm.params, tm.grid, **geo, **kw)
+    forc = packed[2]
+    T = forc.shape[0]
+    if cofs:
+        swc, lwc = _decay_rows(kw, off, T, t_total, tm.settings)
+    else:
+        swc = lwc = torch.ones((T, forc.shape[2]), dtype=torch.float32)
+    k1 = _k1_forcing(forc, kw["slim_trf"][off:], swc, lwc,
+                     kw["aux_rows"][sk.A_CPLOBS])
+    # the 16-channel packing of the same prep, as production builds it
+    tprep = interop.prepared(prep)._replace(trf_fric=kw["slim_trf"][off:])
+    assert torch.equal(k1, sk.pack_forcing(tprep, swc, lwc,
+                                           kw["aux_rows"][sk.A_CPLOBS]))
+    want = sk.scan_reference(packed[0], packed[1], k1, tm.cfg, tm.params,
+                             tm.grid, **geo)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_slim_wrapper_checks():
+    model, tm, pts, prep, state, t_total, aux = _slim_case(npoints=128,
+                                                           sim_len=16)
+    packed, kw = _port_slim(tm, prep, state, aux, 0, t_total, True)
+    before = (sk.LAUNCHES, sk.LAUNCHES_SLIM)
+    a = sk.scan(*packed, tm.cfg, tm.params, tm.grid, **kw)
+    b = sk.scan_reference(*packed, tm.cfg, tm.params, tm.grid, **kw)
+    assert (sk.LAUNCHES, sk.LAUNCHES_SLIM) == before   # CPU: plain version
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        sk.scan_cuda(*packed, tm.cfg, tm.params, tm.grid, **kw)
+    with pytest.raises(ValueError):                     # no t_total
+        sk.scan_reference(*packed, tm.cfg, tm.params, tm.grid,
+                          slim_trf=kw["slim_trf"], aux_rows=kw["aux_rows"],
+                          aux_cofs=True)
+    with pytest.raises(ValueError):                     # TRF too short
+        sk.scan_reference(*packed, tm.cfg, tm.params, tm.grid,
+                          slim_trf=kw["slim_trf"][:8],
+                          aux_rows=kw["aux_rows"])
+    with pytest.raises(ValueError):                     # K1 forcing
+        sk.scan_reference(packed[0], packed[1],
+                          torch.zeros(16, sk.NCH, 128), tm.cfg, tm.params,
+                          tm.grid, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cofs", [False, True], ids=["plain", "cofs"])
+def test_slim_kernel_matches_reference_on_cuda(cofs):
+    """K2 against its plain version on the card, and with cofs against K1
+    fed forcing.cof_window's rows computed on the card, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    off, nsteps, stride = 40, 100, 4
+    model, tm, pts, prep, state, t_total, aux = _slim_case(
+        npoints=4096, off=off, nsteps=nsteps)
+    packed, kw = _port_slim(tm, prep, state, aux, off, t_total, cofs)
+    packed = [x.cuda() for x in packed]
+    kw = {k: (v.cuda() if isinstance(v, torch.Tensor) else v)
+          for k, v in kw.items()}
+    geo = _geometry(off, nsteps, stride)
+    before = sk.LAUNCHES_SLIM
+    got = sk.scan(*packed, tm.cfg, tm.params, tm.grid, **geo, **kw)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES_SLIM == before + 1
+    want = sk.scan_reference(*packed, tm.cfg, tm.params, tm.grid, **geo,
+                             **kw)
+    _assert_close(got[2].cpu(), want[2].cpu(), got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1][sk.R_FAILED], want[1][sk.R_FAILED])
+    if cofs:
+        # the decay rows from torch on the card, the same packed inputs
+        forc = packed[2]
+        swc, lwc = _decay_rows(kw, off, forc.shape[0], t_total, tm.settings)
+        k1 = sk.scan(packed[0], packed[1],
+                     _k1_forcing(forc, kw["slim_trf"][off:], swc, lwc,
+                                 kw["aux_rows"][sk.A_CPLOBS]),
+                     tm.cfg, tm.params, tm.grid, **geo)
+        for g, w in zip(got, k1):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
