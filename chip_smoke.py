@@ -1,11 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: builds the
-hand-written scan kernel (K1, point-major, and K2, slim, modes of one
-source) from this checkout, holds each mode against its plain torch
+hand-written scan kernel (K1, point-major; K2, slim; K3, tile-major: modes
+of one source) from this checkout, holds each mode against its plain torch
 version, drives the station-fed production forecast end to end at
 1,048,576 points x 8,881 steps (the operational 74-hour run at dt 30 s),
-uncoupled and observation-coupled, and prints a JSON summary.
+uncoupled and observation-coupled, and the NWP-grid and grid+station
+forecasts with sky view at the same size, and prints a JSON summary.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase (one card)
+    python3 chip_smoke.py 3c 4c      # only the named phases, no summary
 
 Phases (each fails the run on any error; nothing falls back to the CPU or to
 the plain version):
@@ -45,10 +47,37 @@ the plain version):
     run_production_coupled (phase A and C through K2, phase B in torch on
     the card), with a 64-point sample of coupled points re-run through
     Model.run_coupled on the host in float32 and float64 under the same
-    bound.
+    bound;
+ 3c. K3 against its plain version and against K1 / K2 on the same values,
+    bit for bit, at tile widths 128, 1024 and 8192: 65,536 points x 128
+    steps, both channel sets, with and without the decay, on an offset
+    chunk with nsteps < T that holds the run's last step; then one
+    1,048,576 x 64 chunk of phase 7's grid forecast at each tile width,
+    timed beside K2 on the same values;
+ 4c. the tile-major production path (K3) small on the card: 8,192 points,
+    97 steps, (chunk_t, out_stride) = (32, 6) and (16, 7), for a grid, a
+    grid+station composite and a station expander with sky view, uncoupled
+    and coupled (the coupling window and obs from last_valid_scan of the
+    merged obs), each against Model.run / Model.run_coupled fed host_at's
+    merged forcing and against the same engine forced onto the generic K1
+    route;
+ 7. the NWP-grid forecast at full size through K3: the JAX package's grid
+    configuration (tools/gen_production.py --grid-source: a 300 x 400 grid
+    of 75 hourly samples over 59.6-70.1 N, 20.5-31.6 E, its field formulas
+    at seed 7) at 1,048,576 points on a 1024 x 1024 raster, 8,881 steps,
+    hourly output, chunk 64; a 64-point sample re-run through Model.run on
+    forcing from io/gridsource on those points alone, under phase 5's
+    bound, and held to the float32 Model.run at the kernel tolerances;
+ 7b. phase 7's grid overlaid by phase 5's 2,048 stations' road-surface
+    obs, wind, direct shortwave and net longwave (the grid carries neither
+    radiation component, and sky view reads both), with sky view 0.6 and
+    U(0, 25) degree horizons on every third point, at the same size and
+    under the same bounds.
 
-The last three lines of standard output are the kernel summary (JSON), the
-card's name and power limit, and the device line (JSON).
+Phases run in the order 1, 2, 3, 3b, 4, 4b, 5, 6, 7 (with 3c before its
+run), 4c, 7b.  The last three lines of standard output are the kernel
+summary (JSON), the card's name and power limit, and the device line
+(JSON); with phases named on the command line they are not printed.
 """
 from __future__ import annotations
 
@@ -67,8 +96,12 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import calendar as callib  # noqa: E402
+
 from roadsurf_tpu_torch.config import ModelSettings  # noqa: E402
-from roadsurf_tpu_torch.forcing import RawForcing, cof_window  # noqa: E402
+from roadsurf_tpu_torch.forcing import (Calendar, RawForcing,  # noqa: E402
+                                        cof_window, valid_threshold)
+from roadsurf_tpu_torch.io import gridsource  # noqa: E402
 from roadsurf_tpu_torch.io.synthetic import synthetic_raw  # noqa: E402
 from roadsurf_tpu_torch.model import Model  # noqa: E402
 from roadsurf_tpu_torch.observability import Progress, RunMetrics  # noqa: E402
@@ -89,6 +122,25 @@ VARIANTS = ({"tsurf_output_depth": 0.03}, {"nlayers": 20},
             {"nlayers": 20, "tsurf_output_depth": 0.5},
             {"force_snow_melting": True, "force_ice_melting": True},
             {"melting_can_change_temperature": False}, {"force_tsurf": True})
+# tsurf's allowance for one storage run-out event between two float32 paths
+# (a local jump of about 1e-3 K; PERF.md)
+RUNOUT_T = 1e-3
+# the tile widths K3 is held and timed at
+TILE_WIDTHS = (128, 1024, 8192)
+# NVIDIA's data sheet for one H100 SXM: HBM rate and the float32 rate
+# outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+# float32 operations of one point-step of the kernel, counted from
+# csrc/scan_kernel.cu (each add, multiply, divide, min/max, sqrt, log and
+# exp one operation; both arms of an arithmetic select): the step outside
+# the layer loop and the boundary-layer loop, each stencil layer, each
+# boundary-layer iteration, and the in-kernel coefficient decay
+OPS_STEP = 141
+OPS_LAYER = 26
+OPS_BL_ITER = 25
+OPS_DECAY = 10
+T0 = time.perf_counter()
 
 
 def log(msg):
@@ -158,6 +210,38 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def scan_bound(args, kw, stats, nlayers):
+    """(bound_ms, bound_by) of one kernel call: the larger of the bytes it
+    must move over the card's HBM rate and the float32 operations these
+    inputs need over the card's float32 rate (``stats`` from
+    scan_reference: the point-steps run and their boundary-layer
+    iterations; OPS_* above).  The bytes count only what the physics reads
+    and writes, not the layout's padding: the forcing channels it reads
+    (15 of K1's 16, the 11 slim ones) once per step, the L+3 profile rows
+    and the 13 state rows read and written once, the aux rows and TRF read
+    once, and 6 fields of each output row it writes."""
+    tmp0, scal0, forc = args[:3]
+    P = tmp0.shape[1]
+    nsteps, off, stride = kw["nsteps"], kw["out_offset"], kw["out_stride"]
+    rows = len(range(-(-off // stride) * stride, off + nsteps, stride))
+    n_ch = sk.NCH_SLIM if forc.shape[-2] == sk.NCH_SLIM else sk.C_AIRVCAP + 1
+    n_bytes = 4 * P * (n_ch * nsteps + 2 * (nlayers + 3 + sk.R_FAILED + 1)
+                       + rows * 6)
+    if kw.get("aux_rows") is not None:
+        n_bytes += 4 * (kw["aux_rows"].numel() + nsteps)
+    per_step = (OPS_STEP + OPS_LAYER * nlayers
+                + (OPS_DECAY if kw.get("aux_cofs") else 0))
+    n_ops = (stats["point_steps"] * per_step
+             + stats["bl_iters"] * OPS_BL_ITER)
+    t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
+    t_ops = 1e3 * n_ops / PEAK_F32_OPS_S
+    per_ps = stats["bl_iters"] / stats["point_steps"]
+    log(f"  bound: {n_bytes / 1e9:.3f} GB -> {t_bytes:.3f} ms at 3.35 TB/s; "
+        f"{n_ops / 1e9:.2f} G f32 ops ({per_ps:.2f} boundary-layer "
+        f"iterations a point-step) -> {t_ops:.3f} ms at 67 TFLOP/s")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def packed_inputs(model, npoints, sim_len, scenario, seed):
@@ -370,9 +454,11 @@ def phase_kernel_chunk(cfg):
               n_out=eng.k_alloc)
     got = sk.scan_cuda(*args, **kw)
     torch.cuda.synchronize()
-    want = sk.scan_reference(*args, **kw)
+    stats = {}
+    want = sk.scan_reference(*args, stats=stats, **kw)
     torch.cuda.synchronize()
     err = compare_scan("1M chunk", got, want, model.settings.nlayers)
+    bound = scan_bound(args, kw, stats, model.settings.nlayers)
     ms = cuda_ms(lambda: sk.scan_cuda(*args, **kw), reps=10)
     plain_ms = cuda_ms(lambda: sk.scan_reference(*args, **kw), reps=2)
     rate = cfg["npoints"] * cfg["chunk_t"] / (ms * 1e-3)
@@ -387,7 +473,7 @@ def phase_kernel_chunk(cfg):
         f"kernel {ms:.3f} ms, drain of one output row {drain_ms:.3f} ms")
     del forc, got, want, eng
     torch.cuda.empty_cache()
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound
 
 
 def phase_kernel_slim_chunk(cfg6):
@@ -416,10 +502,12 @@ def phase_kernel_slim_chunk(cfg6):
                   n_out=eng.k_alloc, **skw)
         got = sk.scan_cuda(*args, **kw)
         torch.cuda.synchronize()
-        want = sk.scan_reference(*args, **kw)
+        stats = {}
+        want = sk.scan_reference(*args, stats=stats, **kw)
         torch.cuda.synchronize()
         errs.append(compare_scan(f"1M {label} chunk", got, want,
                                  model.settings.nlayers))
+        bound = scan_bound(args, kw, stats, model.settings.nlayers)
         ms = cuda_ms(lambda: sk.scan_cuda(*args, **kw), reps=10)
         plain_ms = cuda_ms(lambda: sk.scan_reference(*args, **kw), reps=2)
         gather_ms = cuda_ms(lambda: eng.kernel_inputs(t0, c), reps=5)
@@ -428,7 +516,7 @@ def phase_kernel_slim_chunk(cfg6):
             f"{label}: max |err| {errs[-1]:.3e}; kernel {ms:.3f} ms "
             f"({rate:.4g} point-steps/s), plain {plain_ms:.1f} ms, slim "
             f"forcing gather {gather_ms:.3f} ms")
-        res[label] = (ms, plain_ms)
+        res[label] = (ms, plain_ms, bound)
         if c is not None:
             k1 = sk.scan_cuda(eng.tmp0, eng.scal0, eng.chunk_forcing(t0, c),
                               model.cfg, model.params, model.grid,
@@ -488,10 +576,16 @@ def compare_fields(label, res, out_ref, final_ref, steps):
         errs.append(check_close(f"{label} {name}",
                                 torch.from_numpy(res.fields[name]),
                                 ref.cpu(), TOL_T if k == 0 else TOL_S))
-    errs.append(check_close(f"{label} final tmp", res.state.tmp,
-                            final_ref.tmp.cpu(), TOL_T))
+    check_close(f"{label} final tmp", res.state.tmp, final_ref.tmp.cpu(),
+                TOL_T)
     if not torch.equal(res.state.failed, final_ref.failed.cpu()):
         raise AssertionError(f"{label}: failed masks differ")
+    # the reported error leaves out the profiles of failed points: the
+    # failing step runs on the missing sentinels and leaves values of order
+    # 1e6, held above at the relative tolerance
+    ok = ~res.state.failed
+    errs.append(check_close(f"{label} final tmp", res.state.tmp[ok],
+                            final_ref.tmp.cpu()[ok], TOL_T))
     return max(errs)
 
 
@@ -618,7 +712,8 @@ def check_outputs(res, cfg):
         assert np.all(np.isfinite(f) | (f == -9999.0)), name
 
 
-def phase_sample_long(cfg, res, n=64, coupled=False):
+def phase_sample_long(cfg, res, n=64, coupled=False, raw_fn=None,
+                      hold_f32=False):
     """A sample of points re-run through Model.run (Model.run_coupled when
     ``coupled``: the per-point-PC engine) over the whole horizon, in float32
     and in float64 (the plain torch path on the host: at 64 points its step
@@ -629,16 +724,30 @@ def phase_sample_long(cfg, res, n=64, coupled=False):
     over thousands of steps, and tsurf or water jumps there.  So the bound
     is relative: per field, the kernel path's largest error against the
     float64 run is at most twice the float32 plain run's own, plus the
-    field's tolerance; the failed masks are equal."""
+    field's tolerance; the failed masks are equal.  ``raw_fn(idx)`` gives
+    the sample's float64 forcing ([n, T] RawForcing), by default the
+    station series of its points.  ``hold_f32`` also holds the kernel path
+    to the float32 run elementwise at the kernel tolerances, tsurf's atol
+    widened by RUNOUT_T for one storage run-out event: where both float32
+    paths carry the same large error against float64 (sky view's
+    correction reads the float32 Julian day), that is the check that can
+    see a wrong correction.  The station phases do not take it: over their
+    8,881 steps the two float32 paths see run-out events in the storages
+    too (PERF.md)."""
     if coupled:
         cand = np.nonzero(np.asarray(cfg["pts"].coupling_end) >= 1)[0]
         idx = cand[np.linspace(0, len(cand) - 1, n).astype(np.int64)]
     else:
         idx = np.linspace(0, cfg["npoints"] - 1, n).astype(np.int64)
-    raw = RawForcing(*(np.asarray(getattr(cfg["raw_st"], f))[
-        cfg["st_idx"][idx]] for f in RawForcing._fields))
+    if raw_fn is None:
+        raw = RawForcing(*(np.asarray(getattr(cfg["raw_st"], f))[
+            cfg["st_idx"][idx]] for f in RawForcing._fields))
+    else:
+        raw = raw_fn(idx)
     raw64 = RawForcing(*(x.astype(np.float64) if x.dtype.kind == "f" else x
                          for x in raw))
+    raw = RawForcing(*(x.astype(np.float32) if x.dtype.kind == "f" else x
+                       for x in raw))
     model = Model(cfg["model"].settings, device="cpu")
     pts = PointParams(*(np.asarray(x)[idx] for x in cfg["pts"]))
     t0 = time.perf_counter()
@@ -654,19 +763,28 @@ def phase_sample_long(cfg, res, n=64, coupled=False):
     secs = time.perf_counter() - t0
     assert torch.equal(final.failed, res.state.failed[idx]), "failed masks"
     assert torch.equal(final64.failed, res.state.failed[idx]), "failed masks"
-    err, err32 = {}, {}
+    err, err32, err_k32 = {}, {}, {}
     for k, name in enumerate(production.OUT_FIELD_ROWS):
         ref = pick(out64, k, name)
-        err[name] = float(np.abs(res.fields[name][:, idx] - ref).max())
+        got = res.fields[name][:, idx]
+        err[name] = float(np.abs(got - ref).max())
         err32[name] = float(np.abs(pick(out32, k, name) - ref).max())
-        atol = (TOL_T if k == 0 else TOL_S)["atol"]
-        assert err[name] <= 2.0 * err32[name] + atol, \
+        err_k32[name] = float(np.abs(got - pick(out32, k, name)).max())
+        tol = TOL_T if k == 0 else TOL_S
+        assert err[name] <= 2.0 * err32[name] + tol["atol"], \
             (name, err[name], err32[name])
+        if hold_f32:
+            check_close(f"{n}-point sample {name} vs float32 {name}",
+                        torch.from_numpy(got),
+                        torch.from_numpy(pick(out32, k, name)),
+                        dict(tol, atol=tol["atol"] + (RUNOUT_T if k == 0
+                                                      else 0.0)))
     fmt = lambda e: json.dumps({k: float(f"{v:.3e}") for k, v in e.items()})
     what = "Model.run_coupled" if coupled else "Model.run"
     log(f"  {n}-point sample over {cfg['T']} steps ({secs:.0f} s), max |err| "
         f"against float64 {what}: kernel path {fmt(err)}; float32 "
-        f"{what} {fmt(err32)}")
+        f"{what} {fmt(err32)}; kernel path against float32 {what} "
+        f"{fmt(err_k32)}")
     return err
 
 
@@ -704,7 +822,492 @@ def phase_coupled_full(cfg6, metrics):
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# K3 and the tile-major production path (phases 3c, 4c, 7, 7b)
+# ---------------------------------------------------------------------------
+
+def utc(s):
+    return callib.timegm(time.strptime(s, "%Y-%m-%d %H:%M"))
+
+
+def phase_kernel_tm_small(npoints=65536, T=128):
+    """K3 on 65,536 points x 128 steps at each tile width: the 16-channel
+    forcing against K1, the slim one without and with the decay against
+    K2, bit for bit, on an offset chunk (global offset 40, 100 of 128
+    steps, a run of 140 steps: the chunk holds the lastValues step), and
+    each against its plain version on the tile-major forcing."""
+    model = Model(ModelSettings(sim_len=T, dt=30.0), device=DEV)
+    raw, cal = synthetic_raw(npoints, T, seed=21, scenario="winter_mix",
+                             dtype=np.float32)
+    prep = model.prepare(raw, default_point_params(npoints), cal)
+    rng = np.random.default_rng(5)
+    dev_f = lambda a: torch.tensor(np.asarray(a, np.float32), device=DEV)
+    prep = prep._replace(in_coupling=torch.tensor(
+        rng.random((T, npoints)) < 0.5, device=DEV))
+    state = model.init(raw, cal, dtype=torch.float32)
+    tmp0, scal0 = sk.pack_state(state)
+    tmp0[model.settings.nlayers + 2:] = float("nan")
+    slim, trf = sk.pack_forcing_slim(prep)
+    obs = dev_f(rng.uniform(-3.0, 1.0, npoints))
+    off, nsteps, stride = 40, 100, 4
+    t_total = off + nsteps
+    cend = rng.integers(20, t_total, npoints)
+    cend[::9] = -99
+    cend[1::9] = t_total - 1
+    trf_g = torch.zeros(off + T, dtype=torch.float32, device=DEV)
+    trf_g[off:] = trf
+    ones = torch.ones((T, npoints), dtype=torch.float32, device=DEV)
+    k1 = sk.pack_forcing(prep._replace(trf_fric=trf_g[off:]), ones, ones,
+                         obs)
+    geo = dict(out_stride=stride, nsteps=nsteps, out_offset=off,
+               n_out=len(range(-(-off // stride) * stride, off + nsteps,
+                               stride)))
+    decay = dict(slim_trf=trf_g, aux_cofs=True, t_total=t_total,
+                 cof_red=model.settings.coupling_effect_reduction,
+                 aux_rows=sk.pack_aux(
+                     obs, dev_f(rng.uniform(-0.4, 0.6, npoints)),
+                     dev_f(rng.uniform(-0.4, 0.6, npoints)), dev_f(cend)))
+    modes = (("K1", k1, {}),
+             ("K2", slim, dict(slim_trf=trf_g, aux_rows=sk.pack_aux(obs))),
+             ("K2 + decay", slim, decay))
+    rest = (model.cfg, model.params, model.grid)
+    max_err = 0.0
+    for label, forc, kw in modes:
+        pm = sk.scan_cuda(tmp0, scal0, forc, *rest, **geo, **kw)
+        for tp in TILE_WIDTHS:
+            f4 = sk.to_tile_major(forc, tp)
+            got = sk.scan_cuda(tmp0, scal0, f4, *rest, **geo, **kw)
+            torch.cuda.synchronize()
+            assert_bitwise(f"K3 ({label} channels, TP {tp}) vs {label}, "
+                           f"{npoints} x {T}", got, pm)
+            want = sk.scan_reference(tmp0, scal0, f4, *rest, **geo, **kw)
+            err = compare_scan(f"K3 {label} TP {tp}", got, want,
+                               model.settings.nlayers)
+            log(f"  K3 vs plain, {npoints} x {T}, {label}, TP {tp}: max "
+                f"|err| {err:.3e}")
+            max_err = max(max_err, err)
+            del f4, got, want
+    return max_err
+
+
+def chunk_pieces(eng, t0, label):
+    """The three layers of one stream chunk at ``t0``, timed alone with
+    CUDA events: the forcing (raw window, prep and stack), the kernel, and
+    the drain of one output row."""
+    forc, kw = eng.kernel_inputs(t0)
+    geo = dict(out_stride=eng.os_, nsteps=eng.chunk_t, out_offset=t0,
+               n_out=eng.k_alloc)
+    rest = (eng.cfg, eng.params, eng.grid)
+    prep_ms = cuda_ms(lambda: eng.kernel_inputs(t0), reps=3)
+    kern_ms = cuda_ms(lambda: sk.scan_cuda(eng.tmp0, eng.scal0, forc, *rest,
+                                           **geo, **kw), reps=5)
+    row = sk.scan_cuda(eng.tmp0, eng.scal0, forc, *rest, **geo, **kw)[2]
+    drain_ms = cuda_ms(lambda: row[:1, :6].cpu(), reps=5)
+    log(f"  [{card_line()}] per chunk ({label}, offset {t0}): forcing "
+        f"(window + prep + stack) {prep_ms:.3f} ms, kernel {kern_ms:.3f} ms, "
+        f"drain of one output row {drain_ms:.3f} ms")
+    return forc, kw, geo, (prep_ms, kern_ms, drain_ms)
+
+
+def phase_kernel_tm_chunk(cfg7):
+    """One 1,048,576 x 64 chunk of phase 7's grid forecast (offset 448):
+    K3 against its plain version, and at each tile width against K2 on the
+    same values, bit for bit; K3 timed at each width beside K2 (K2, the
+    widths, K2), and the plain version."""
+    eng = production._Engine(cfg7["model"], cfg7["exp"], cfg7["pts"],
+                             cfg7["cal"], cfg7["state0"],
+                             chunk_t=cfg7["chunk_t"])
+    assert eng.tile_major, "phase 7's engine is not on the tile-major path"
+    t0 = 7 * cfg7["chunk_t"]
+    forc, kw, geo, _ = chunk_pieces(eng, t0, "grid")
+    tp0 = forc.shape[3]
+    args = (eng.tmp0, eng.scal0)
+    rest = (eng.cfg, eng.params, eng.grid)
+    got = sk.scan_cuda(*args, forc, *rest, **geo, **kw)
+    torch.cuda.synchronize()
+    stats = {}
+    want = sk.scan_reference(*args, forc, *rest, stats=stats, **geo, **kw)
+    torch.cuda.synchronize()
+    err = compare_scan("1M K3 chunk", got, want, eng.grid.nlayers)
+    bound = scan_bound(args + (forc,), dict(geo, **kw), stats,
+                       eng.grid.nlayers)
+    del want
+    pm = sk.to_point_major(forc)
+    k2 = sk.scan_cuda(*args, pm, *rest, **geo, **kw)
+    k2_ms = [cuda_ms(lambda: sk.scan_cuda(*args, pm, *rest, **geo, **kw),
+                     reps=10)]
+    times = {}
+    for tp in sorted(set(TILE_WIDTHS) | {tp0}):
+        f4 = forc if tp == tp0 else sk.to_tile_major(pm, tp)
+        assert_bitwise(f"1M K3 chunk, TP {tp}, vs K2",
+                       sk.scan_cuda(*args, f4, *rest, **geo, **kw), k2)
+        times[tp] = cuda_ms(lambda: sk.scan_cuda(*args, f4, *rest, **geo,
+                                                 **kw), reps=10)
+        del f4
+    k2_ms.append(cuda_ms(lambda: sk.scan_cuda(*args, pm, *rest, **geo,
+                                              **kw), reps=10))
+    plain_ms = cuda_ms(lambda: sk.scan_reference(*args, forc, *rest, **geo,
+                                                 **kw), reps=2)
+    log(f"  [{card_line()}] K3 per 1M x 64 chunk by tile width (ms): "
+        + json.dumps({str(k): round(v, 4) for k, v in times.items()})
+        + f"; K2 on the same values {k2_ms[0]:.4f} / {k2_ms[1]:.4f} ms; "
+        f"plain {plain_ms:.1f} ms; K3 vs plain max |err| {err:.3e}; the "
+        f"engine's width {tp0}")
+    del forc, pm, got, k2, eng
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=times[tp0], plain_ms=plain_ms, bound=bound,
+                times=times, k2_ms=k2_ms)
+
+
+def _host_raw(exp, T):
+    """Every field of an expander's merged forcing on the host, [P, T],
+    float32 (prec_phase int32, -9999 missing): the input of the port's
+    Model.run beside the streamed run."""
+    vals = exp.host_at(np.arange(T), RawForcing._fields)
+    return RawForcing(*(
+        np.where(vals[n] <= -9000.0, -9999, vals[n]).astype(np.int32)
+        if n == "prec_phase" else np.asarray(vals[n], np.float32)
+        for n in RawForcing._fields))
+
+
+def _tm_small_case(P=8192, T=97, seed=3):
+    """Inputs of phase 4c (tests/test_production_fused_generic.py:35-75,
+    :163-174, :279-299 at 8,192 points): a 3 x 4 grid of 10 hourly samples
+    whose road-surface obs end at 02:00; 7 stations (every 83rd point out
+    of radius, obs 60% missing); sky view 0.6 with U(0, 25) degree
+    horizons on every third point."""
+    t0 = utc("2019-12-02 00:00")
+    times = t0 + 3600 * np.arange(10, dtype=np.int64)
+    sim = t0 + 120 * np.arange(T, dtype=np.int64)
+    rng = np.random.default_rng(seed)
+    shp = (10, 3, 4)
+    hr = np.arange(10)[:, None, None]
+    fields = {
+        "tair": -3.0 + 0.5 * hr + rng.normal(0, 0.3, shp),
+        "rhz": np.clip(85.0 + rng.normal(0, 30.0, shp), -20, 140),
+        "vz": np.abs(rng.normal(3.0, 1.0, shp)),
+        "prec": np.where(rng.random(shp) < 0.2,
+                         rng.uniform(0, 150.0, shp), 0.0),
+        "sw": np.abs(rng.normal(20.0, 10.0, shp)),
+        "lw": 290.0 + rng.normal(0, 5.0, shp),
+        "sw_dir": np.zeros(shp),
+        "lw_net": -10.0 + rng.normal(0, 2.0, shp),
+        "tsurf_obs": -4.0 + 0.5 * hr + rng.normal(0, 0.3, shp),
+        "prec_phase": rng.integers(0, 4, shp).astype(float),
+    }
+    fields["tsurf_obs"][3:] = -9999.9
+    plat = np.clip(59.9 + rng.uniform(0, 1.3, P), 60.0, 61.0)
+    plon = np.clip(23.9 + rng.uniform(0, 1.8, P), 24.0, 25.5)
+    S = 7
+    st_idx = rng.integers(0, S, size=P)
+    st_idx[::83] = -1
+    mk = lambda lo, hi, mf=0.1: np.where(
+        rng.random((S, T)) < mf, -9999.9, rng.uniform(lo, hi, (S, T)))
+    raw_st = RawForcing(
+        tair=mk(-20, 5), tdew=mk(-25, 2), vz=mk(0, 10), rhz=mk(10, 100),
+        prec=mk(0, 5), sw=mk(0, 300), lw=mk(200, 350), sw_dir=mk(0, 200),
+        lw_net=mk(-50, 30), tsurf_obs=mk(-15, 5, 0.6),
+        prec_phase=rng.integers(-1, 4, (S, T)))
+    sky = np.where(np.arange(P) % 3 == 0, 0.6, 1.0)
+    hor = np.zeros((P, 360))
+    hor[::3] = rng.uniform(0, 25, (len(hor[::3]), 360))
+    return dict(times=times, sim=sim, fields=fields, plat=plat, plon=plon,
+                lats=np.linspace(60.0, 61.0, 3),
+                lons=np.linspace(24.0, 25.5, 4), st_idx=st_idx,
+                raw_st=raw_st, sky=sky, hor=hor, P=P, T=T)
+
+
+def _only(raw, keep):
+    """A RawForcing with only the ``keep`` channels, the rest missing."""
+    return RawForcing(*(
+        getattr(raw, n) if n in keep
+        else np.full_like(np.asarray(getattr(raw, n)),
+                          -9999 if n == "prec_phase" else -9999.9)
+        for n in RawForcing._fields))
+
+
+def _tm_small_expander(c, config, chunk_t):
+    """Phase 4c's expander of ``config``."""
+    def grid(fields):
+        return production.GridExpander(
+            c["times"], c["lats"], c["lons"], fields, c["plat"], c["plon"],
+            c["sim"], DEV, chunk_t=chunk_t)
+
+    def station(raw):
+        return production.StationExpander(raw, c["st_idx"], DEV,
+                                          chunk_t=chunk_t)
+    if config == "grid":
+        return grid(c["fields"])
+    if config == "composite":
+        fields = {k: v for k, v in c["fields"].items() if k != "tsurf_obs"}
+        return production.CompositeExpander(
+            [grid(fields), station(_only(c["raw_st"], {"tsurf_obs", "vz"}))])
+    return station(c["raw_st"])
+
+
+def phase_tm_small():
+    """Phase 4c (see the module docstring); returns the largest error."""
+    c = _tm_small_case()
+    P, T = c["P"], c["T"]
+    cal = Calendar.from_epochs(c["sim"])
+    max_err = 0.0
+    for config in ("grid", "composite", "station_sky"):
+        base = default_point_params(P)._replace(lat=c["plat"],
+                                                lon=c["plon"])
+        if config == "station_sky":
+            base = base._replace(sky_view=c["sky"], horizons=c["hor"])
+        probe = _tm_small_expander(c, config, 32)
+        raw_host = _host_raw(probe, T)
+        first = RawForcing(**{n: np.asarray(probe.first_host[n])[:, None]
+                              for n in RawForcing._fields})
+        for coupled in (False, True):
+            settings = ModelSettings(sim_len=T, dt=120.0,
+                                     use_relaxation=False,
+                                     use_coupling=coupled,
+                                     coupling_minutes=30.0)
+            model = Model(settings, device=DEV)
+            pts = base
+            if coupled:
+                # the coupling window and obs from the merged obs's last
+                # valid step (coupling_window_from_last of the JAX package)
+                last, val = production.last_valid_scan(
+                    probe, T, chunk_t=32)["tsurf_obs"]
+                cl = settings.coupling_len_steps
+                use = last >= cl
+                pts = pts._replace(
+                    coupling_start=np.where(use, np.maximum(last - cl, 1),
+                                            -99).astype(np.int32),
+                    coupling_end=np.where(use, last, -99).astype(np.int32),
+                    coupling_tsurf=np.where(use, val, -9999.9))
+                final_ref, out_ref = model.run_coupled(raw_host, pts, cal)
+            else:
+                final_ref, out_ref = model.run(raw_host, pts, cal)
+            state0 = model.init(first, cal, dtype=torch.float32, pts=pts)
+            run = (production.run_production_coupled if coupled
+                   else production.run_production)
+            for chunk_t, stride in ((32, 6), (16, 7)):
+                want = np.arange(0, T, stride)
+                ref = out_ref[torch.as_tensor(want)] if coupled else out_ref
+                res = {}
+                exp = _tm_small_expander(c, config, chunk_t)
+                for tile in (True, False):
+                    sk.LAUNCHES = sk.LAUNCHES_SLIM = sk.LAUNCHES_TM = 0
+                    metrics = RunMetrics()
+                    # the generic route by the engine's switch
+                    production._Engine.force_generic = not tile
+                    try:
+                        r = run(model, exp, pts, cal, state0,
+                                chunk_t=chunk_t, out_stride=stride,
+                                metrics=metrics)
+                    finally:
+                        production._Engine.force_generic = False
+                    launched = (sk.LAUNCHES, sk.LAUNCHES_SLIM,
+                                sk.LAUNCHES_TM)
+                    assert (launched[2] > 0 and launched[:2] == (0, 0)
+                            if tile else launched[0] > 0
+                            and launched[1:] == (0, 0)), launched
+                    assert np.array_equal(r.out_steps, want), r.out_steps
+                    label = (f"{config} {'coupled ' if coupled else ''}"
+                             f"{'K3' if tile else 'K1'} ({chunk_t}, "
+                             f"{stride})")
+                    err = compare_fields(label, r, ref, final_ref, want)
+                    max_err = max(max_err, err)
+                    res[tile] = r
+                    cpl = metrics.counters
+                    log(f"  {label}: vs Model.run"
+                        f"{'_coupled' if coupled else ''} max |err| "
+                        f"{err:.3e}; launches K1/K2/K3 {launched}"
+                        + (f"; coupled {cpl.get('coupling_points')}, "
+                           f"reruns {cpl.get('coupling_reruns')}"
+                           if coupled else ""))
+                errs = [check_close(f"{config} K3 vs K1 {name}",
+                                    torch.from_numpy(res[True].fields[name]),
+                                    torch.from_numpy(res[False].fields[name]),
+                                    TOL_T if k == 0 else TOL_S)
+                        for k, name in enumerate(production.OUT_FIELD_ROWS)]
+                if not torch.equal(res[True].state.failed,
+                                   res[False].state.failed):
+                    raise AssertionError(f"{config}: K3 and K1 routes' "
+                                         f"failed masks differ")
+                same = all(np.array_equal(res[True].fields[n],
+                                          res[False].fields[n])
+                           for n in production.OUT_FIELD_ROWS)
+                log(f"  {config}{' coupled' if coupled else ''} "
+                    f"({chunk_t}, {stride}): K3 route vs generic K1 route "
+                    f"max |diff| {max(errs):.3e}"
+                    + (" (equal bit for bit)" if same else ""))
+    return max_err
+
+
+BBOX = (59.6, 20.5, 70.1, 31.6)     # tools/gen_production.py:26
+
+
+def grid_fields_gen_production(seed=7, stations=2048, ny=300, nx=400,
+                               hours=74):
+    """The NWP grid of tools/gen_production.py --grid-source (its formulas
+    at :95-121, copied): the station scatter's draws come first from the
+    same generator (:83-95), so the fields are the file's at the same
+    seed.  Returns (times [hours+1], lats [ny], lons [nx], fields
+    {name: [hours+1, ny, nx] float32}, as the generator saves them)."""
+    lat1, lon1, lat2, lon2 = BBOX
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(stations)))
+    rng.uniform(-0.02, 0.02, (side, side))
+    rng.uniform(-0.04, 0.04, (side, side))
+    gy_s = np.linspace(lat1, lat2, ny)
+    gx_s = np.linspace(lon1, lon2, nx)
+    LA, LO = np.meshgrid(gy_s, gx_s, indexing="ij")
+    h = np.arange(hours + 1, dtype=np.float64)[:, None, None]
+    hod = h % 24.0
+    diurnal = np.cos((hod - 14.0) / 24.0 * 2 * np.pi)
+    north = (LA - lat1) / (lat2 - lat1)
+    tair = (-2.0 - 6.0 * north + 4.0 * diurnal
+            + 0.6 * np.sin(h / 7.0 + 3.0 * LO / (lon2 - lon1))
+            + rng.normal(0, 0.2, (hours + 1, 1, 1)))
+    rhz = np.clip(80.0 + 10.0 * np.sin(h / 5.0 + 2 * north)
+                  + rng.normal(0, 1.5, (hours + 1, 1, 1)), 45.0, 100.0)
+    vz = np.clip(3.0 + 2.0 * np.sin(h / 9.0 + LO) + north
+                 + rng.normal(0, 0.3, (hours + 1, 1, 1)), 0.2, 18.0)
+    prec = np.where(np.sin(h / 11.0 + 4 * LO) > 0.8,
+                    np.abs(rng.normal(0.6, 0.3, (hours + 1, 1, 1))), 0.0)
+    elev = np.maximum(
+        0.0, np.sin((hod - 12.0) / 24.0 * 2 * np.pi + 0.4) - 0.75)
+    sw = 420.0 * elev * (1.0 - 0.3 * north)
+    lw = 255.0 + 25.0 * np.sin(h / 13.0) + 5.0 * north
+    fields = {"tair": tair, "rhz": rhz, "vz": vz, "prec": prec,
+              "sw": sw + 0.0 * LA, "lw": lw + 0.0 * LA}
+    times = utc("2019-12-01 00:00") + 3600 * np.arange(hours + 1,
+                                                       dtype=np.int64)
+    return times, gy_s, gx_s, {k: np.asarray(v, np.float32)
+                               for k, v in fields.items()}
+
+
+def grid_full_setup(metrics, side=1024, T=8881, chunk_t=64):
+    """Phase 7's configuration: the generator's grid, 1,048,576 points on
+    a 1024 x 1024 raster over its box (io/points.py:70-75, grid mode),
+    8,881 steps of 30 s from the grid's first sample, hourly output,
+    relaxation and coupling off (gen_production.py:125-128)."""
+    t0 = time.perf_counter()
+    times, glats, glons, fields = grid_fields_gen_production()
+    lat1, lon1, lat2, lon2 = BBOX
+    glat, glon = np.meshgrid(np.linspace(lat1, lat2, side),
+                             np.linspace(lon1, lon2, side), indexing="ij")
+    plat, plon = glat.ravel(), glon.ravel()
+    sim = times[0] + 30 * np.arange(T, dtype=np.int64)
+    cal = Calendar.from_epochs(sim)
+    settings = ModelSettings(sim_len=T, dt=30.0, output_step_minutes=60,
+                             use_relaxation=False, use_coupling=False)
+    model = Model(settings, device=DEV)
+    log(f"  NWP grid {fields['tair'].shape} and the {side} x {side} raster "
+        f"in {time.perf_counter() - t0:.1f} s")
+    with metrics.phase("grid_setup"):
+        t0 = time.perf_counter()
+        exp = production.GridExpander(times, glats, glons, fields, plat,
+                                      plon, sim, DEV, chunk_t=chunk_t)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    log(f"  [{card_line()}] GridExpander setup (host geometry, device "
+        f"extraction of {len(exp.var_names)} fields, first-step values) "
+        f"{setup_s:.2f} s; K {exp.K}, KW {exp.KW}, SPAN {exp.SPAN}, tile "
+        f"geometry {exp.tile_geom}")
+    pts = default_point_params(len(plat))._replace(lat=plat, lon=plon)
+    first = RawForcing(**{n: np.asarray(exp.first_host[n])[:, None]
+                          for n in RawForcing._fields})
+    state0 = model.init(first, cal, dtype=torch.float32)
+    return dict(model=model, exp=exp, pts=pts, cal=cal, state0=state0,
+                T=T, npoints=len(plat), chunk_t=chunk_t, times=times,
+                glats=glats, glons=glons, fields=fields, plat=plat,
+                plon=plon, sim=sim)
+
+
+def grid_sample_raw(cfg7, overlay=None):
+    """``raw_fn`` of phase_sample_long for the grid paths: the sample's
+    forcing from io/gridsource on its points alone (the host_at pipeline:
+    bilinear / nearest-corner extraction, then the time interpolation,
+    clamps and completion), float64; ``overlay`` (raw_st, st_idx): station
+    series overlaid per valid value (merge_windows' rule)."""
+    def raw_fn(idx):
+        pv = {n: (gridsource.nearest_corner_at_points
+                  if n == "prec_phase" else gridsource.bilinear_at_points)(
+                      np.asarray(f, np.float64), cfg7["glats"],
+                      cfg7["glons"], cfg7["plat"][idx], cfg7["plon"][idx]).T
+              for n, f in cfg7["fields"].items()}
+        vals = gridsource.timeseries_at_points(cfg7["times"], pv,
+                                               cfg7["sim"])
+        shape = (len(idx), len(cfg7["sim"]))
+        out = {n: np.asarray(vals.get(n, np.full(shape, -9999.9)),
+                             np.float64) for n in RawForcing._fields}
+        if overlay is not None:
+            raw_st, st_idx = overlay
+            for n in RawForcing._fields:
+                v = np.asarray(getattr(raw_st, n), np.float64)[st_idx[idx]]
+                out[n] = np.where(v > valid_threshold(n), v, out[n])
+        out["prec_phase"] = np.where(out["prec_phase"] <= -9000.0, -9999,
+                                     out["prec_phase"]).astype(np.int32)
+        return RawForcing(**out)
+    return raw_fn
+
+
+def phase_grid_full(cfg, metrics, label):
+    """A full-size run through the tile-major path: K3 launched once a
+    chunk and no K1 / K2 launch; returns (result, K3 launches)."""
+    T = cfg["T"]
+    torch.cuda.reset_peak_memory_stats(DEV)
+    sk.LAUNCHES = sk.LAUNCHES_SLIM = sk.LAUNCHES_TM = 0
+    t0 = time.perf_counter()
+    res = production.run_production(
+        cfg["model"], cfg["exp"], cfg["pts"], cfg["cal"], cfg["state0"],
+        chunk_t=cfg["chunk_t"], metrics=metrics,
+        progress=Progress(T, every_s=5.0))
+    wall = time.perf_counter() - t0
+    launches = (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    n_chunks = -(-T // cfg["chunk_t"])
+    assert launches == (0, 0, n_chunks), launches
+    check_outputs(res, cfg)
+    log(f"  [{card_line()}] run_production ({label}) wall {wall:.2f} s, "
+        f"stream {metrics.phases['stream']:.2f} s = "
+        f"{res.point_steps_per_s:.6g} point-steps/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, failed share "
+        f"{float(res.state.failed.float().mean()):.6f}, kernel launches "
+        f"K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}")
+    log(f"  [{card_line()}] phases (s): " + json.dumps(
+        {k: round(v, 3) for k, v in metrics.phases.items()}))
+    return res, launches[2]
+
+
+def composite_sky_setup(cfg7, cfg):
+    """Phase 7b's configuration: phase 7's grid overlaid by phase 5's
+    2,048 stations' road-surface obs (the operational overlay,
+    examples/example2/src/roadrunner.cpp:763-792), wind, and the direct
+    shortwave and net longwave that the sky-view correction reads and the
+    grid lacks; sky view 0.6 and U(0, 25) degree horizons on every third
+    point."""
+    P = cfg7["npoints"]
+    raw_obs = _only(cfg["raw_st"], {"tsurf_obs", "vz", "sw_dir", "lw_net"})
+    sexp = production.StationExpander(raw_obs, cfg["st_idx"][:P], DEV,
+                                      chunk_t=cfg7["chunk_t"])
+    exp = production.CompositeExpander([cfg7["exp"], sexp])
+    assert exp.tile_geom == cfg7["exp"].tile_geom
+    rng = np.random.default_rng(29)
+    sky = np.where(np.arange(P) % 3 == 0, 0.6, 1.0)
+    hor = np.zeros((P, 360), np.float32)
+    hor[::3] = rng.uniform(0, 25, (len(hor[::3]), 360))
+    pts = cfg7["pts"]._replace(sky_view=sky, horizons=hor)
+    first = RawForcing(**{n: np.asarray(exp.first_host[n])[:, None]
+                          for n in RawForcing._fields})
+    state0 = cfg7["model"].init(first, cfg7["cal"], dtype=torch.float32)
+    return dict(cfg7, exp=exp, pts=pts, state0=state0,
+                overlay=(raw_obs, cfg["st_idx"][:P]))
+
+
 def main():
+    sel = set(sys.argv[1:])
+    known = {"3", "3b", "3c", "4", "4b", "4c", "5", "6", "7", "7b"}
+    if sel - known:
+        raise SystemExit(f"unknown phases {sorted(sel - known)}; "
+                         f"phases: {sorted(known)}")
+    want = lambda ph: not sel or ph in sel
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log("== 1. toolchain and device")
@@ -723,74 +1326,148 @@ def main():
         log(f"  {kname}: {regs} registers, stack frame {frame} B, spill "
             f"stores {st} B, spill loads {ld} B")
     build.load()
+    stamp = lambda: log(f"  ({time.perf_counter() - T0:.0f} s since start)")
 
-    log("== 3. K1 against its plain version")
-    err_small = phase_kernel_small()
     metrics = RunMetrics(announce=True)      # phase lines on stderr
-    cfg = full_size_setup(metrics)
-    err_chunk, ms, plain_ms = phase_kernel_chunk(cfg)
+    cfg = cfg6 = cfg7 = None
+    if want("3") or want("3b") or want("5") or want("6") or want("7b"):
+        cfg = full_size_setup(metrics)
+    if want("3"):
+        log("== 3. K1 against its plain version")
+        err_small = phase_kernel_small()
+        err_chunk, ms, plain_ms, bound1 = phase_kernel_chunk(cfg)
+        stamp()
+    if want("3b") or want("6"):
+        cfg6 = coupled_full_setup(cfg, metrics)
+    if want("3b"):
+        log("== 3b. K2 against its plain version")
+        err_slim_small = phase_kernel_slim_small()
+        err_slim_chunk, slim_times = phase_kernel_slim_chunk(cfg6)
+        stamp()
+    if want("4"):
+        log("== 4. main path, small, against Model.run on the card")
+        phase_main_small()
+    if want("4b"):
+        log("== 4b. coupled path, small, against Model.run_coupled on the "
+            "card")
+        phase_coupled_small()
+        stamp()
 
-    log("== 3b. K2 against its plain version")
-    err_slim_small = phase_kernel_slim_small()
-    cfg6 = coupled_full_setup(cfg, metrics)
-    err_slim_chunk, slim_times = phase_kernel_slim_chunk(cfg6)
+    launched = [0, 0]
+    if want("5"):
+        log("== 5. main path at full size: 1048576 points x 8881 steps")
+        # K2 (the default, slim expander) and K1 (slim=False, a second
+        # expander on the same stations), in turns: the first run pays the
+        # allocator's growth
+        exps = {"K2": cfg["exp"], "K1": production.StationExpander(
+            cfg["raw_st"], cfg["st_idx"], DEV, chunk_t=cfg["chunk_t"],
+            prep_ctx=cfg["ctx"], slim=False)}
+        runs = {}
+        for label in ("K1", "K2", "K2", "K1"):
+            m = RunMetrics(announce=True)
+            t0 = time.perf_counter()
+            res, launches, peak, failed = phase_main_full(cfg, m,
+                                                          exps[label])
+            wall = time.perf_counter() - t0
+            launched = [a + b for a, b in zip(launched, launches)]
+            log(f"  [{card}] run_production ({label}) wall {wall:.2f} s, "
+                f"stream {m.phases['stream']:.2f} s, "
+                f"{res.point_steps_per_s:.6g} point-steps/s (stream), "
+                f"peak device memory {peak / 2**30:.2f} GiB, failed share "
+                f"{failed:.6f}, kernel launches K1 {launches[0]} K2 "
+                f"{launches[1]}")
+            log(f"  [{card}] phases (s): " + json.dumps(
+                {k: round(v, 3) for k, v in m.phases.items()}))
+            runs[label] = (res, launches)
+        diff = max(float(np.abs(runs["K2"][0].fields[k]
+                                - runs["K1"][0].fields[k]).max())
+                   for k in production.OUT_FIELD_ROWS)
+        log(f"  K2 vs K1 main path, all output rows: max |diff| {diff:.3e}")
+        del exps, runs["K1"]
+        torch.cuda.empty_cache()
+        phase_sample_long(cfg, runs["K2"][0])
+        del runs
+        stamp()
 
-    log("== 4. main path, small, against Model.run on the card")
-    phase_main_small()
+    if want("6"):
+        log("== 6. coupled main path at full size: 1048576 points x 8881 "
+            "steps")
+        res6, launches6 = phase_coupled_full(cfg6, RunMetrics(announce=True))
+        phase_sample_long(cfg6, res6, coupled=True)
+        launched = [a + b for a, b in zip(launched, launches6)]
+        del res6
+        stamp()
 
-    log("== 4b. coupled path, small, against Model.run_coupled on the card")
-    phase_coupled_small()
+    k3_launches = 0
+    if want("3c") or want("7") or want("7b"):
+        log("== 7. setup: the NWP-grid forecast at full size")
+        cfg7 = grid_full_setup(metrics)
+        stamp()
+    if want("3c"):
+        log("== 3c. K3 against its plain version and against K1 / K2")
+        err_tm_small = phase_kernel_tm_small()
+        tm = phase_kernel_tm_chunk(cfg7)
+        stamp()
+    if want("7"):
+        log("== 7. the NWP-grid forecast at full size through K3: "
+            "1048576 points x 8881 steps")
+        res7, n7 = phase_grid_full(cfg7, RunMetrics(announce=True), "grid")
+        k3_launches += n7
+        phase_sample_long(cfg7, res7, raw_fn=grid_sample_raw(cfg7),
+                          hold_f32=True)
+        del res7
+        torch.cuda.empty_cache()
+        stamp()
+    if want("4c"):
+        log("== 4c. the tile-major path, small, against Model.run / "
+            "Model.run_coupled and the generic K1 route on the card")
+        err_tm_paths = phase_tm_small()
+        log(f"  4c max |err| against the Model runs {err_tm_paths:.3e}")
+        stamp()
+    if want("7b"):
+        log("== 7b. grid + station obs with sky view at full size through "
+            "K3: 1048576 points x 8881 steps")
+        cfg7b = composite_sky_setup(cfg7, cfg)
+        eng = production._Engine(cfg7b["model"], cfg7b["exp"], cfg7b["pts"],
+                                 cfg7b["cal"], cfg7b["state0"],
+                                 chunk_t=cfg7b["chunk_t"])
+        assert eng.tile_major and eng.enable_sky and not eng.flat_horizons
+        chunk_pieces(eng, 7 * cfg7b["chunk_t"], "grid + stations, sky view")
+        del eng
+        torch.cuda.empty_cache()
+        res7b, n7b = phase_grid_full(cfg7b, RunMetrics(announce=True),
+                                     "grid + stations, sky view")
+        k3_launches += n7b
+        phase_sample_long(cfg7b, res7b, raw_fn=grid_sample_raw(
+            cfg7b, overlay=cfg7b["overlay"]), hold_f32=True)
+        stamp()
+    if sel:
+        log(f"phases {sorted(sel)} passed; the summary needs every phase")
+        return
 
-    log("== 5. main path at full size: 1048576 points x 8881 steps")
-    # K2 (the default, slim expander) and K1 (slim=False, a second expander
-    # on the same stations), in turns: the first run pays the allocator's
-    # growth
-    exps = {"K2": cfg["exp"], "K1": production.StationExpander(
-        cfg["raw_st"], cfg["st_idx"], DEV, chunk_t=cfg["chunk_t"],
-        prep_ctx=cfg["ctx"], slim=False)}
-    runs, launched = {}, [0, 0]
-    for label in ("K1", "K2", "K2", "K1"):
-        m = RunMetrics(announce=True)
-        t0 = time.perf_counter()
-        res, launches, peak, failed = phase_main_full(cfg, m, exps[label])
-        wall = time.perf_counter() - t0
-        launched = [a + b for a, b in zip(launched, launches)]
-        log(f"  [{card}] run_production ({label}) wall {wall:.2f} s, stream "
-            f"{m.phases['stream']:.2f} s, "
-            f"{res.point_steps_per_s:.6g} point-steps/s (stream), "
-            f"peak device memory {peak / 2**30:.2f} GiB, failed share "
-            f"{failed:.6f}, kernel launches K1 {launches[0]} K2 "
-            f"{launches[1]}")
-        log(f"  [{card}] phases (s): " + json.dumps(
-            {k: round(v, 3) for k, v in m.phases.items()}))
-        runs[label] = (res, launches)
-    diff = max(float(np.abs(runs["K2"][0].fields[k]
-                            - runs["K1"][0].fields[k]).max())
-               for k in production.OUT_FIELD_ROWS)
-    log(f"  K2 vs K1 main path, all output rows: max |diff| {diff:.3e}")
-    del exps, runs["K1"]
-    torch.cuda.empty_cache()
-    phase_sample_long(cfg, runs["K2"][0])
-
-    log("== 6. coupled main path at full size: 1048576 points x 8881 steps")
-    res6, launches6 = phase_coupled_full(cfg6, RunMetrics(announce=True))
-    phase_sample_long(cfg6, res6, coupled=True)
-
-    k1_launches = launched[0] + launches6[0]
-    k2_launches = launched[1] + launches6[1]
-    print(json.dumps({"kernels": [
-        {"name": "scan_kernel", "route": "cuda",
-         "source": "roadsurf_tpu_torch/csrc/scan_kernel.cu",
-         "replaces": "roadsurf_tpu/ops/pallas_step.py:694",
-         "launches": k1_launches,
-         "max_abs_err": max(err_small, err_chunk),
-         "ms": ms, "plain_ms": plain_ms},
-        {"name": "scan_kernel_slim", "route": "cuda",
-         "source": "roadsurf_tpu_torch/csrc/scan_kernel.cu",
-         "replaces": "roadsurf_tpu/ops/pallas_step.py:694",
-         "launches": k2_launches,
-         "max_abs_err": max(err_slim_small, err_slim_chunk),
-         "ms": slim_times["slim"][0], "plain_ms": slim_times["slim"][1]}]}))
+    k1 = {"name": "scan_kernel", "launches": launched[0],
+          "max_abs_err": max(err_small, err_chunk), "ms": ms,
+          "plain_ms": plain_ms, "bound": bound1}
+    k2 = {"name": "scan_kernel_slim", "launches": launched[1],
+          "max_abs_err": max(err_slim_small, err_slim_chunk),
+          "ms": slim_times["slim"][0], "plain_ms": slim_times["slim"][1],
+          "bound": slim_times["slim"][2]}
+    k3 = {"name": "scan_kernel_tm", "launches": k3_launches,
+          "max_abs_err": max(err_tm_small, tm["err"]), "ms": tm["ms"],
+          "plain_ms": tm["plain_ms"], "bound": tm["bound"]}
+    kernels = []
+    for k in (k1, k2, k3):
+        assert k["launches"] > 0, k
+        bound_ms, bound_by = k.pop("bound")
+        kernels.append(dict(
+            name=k.pop("name"), route="cuda",
+            source="roadsurf_tpu_torch/csrc/scan_kernel.cu",
+            replaces="roadsurf_tpu/ops/pallas_step.py:694", **k,
+            bound_ms=bound_ms, bound_by=bound_by,
+            # a per-point time loop with a data-dependent fixed point: no
+            # one PyTorch call computes the same function
+            library_ms=None))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,11 +1,13 @@
 // Whole-forecast scan kernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces roadsurf_tpu/ops/pallas_step.py:pallas_scan / _make_kernel (the
-// Pallas TPU kernel) in two of its modes: K1, point-major (forcing
-// [T, 16, P]), and K2, slim (forcing [T, 11, P], a time-only traffic
-// friction vector, per-point aux rows and the in-kernel post-coupling
-// radiation-coefficient decay; pallas_step.py:362-374, :467-509).  Plain
-// version with the same semantics:
+// Pallas TPU kernel) in three of its modes: K1, point-major (forcing
+// [T, 16, P]); K2, slim (forcing [T, 11, P], a time-only traffic friction
+// vector, per-point aux rows and the in-kernel post-coupling
+// radiation-coefficient decay; pallas_step.py:362-374, :467-509); and K3,
+// tile-major (forcing [n_tiles, T, 16 or 11, TP], each tile's steps one
+// contiguous slab; pallas_step.py:387-398, :619-629), under either channel
+// set.  Plain version with the same semantics:
 // roadsurf_tpu_torch/ops/scan_kernel.py:scan_reference.
 //
 // What it computes, per road point, for every step t < nsteps of a chunk
@@ -19,7 +21,7 @@
 // where the GLOBAL step (off + t) is a multiple of out_stride.
 //
 // What bounds it on this card.  A step reads 64 B of forcing per point
-// (16 floats, coalesced: forcing is [T, 16, P] point-minor; 44 B in the
+// (16 floats, coalesced: forcing is point-minor within a step; 44 B in the
 // slim mode) and writes
 // nothing but a rare output row, while each thread runs a serial chain of
 // dependent divides, logs, square roots and exps: the boundary-layer fixed
@@ -47,6 +49,16 @@
 // rows are read once per thread before the time loop.  With `cofs` (a
 // runtime flag, uniform across the launch) the radiation coefficients decay
 // after each point's window end, computed per step from the aux rows.
+//
+// The tile-major mode (K3) is a runtime tile width `tp`, not a template:
+// channel c of point p at step t is read at
+//   forcing + ((p / tp) * T + t) * N * tp + c * tp + p % tp
+// (64-bit), so point-major is the case tp = P, and K1, K2 and K3 share one
+// body and one set of instantiations.  T is the forcing's allocated step
+// count, not nsteps (a ragged last chunk has nsteps < T).  State, aux rows
+// and outputs stay point-major in every mode, as in the TPU kernel.  A
+// warp's 32 points lie in one tile (tp is a multiple of BLOCK), so a step's
+// read of a channel stays one coalesced 128-byte line per warp.
 //
 // Numerics: float32 only, IEEE divide and sqrt, no fast math, no flush to
 // zero (built with -prec-div=true -prec-sqrt=true -ftz=false); FMA
@@ -159,13 +171,18 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
             const float* __restrict__ forcing,
             const float* __restrict__ trf, const float* __restrict__ aux,
             float* __restrict__ tmp_out, float* __restrict__ scal_out,
-            float* __restrict__ out, int P, int nsteps, int off,
-            int out_base, int cofs, int t_total, float cof_red) {
+            float* __restrict__ out, int P, int tp, int T, int nsteps,
+            int off, int out_base, int cofs, int t_total, float cof_red) {
   using K = Ch<SLIM>;
   const int p = blockIdx.x * BLOCK + threadIdx.x;
   if (p >= P) return;
   const int64_t PP = P;
   const int L = c.L;
+  // this point's forcing: its tile's slab, at its place in the tile; FS is
+  // the channel stride (the tile width)
+  const int64_t FS = tp;
+  const int64_t tile = p / tp;
+  const float* fpt = forcing + tile * (int64_t)T * K::N * FS + (p - tile * FS);
 
   // K2's per-point aux rows, read once
   float a_swc = 0.0f, a_lwc = 0.0f, a_cend = 0.0f, a_obs = 0.0f;
@@ -200,7 +217,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
   const float s2i = (float)(0.25 / 0.45);
 
   for (int t = 0; t < nsteps; ++t) {
-    const float* f = forcing + ((int64_t)t * K::N) * PP + p;
+    const float* f = fpt + ((int64_t)t * K::N) * FS;
     const int tg = off + t;
     const bool hit = (tg % c.out_stride) == 0;
     const int row = tg / c.out_stride - out_base;
@@ -218,12 +235,12 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       continue;
     }
 
-    const float tair = __ldg(f + K::TAIR * PP);
+    const float tair = __ldg(f + K::TAIR * FS);
     const bool abnormal = (tsurf < -100.0f) || (tsurf > 100.0f);
-    const bool failed = (__ldg(f + K::VALID * PP) < 0.5f) || abnormal;
+    const bool failed = (__ldg(f + K::VALID * FS) < 0.5f) || abnormal;
 
     // SetCurrentValues + obs forcing
-    const float obs = __ldg(f + K::TSURF_OBS * PP);
+    const float obs = __ldg(f + K::TSURF_OBS * FS);
     tmp[0] = tair;
     if (obs > -100.0f) {
       tmp[1] = obs;
@@ -232,13 +249,13 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     }
 
     // precipitation to storage
-    wat = wat + __ldg(f + K::RAIN * PP);
-    snow = snow + __ldg(f + K::SNOW * PP);
+    wat = wat + __ldg(f + K::RAIN * FS);
+    snow = snow + __ldg(f + K::SNOW * FS);
 
     // boundary-layer fixed point (pallas_step.py:104-172): each thread
     // stops at its own convergence, which equals the masked freeze
-    const float vz = __ldg(f + K::VZ * PP);
-    const float air_vcap = __ldg(f + K::AIRVCAP * PP);
+    const float vz = __ldg(f + K::VZ * FS);
+    const float air_vcap = __ldg(f + K::AIRVCAP * FS);
     const float tak = tair + 273.15f;
     const float dt_ts = tsurf - tair;
     const float inv_kvz = 1.0f / (c.vk * vz);
@@ -269,7 +286,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     const float wat_den = -0.0050f * tsurf * tsurf + 0.0079f * tsurf +
                           1000.0028f;
     const float esurf = esat1(tsurf);
-    float le = air_vcap * (esurf - __ldg(f + K::EAIR * PP)) / (psych_c * raero);
+    float le = air_vcap * (esurf - __ldg(f + K::EAIR * FS)) / (psych_c * raero);
     const float lheat = tsurf >= 0.0f ? c.lvap : c.lfus;
     float evap = le / (lheat * wat_den) * 1000.0f * dt;
     if ((le > 0.0f) && (wat <= 0.0f)) {
@@ -301,11 +318,11 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       // known to be 1 (or a select against 1) would let the products below
       // be folded or split, and round unlike K1's contracted expression
       asm("" : "+f"(sw_cof), "+f"(lw_cof));
-      rnet = (1.0f - alb) * __ldg(f + K::SW * PP) * sw_cof +
-             c.emiss * __ldg(f + K::LW * PP) * lw_cof - c.emiss_sb * tk2 * tk2;
+      rnet = (1.0f - alb) * __ldg(f + K::SW * FS) * sw_cof +
+             c.emiss * __ldg(f + K::LW * FS) * lw_cof - c.emiss_sb * tk2 * tk2;
     } else {
-      rnet = (1.0f - alb) * __ldg(f + C_SW * PP) * __ldg(f + C_SWCOF * PP) +
-             c.emiss * __ldg(f + C_LW * PP) * __ldg(f + C_LWCOF * PP) -
+      rnet = (1.0f - alb) * __ldg(f + C_SW * FS) * __ldg(f + C_SWCOF * FS) +
+             c.emiss * __ldg(f + C_LW * FS) * __ldg(f + C_LWCOF * FS) -
              c.emiss_sb * tk2 * tk2;
     }
 
@@ -313,7 +330,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     // j's flux uses the old j and j+1, computed before j is overwritten
     const float t1a = (tmp[1] + 3.0f * tmp[2]) / 4.0f;
     float g_prev = rnet - le +
-                   (SLIM ? __ldg(trf + tg) : __ldg(f + C_TRF * PP)) +
+                   (SLIM ? __ldg(trf + tg) : __ldg(f + C_TRF * FS)) +
                    bl * (tmp[0] - tmp[1]);
     float hs1 = 0.0f;
 #pragma unroll
@@ -343,10 +360,10 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     const bool has_frozen = (snow > 0.0f) || (ice > 0.0f) || (ice2 > 0.0f);
     float q2 = has_frozen ? q2m : 0.0f;
     if (c.melt_change) {
-      const bool in_cpl = __ldg(f + K::INCPL * PP) > 0.5f;
+      const bool in_cpl = __ldg(f + K::INCPL * FS) > 0.5f;
       const bool guard =
           (hstor <= 0.00001f) || (tsurf <= t4m) || (q2m <= 0.0f) ||
-          (in_cpl && ((SLIM ? a_obs : __ldg(f + C_CPLOBS * PP)) < t4m));
+          (in_cpl && ((SLIM ? a_obs : __ldg(f + C_CPLOBS * FS)) < t4m));
       const bool cold = guard && (tsurf < 0.5f);
       const bool hot = guard && (tsurf > 2.0f);
       const float qavail = hs1 * (tmp[1] - t4m);
@@ -541,15 +558,17 @@ template <bool SLIM>
 static int launch(const ScanConsts* c, const float* tmp0, const float* scal0,
                   const float* forcing, const float* trf, const float* aux,
                   float* tmp_out, float* scal_out, float* out, int P,
-                  int nsteps, int off, int out_base, int cofs, int t_total,
-                  float cof_red, void* stream) {
-  if (P <= 0 || c->L < 1 || c->L > LMAX_ALL) return (int)cudaErrorInvalidValue;
+                  int tp, int T, int nsteps, int off, int out_base, int cofs,
+                  int t_total, float cof_red, void* stream) {
+  if (P <= 0 || c->L < 1 || c->L > LMAX_ALL || tp <= 0 || P % tp != 0 ||
+      (tp != P && tp % BLOCK != 0) || nsteps > T)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((P + BLOCK - 1) / BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
 #define LAUNCH(LM, DEPTH)                                                  \
   scan_kernel<LM, DEPTH, SLIM><<<grid, BLOCK, 0, s>>>(                     \
-      *c, tmp0, scal0, forcing, trf, aux, tmp_out, scal_out, out, P, nsteps, \
-      off, out_base, cofs, t_total, cof_red)
+      *c, tmp0, scal0, forcing, trf, aux, tmp_out, scal_out, out, P, tp, T, \
+      nsteps, off, out_base, cofs, t_total, cof_red)
   if (c->L <= 16) {
     if (c->use_depth) LAUNCH(16, true); else LAUNCH(16, false);
   } else {
@@ -561,27 +580,29 @@ static int launch(const ScanConsts* c, const float* tmp0, const float* scal0,
 
 extern "C" {
 
-// K1 on `stream`: forcing [T, 16, P].
+// K1 on `stream`: forcing [T, 16, P] (tp = P), or K3 with 16 channels:
+// [P / tp, T, 16, tp].
 int roadsurf_scan(const ScanConsts* c, const float* tmp0, const float* scal0,
                   const float* forcing, float* tmp_out, float* scal_out,
-                  float* out, int P, int nsteps, int off, int out_base,
-                  void* stream) {
+                  float* out, int P, int tp, int T, int nsteps, int off,
+                  int out_base, void* stream) {
   return launch<false>(c, tmp0, scal0, forcing, nullptr, nullptr, tmp_out,
-                       scal_out, out, P, nsteps, off, out_base, 0, 0, 1.0f,
-                       stream);
+                       scal_out, out, P, tp, T, nsteps, off, out_base, 0, 0,
+                       1.0f, stream);
 }
 
-// K2 on `stream`: forcing [T, 11, P], trf [>= off + nsteps], aux [4, P];
-// cofs != 0 decays the radiation coefficients (t_total, cof_red).
+// K2 on `stream`: forcing [T, 11, P] (tp = P), or K3 slim: [P / tp, T, 11,
+// tp]; trf [>= off + nsteps], aux [4, P]; cofs != 0 decays the radiation
+// coefficients (t_total, cof_red).
 int roadsurf_scan_slim(const ScanConsts* c, const float* tmp0,
                        const float* scal0, const float* forcing,
                        const float* trf, const float* aux, float* tmp_out,
-                       float* scal_out, float* out, int P, int nsteps,
-                       int off, int out_base, int cofs, int t_total,
-                       float cof_red, void* stream) {
+                       float* scal_out, float* out, int P, int tp, int T,
+                       int nsteps, int off, int out_base, int cofs,
+                       int t_total, float cof_red, void* stream) {
   return launch<true>(c, tmp0, scal0, forcing, trf, aux, tmp_out, scal_out,
-                      out, P, nsteps, off, out_base, cofs, t_total, cof_red,
-                      stream);
+                      out, P, tp, T, nsteps, off, out_base, cofs, t_total,
+                      cof_red, stream);
 }
 
 // sizeof(ScanConsts), checked against the ctypes mirror before any launch

@@ -63,6 +63,13 @@ class Calendar(NamedTuple):
                                     self.hour, self.minute, self.second)
 
 
+def valid_threshold(name: str) -> float:
+    """Per-variable overlay validity threshold (DataHandler per-value merge,
+    examples/example1/src/DataHandler.cpp:73-82; forcing.py:62-67): values
+    above it are present.  lw_net is a NET flux and legitimately negative."""
+    return -1000.0 if name == "lw_net" else -100.0
+
+
 class RawForcing(NamedTuple):
     """Interpolated-to-grid weather inputs, [P, T] float (missing = -9999.9
     except lw_net whose missing threshold is -1000; src/InputArrays.f90.inc)."""
@@ -119,31 +126,40 @@ def relax_anchors(raw: RawForcing, pts: PointParams):
 
 def prepare_window(rawT: RawForcing, pts: PointParams, hour, settings, p,
                    t_offset=0, t_total: int = None, anchors=None, jde=None,
-                   enable_skyview: bool = False) -> Prepared:
-    """Window-parameterized, time-major forcing preparation
-    (forcing.py:127-283, the ``[Tc, P]`` layout).
+                   enable_skyview: bool = False, flat_horizons: bool = False,
+                   time_axis: int = 0) -> Prepared:
+    """Window-parameterized forcing preparation (forcing.py:127-283).
 
     The production engine streams forcing in time chunks; every
     step-dependent rule here is written analytically in the GLOBAL step
     index, so chunked calls compose to exactly ``prepare``'s output.
 
-    rawT: RawForcing with TIME-MAJOR [Tc, P] tensor leaves covering global
-    steps [t_offset, t_offset + Tc); pts: [P] tensors on the same device;
-    hour: [Tc] UTC hours tensor; t_total: full simulation length T (for the
-    first/last-step quirks); anchors: the ``relax_anchors`` triple (required
-    when settings.use_relaxation); jde: [Tc] julian ephemeris day tensor
-    (required when ``enable_skyview``).
+    rawT: RawForcing with tensor leaves covering global steps
+    [t_offset, t_offset + Tc), time on axis ``time_axis`` and point axes of
+    any shape on the others: time-major [Tc, P] (``time_axis=0``), or the
+    kernel's tile layout [n_tiles, Tc, TP] (``time_axis=1``); pts and
+    anchors: leaves of the point shape on the same device (horizons:
+    [*point_shape, 360], the 360 axis last); hour: [Tc] UTC hours tensor;
+    t_total: full simulation length T (for the first/last-step quirks);
+    anchors: the ``relax_anchors`` triple (required when
+    settings.use_relaxation); jde: [Tc] julian ephemeris day tensor
+    (required when ``enable_skyview``); flat_horizons: the horizons are all
+    zero, so the lookup is skipped and ``pts.horizons`` is not read.  Every
+    rule is elementwise over points, so the tile layout gives the values of
+    the [Tc, P] layout, bit for bit, sky view included.
     """
+    ta = time_axis
     dtype = rawT.tair.dtype
     dev = rawT.tair.device
-    Tc = rawT.tair.shape[0]
+    nd = rawT.tair.dim()
+    Tc = rawT.tair.shape[ta]
     t_idx = t_offset + torch.arange(Tc, device=dev)   # [Tc] global step index
 
-    def tb(x):                                    # [Tc] -> [Tc, 1]
-        return x[:, None]
+    def tb(x):                                    # [Tc] -> time-axis column
+        return x.reshape((1,) * ta + (Tc,) + (1,) * (nd - ta - 1))
 
-    def pvec(x):                                  # [P] -> [1, P]
-        return x[None, :]
+    def pvec(x):                                  # point-shaped -> + time
+        return x.unsqueeze(ta)
 
     last = tb(t_idx == t_total - 1)               # the lastValues step
 
@@ -179,7 +195,9 @@ def prepare_window(rawT: RawForcing, pts: PointParams, hour, settings, p,
                                        pvec(pts.lon))
         sw_m, lw_m = modify_radiation(sw, sw_dir, lw, rawT.lw_net,
                                       elev, azim, pvec(pts.sky_view),
-                                      pts.horizons, p)
+                                      pts.horizons, p,
+                                      flat_horizons=flat_horizons,
+                                      time_axis=ta)
         sw = torch.where(pvec(skyview_active), sw_m, sw)
         lw = torch.where(pvec(skyview_active), lw_m, lw)
 

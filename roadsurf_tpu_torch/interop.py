@@ -3,8 +3,8 @@ port (the one module with no JAX counterpart).
 
 It imports neither package's array library on the JAX side: every function
 takes the JAX side's objects through numpy (``np.asarray`` on each leaf) and
-returns the port's types with tensors on a given device, or takes the port's
-tensors back to numpy.  The dataclass configs travel by
+returns the port's types with tensors on a given device (the card unless the
+caller asks for the CPU), or takes the port's tensors back to numpy.  The dataclass configs travel by
 ``dataclasses.asdict``.  The tests use it to feed both packages the same
 inputs and to compare their results.
 """
@@ -40,7 +40,7 @@ def _tensor(x, device, dtype: Optional[torch.dtype]):
     return t
 
 
-def to_torch(obj, cls: Type[NamedTuple], device="cpu",
+def to_torch(obj, cls: Type[NamedTuple], device="cuda",
              dtype: Optional[torch.dtype] = None):
     """Any NamedTuple with ``cls``'s fields (a JAX-side State, PointParams,
     RawForcing, Prepared, ...) -> ``cls`` of tensors on ``device``.  Float
@@ -49,23 +49,23 @@ def to_torch(obj, cls: Type[NamedTuple], device="cpu",
                  for n in cls._fields))
 
 
-def point_params(pts, device="cpu", dtype=None) -> PointParams:
+def point_params(pts, device="cuda", dtype=None) -> PointParams:
     return to_torch(pts, PointParams, device, dtype)
 
 
-def raw_forcing(raw, device="cpu", dtype=None) -> RawForcing:
+def raw_forcing(raw, device="cuda", dtype=None) -> RawForcing:
     return to_torch(raw, RawForcing, device, dtype)
 
 
-def state(st, device="cpu", dtype=None) -> State:
+def state(st, device="cuda", dtype=None) -> State:
     return to_torch(st, State, device, dtype)
 
 
-def prepared(prep, device="cpu", dtype=None) -> Prepared:
+def prepared(prep, device="cuda", dtype=None) -> Prepared:
     return to_torch(prep, Prepared, device, dtype)
 
 
-def coupling_vars(cv, device="cpu", dtype=None) -> CouplingVars:
+def coupling_vars(cv, device="cuda", dtype=None) -> CouplingVars:
     """A coupling-iteration state (the JAX package's ``CouplingVars``) ->
     the port's, float leaves cast to ``dtype`` when given."""
     return to_torch(cv, CouplingVars, device, dtype)
@@ -76,7 +76,7 @@ def calendar(cal) -> Calendar:
     return Calendar(*(np.asarray(getattr(cal, n)) for n in Calendar._fields))
 
 
-def packed(tmp, scal, forcing, device="cpu"):
+def packed(tmp, scal, forcing, device="cuda"):
     """The kernel's packed (tmp [LPAD, P], scal [NROWS, P], forcing
     [T, NCH, P]) float32 arrays -> contiguous float32 tensors."""
     return tuple(_tensor(np.asarray(x, np.float32), device, torch.float32)

@@ -75,10 +75,11 @@ class Model:
     """Facade tying config, grid, forcing prep and the scan together.
 
     Host inputs (numpy ``RawForcing``/``PointParams``) are placed on
-    ``device``; the float dtype of a run is the dtype of ``raw.tair``."""
+    ``device``, the card unless the caller asks for the CPU; the float
+    dtype of a run is the dtype of ``raw.tair``."""
 
     def __init__(self, settings: ModelSettings,
-                 params: Optional[PhysicsParams] = None, device="cpu"):
+                 params: Optional[PhysicsParams] = None, device="cuda"):
         self.settings = settings
         self.params = (params or PhysicsParams()).derive(settings.dt)
         self.grid = make_grid(self.params, settings.nlayers)

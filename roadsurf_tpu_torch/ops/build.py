@@ -102,10 +102,9 @@ def load() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.roadsurf_scan.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                  ci, vp]
+    lib.roadsurf_scan.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.roadsurf_scan.restype = ci
-    lib.roadsurf_scan_slim.argtypes = [vp] * 9 + [ci] * 6 + [
+    lib.roadsurf_scan_slim.argtypes = [vp] * 9 + [ci] * 8 + [
         ctypes.c_float, vp]
     lib.roadsurf_scan_slim.restype = ci
     lib.roadsurf_consts_size.argtypes = []

@@ -2,14 +2,14 @@
 the packed state/forcing layouts.
 
 The counterpart of ``roadsurf_tpu/ops/pallas_step.py`` (``pallas_scan`` in
-its point-major mode and its slim mode, ``_make_kernel``, and the packing
-helpers at pallas_step.py:736-821).  The kernel itself is
+its point-major, slim and tile-major modes, ``_make_kernel``, and the
+packing helpers at pallas_step.py:736-821).  The kernel itself is
 ``csrc/scan_kernel.cu``: one CUDA thread per road point runs every step of
 the chunk with the profile and the scalar state in registers.  ``scan``
 dispatches on the tensors' device: CPU tensors take :func:`scan_reference`,
 CUDA tensors launch the kernel (or raise); nothing falls back.
 
-Two modes of the one kernel:
+Three modes of the one kernel:
 
  * K1, point-major: forcing ``[T, NCH, P]`` with all 16 channels;
  * K2, slim (``aux_rows`` given): forcing ``[T, NCH_SLIM, P]`` with only the
@@ -17,7 +17,12 @@ Two modes of the one kernel:
    time-only vector ``slim_trf [T_pad]`` at the global step, and the
    coupling obs and the radiation-coefficient decay inputs from per-point
    ``aux_rows [4, P]``; the coefficients are exactly 1, or with
-   ``aux_cofs`` decayed in kernel (``forcing.cof_window`` semantics).
+   ``aux_cofs`` decayed in kernel (``forcing.cof_window`` semantics);
+ * K3, tile-major: the forcing of K1 or K2 as ``[P / TP, T, NCH or
+   NCH_SLIM, TP]`` (point ``p`` is lane ``p % TP`` of tile ``p // TP``, TP a
+   multiple of ``LANE``), so each tile's steps are one contiguous slab
+   (pallas_step.py:387-398, :619-629); state, aux rows and outputs stay
+   point-major.
 
 Layouts (unchanged from the JAX package, so both sides compare like with
 like): the profile is ``tmp [LPAD, P]`` (row 0 air, rows 1..L ground, row
@@ -69,10 +74,16 @@ N_OUT_FIELDS = 8  # tsurf, wat, snow, ice, ice2, dep, (2 zero pad)
 #: (the template buckets of csrc/scan_kernel.cu)
 LMAX = 32
 
-#: kernel launches by :func:`scan_cuda` in this process, K1 (point-major)
-#: and K2 (slim); the plain version does not count
+#: the kernel's thread block, and the multiple of a tile width (a warp's
+#: points then lie in one tile)
+LANE = 128
+
+#: kernel launches by :func:`scan_cuda` in this process, K1 (point-major),
+#: K2 (slim) and K3 (tile-major, either channel set); the plain version does
+#: not count
 LAUNCHES = 0
 LAUNCHES_SLIM = 0
+LAUNCHES_TM = 0
 
 
 class ScanConsts(ctypes.Structure):
@@ -175,7 +186,9 @@ def _esat(t):
 def _bl_fixed_point(blcond, tsurf, tair, vz, air_vcap, p: PhysicsParams,
                     n_iter: int):
     """Masked-freeze boundary-layer iteration with the carried 1/ustar
-    (pallas_step.py:104-172; BoundaryLayer.f90:60-101)."""
+    (pallas_step.py:104-172; BoundaryLayer.f90:60-101).  Also returns each
+    point's iteration count: the iterations the kernel's thread runs before
+    it leaves the loop."""
     tak = tair + 273.15
     dt_ts = tsurf - tair
     inv_kvz = 1.0 / (p.vk_const * vz)
@@ -185,6 +198,7 @@ def _bl_fixed_point(blcond, tsurf, tair, vz, air_vcap, p: PhysicsParams,
     psim = torch.zeros_like(blcond)
     psih = torch.zeros_like(blcond)
     done = torch.zeros_like(blcond, dtype=torch.bool)
+    iters = torch.full_like(blcond, float(n_iter))
     for j in range(n_iter):
         ustar_inv = (p.log_ustar + psim) * inv_kvz
         bl_new = air_vcap * p.vk_const / ((p.log_cond + psih) * ustar_inv)
@@ -201,12 +215,13 @@ def _bl_fixed_point(blcond, tsurf, tair, vz, air_vcap, p: PhysicsParams,
         bl = torch.where(done, bl, bl_new)
         psim = torch.where(done, psim, psim_n)
         psih = torch.where(done, psih, psih_n)
+        iters = torch.where(newly & ~done, float(j + 1), iters)
         done = done | newly
         # frozen points stop changing, so leaving once all are done gives
         # the fixed n_iter loop's result (pallas_step.py:144-150)
         if (j + 1) % 5 == 0 and bool(done.all()):
             break
-    return bl, psim, psih, inv_kvz
+    return bl, psim, psih, inv_kvz, iters
 
 
 def _surf_ave(tmp, cfg: StepConfig):
@@ -388,14 +403,25 @@ def _road_cond(wat, snow, ice, ice2, dep, tsurf, evap, q2, t4, vcold,
     return wat, snow, ice, ice2, dep, vcold, q2n, t4n, albedo
 
 
-def _slim_args(forcing, P, slim_trf, aux_rows, aux_cofs, t_total, cof_red,
-               off, nsteps):
+def _forcing_layout(forcing, P: int, slim: bool):
+    """(T, tile width) of a point-major ``[T, nch, P]`` forcing (tile width
+    P) or a tile-major ``[P / TP, T, nch, TP]`` one; raises on any other."""
+    nch = NCH_SLIM if slim else NCH
+    shape = tuple(forcing.shape)
+    if forcing.dim() == 3 and shape[1:] == (nch, P):
+        return shape[0], P
+    if (forcing.dim() == 4 and shape[2] == nch and shape[3] % LANE == 0
+            and shape[0] * shape[3] == P):
+        return shape[1], shape[3]
+    raise ValueError(f"forcing shape {shape}, expected [T, {nch}, {P}] or "
+                     f"[{P} / TP, T, {nch}, TP] with TP a multiple of "
+                     f"{LANE}")
+
+
+def _slim_args(P, slim_trf, aux_rows, aux_cofs, t_total, cof_red, off,
+               nsteps):
     """Check the slim-mode arguments; returns whether the call is slim."""
     slim = aux_rows is not None
-    nch = NCH_SLIM if slim else NCH
-    if forcing.dim() != 3 or forcing.shape[1] != nch or forcing.shape[2] != P:
-        raise ValueError(f"forcing shape {tuple(forcing.shape)}, expected "
-                         f"[T, {nch}, {P}]")
     if not slim:
         if slim_trf is not None or aux_cofs:
             raise ValueError("slim_trf / aux_cofs need aux_rows")
@@ -433,13 +459,16 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
                    grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
                    out_offset=None, n_out: int = None, slim_trf=None,
                    aux_rows=None, aux_cofs: bool = False, t_total: int = None,
-                   cof_red: float = None):
+                   cof_red: float = None, stats: dict = None):
     """The kernel's semantics in plain torch ops, on any device: the same
     signature, layouts and results as :func:`scan_cuda`.
 
     tmp0: [LPAD, P] f32 profile; scal0: [NROWS, P] f32 packed state;
     forcing: [T, NCH, P] f32 (K1), or [T, NCH_SLIM, P] with ``aux_rows``
-    (K2, the slim mode).  Steps ``t < nsteps`` run (default T); an
+    (K2, the slim mode), or either channel set tile-major,
+    [P / TP, T, nch, TP] (K3), read through a view of the tile layout: one
+    step's channel row at a time, never a transposed copy of the whole
+    forcing.  Steps ``t < nsteps`` run (default T); an
     output row is written where ``(out_offset + t) % out_stride == 0``, at
     row ``(out_offset + t) // out_stride - ceil(out_offset / out_stride)``
     of ``n_out`` rows (``n_out`` is required with ``out_offset``; without
@@ -454,17 +483,25 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     (forcing.cof_window semantics, including the lastValues reuse at
     ``t_total - 1``; ``cof_red`` is settings.coupling_effect_reduction).
 
+    ``stats`` (optional dict): accumulates ``point_steps``, the steps run
+    by points not yet failed, and ``bl_iters``, the boundary-layer
+    iterations those steps take: the work the kernel does on these inputs.
+
     Returns (tmp [LPAD, P], scal [NROWS, P], out [n_out, N_OUT_FIELDS, P]).
     """
     lpad, P = tmp0.shape
-    T = forcing.shape[0]
+    slim = aux_rows is not None
+    T, _ = _forcing_layout(forcing, P, slim)
     nsteps = T if nsteps is None else int(nsteps)
     if not 0 < nsteps <= T:
         raise ValueError(f"nsteps {nsteps} outside (0, {T}]")
     off, n_rows, out_base = _out_geometry(nsteps, out_stride, out_offset,
                                           n_out)
-    slim = _slim_args(forcing, P, slim_trf, aux_rows, aux_cofs, t_total,
-                      cof_red, off, nsteps)
+    _slim_args(P, slim_trf, aux_rows, aux_cofs, t_total, cof_red, off,
+               nsteps)
+    # [n_tiles, T, nch, TP] view: one tile of width P for the point-major
+    # layout, so both layouts run the one loop below
+    f4 = forcing if forcing.dim() == 4 else forcing.unsqueeze(0)
     nlayers = grid.nlayers
     f32 = lambda a: tuple(float(v) for v in np.asarray(a, np.float32))
     dyc, cond_dz, wcont = f32(grid.dyc), f32(grid.cond_dz), f32(grid.wcont)
@@ -475,8 +512,9 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     out = torch.zeros((n_rows, N_OUT_FIELDS, P), dtype=torch.float32,
                       device=tmp0.device)
     for t in range(nsteps):
-        f = forcing[t]
-        ch = (lambda c: f[SLIM_POS[c]]) if slim else (lambda c: f[c])
+        f = f4[:, t]                                 # [n_tiles, nch, TP]
+        ch = ((lambda c: f[:, SLIM_POS[c]].reshape(P)) if slim
+              else (lambda c: f[:, c].reshape(P)))
         tg = off + t
         tair = ch(C_TAIR)
         failed_prev = sc[R_FAILED] > 0.5
@@ -502,8 +540,13 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
         # boundary layer + latent heat
         vz = ch(C_VZ)
         air_vcap = ch(C_AIRVCAP)
-        bl, psim, psih, inv_kvz = _bl_fixed_point(
+        bl, psim, psih, inv_kvz, iters = _bl_fixed_point(
             sc[R_BLCOND], tsurf, tair, vz, air_vcap, p, cfg.bl_max_iter)
+        if stats is not None:
+            stats["point_steps"] = (stats.get("point_steps", 0)
+                                    + int(active.sum()))
+            stats["bl_iters"] = (stats.get("bl_iters", 0)
+                                 + int(iters[active].sum()))
         raero = torch.clamp((p.log_mom + psim) * (p.log_heat + psih)
                             * (inv_kvz / p.vk_const), max=30.0)
         tak = tair + 273.15
@@ -521,7 +564,7 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
         # the exact 1.0 reproduces K1's ones channels bit for bit), or the
         # in-kernel post-coupling decay
         if not slim:
-            sw_cof, lw_cof = f[C_SWCOF], f[C_LWCOF]
+            sw_cof, lw_cof = ch(C_SWCOF), ch(C_LWCOF)
         elif aux_cofs:
             sw_cof, lw_cof = _decayed_cofs(aux_rows, tg, t_total, dt,
                                            cof_red)
@@ -534,8 +577,8 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
                 - p.emiss * p.sb_const * tk2 * tk2)
 
         # stencil + melting limiter
-        trf = slim_trf[tg] if slim else f[C_TRF]
-        cplobs = aux_rows[A_CPLOBS] if slim else f[C_CPLOBS]
+        trf = slim_trf[tg] if slim else ch(C_TRF)
+        cplobs = aux_rows[A_CPLOBS] if slim else ch(C_CPLOBS)
         new_tmp, hs1, hstor = _stencil(cur, bl, rnet, le, trf, dt, p,
                                        dyc, cond_dz, wcont, nlayers)
         new_tmp, q2 = _melting(new_tmp, tsurf, snow, ice, ice2,
@@ -595,16 +638,17 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
               aux_rows=None, aux_cofs: bool = False, t_total: int = None,
               cof_red: float = None):
     """Launch csrc/scan_kernel.cu on CUDA tensors; the arguments and results
-    of :func:`scan_reference` (K1, or K2 with ``aux_rows``).  Runs on the
-    current stream, does not synchronise, and raises if the launch is
-    refused."""
-    global LAUNCHES, LAUNCHES_SLIM
+    of :func:`scan_reference` (K1, K2 with ``aux_rows``, K3 with a
+    tile-major forcing).  Runs on the current stream, does not synchronise,
+    and raises if the launch is refused."""
+    global LAUNCHES, LAUNCHES_SLIM, LAUNCHES_TM
     from . import build
 
     if tmp0.device.type != "cuda":
         raise ValueError(f"scan_cuda needs CUDA tensors, got {tmp0.device}")
     lpad, P = tmp0.shape
-    T = forcing.shape[0]
+    slim = aux_rows is not None
+    T, tp = _forcing_layout(forcing, P, slim)
     nlayers = grid.nlayers
     if not 1 <= nlayers <= LMAX:
         raise ValueError(f"nlayers {nlayers} outside the kernel's 1..{LMAX}")
@@ -621,12 +665,11 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
                                           n_out)
     if off + nsteps >= 2 ** 31:
         raise ValueError("global step index overflows int32")
-    slim = _slim_args(forcing, P, slim_trf, aux_rows, aux_cofs, t_total,
-                      cof_red, off, nsteps)
+    _slim_args(P, slim_trf, aux_rows, aux_cofs, t_total, cof_red, off,
+               nsteps)
     _check("tmp0", tmp0, (lpad, P), tmp0.device)
     _check("scal0", scal0, (NROWS, P), tmp0.device)
-    _check("forcing", forcing, (T, NCH_SLIM if slim else NCH, P),
-           tmp0.device)
+    _check("forcing", forcing, tuple(forcing.shape), tmp0.device)
     if slim:
         _check("slim_trf", slim_trf, tuple(slim_trf.shape), tmp0.device)
         _check("aux_rows", aux_rows, (N_AUX, P), tmp0.device)
@@ -643,19 +686,21 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
             rc = lib.roadsurf_scan_slim(
                 ctypes.addressof(consts), tmp0.data_ptr(), scal0.data_ptr(),
                 forcing.data_ptr(), slim_trf.data_ptr(), aux_rows.data_ptr(),
-                tmp_f.data_ptr(), scal_f.data_ptr(), out.data_ptr(), P,
-                nsteps, off, out_base, int(bool(aux_cofs)),
+                tmp_f.data_ptr(), scal_f.data_ptr(), out.data_ptr(), P, tp,
+                T, nsteps, off, out_base, int(bool(aux_cofs)),
                 int(t_total) if aux_cofs else 0,
                 float(cof_red) if aux_cofs else 1.0, stream)
         else:
             rc = lib.roadsurf_scan(
                 ctypes.addressof(consts), tmp0.data_ptr(), scal0.data_ptr(),
                 forcing.data_ptr(), tmp_f.data_ptr(), scal_f.data_ptr(),
-                out.data_ptr(), P, nsteps, off, out_base, stream)
+                out.data_ptr(), P, tp, T, nsteps, off, out_base, stream)
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {rc} "
                            f"({build.error_string(rc)})")
-    if slim:
+    if forcing.dim() == 4:
+        LAUNCHES_TM += 1
+    elif slim:
         LAUNCHES_SLIM += 1
     else:
         LAUNCHES += 1
@@ -765,6 +810,47 @@ def pack_forcing_slim(prep):
     for c, x in _prep_channels(prep).items():
         out[:, SLIM_POS[c]] = x
     return out, prep.trf_fric.to(torch.float32).contiguous()
+
+
+def pack_forcing_tm(prep, sw_cof, lw_cof, coupling_tsurf):
+    """Prepared with tile-major [n_tiles, T, TP] channels (forcing.
+    prepare_window with ``time_axis=1``) -> [n_tiles, T, NCH, TP] float32
+    (K3 with all 16 channels).  ``sw_cof``/``lw_cof`` broadcast against
+    [n_tiles, T, TP]; ``coupling_tsurf`` is [n_tiles, TP]."""
+    nt, T, tp = prep.tair.shape
+    out = torch.zeros((nt, T, NCH, tp), dtype=torch.float32,
+                      device=prep.tair.device)
+    for c, x in _prep_channels(prep).items():
+        out[:, :, c] = x
+    out[:, :, C_TRF] = prep.trf_fric.to(torch.float32)[None, :, None]
+    out[:, :, C_SWCOF] = sw_cof
+    out[:, :, C_LWCOF] = lw_cof
+    out[:, :, C_CPLOBS] = coupling_tsurf.to(torch.float32)[:, None, :]
+    return out
+
+
+def pack_forcing_slim_tm(prep):
+    """Prepared with tile-major [n_tiles, T, TP] channels -> (forcing
+    [n_tiles, T, NCH_SLIM, TP], slim_trf [T]) float32 (K3, slim;
+    production.py:1689-1700): one stack, no point-major tensor."""
+    ch = _prep_channels(prep)
+    return (torch.stack([ch[c] for c in SLIM_CHANNELS], dim=2),
+            prep.trf_fric.to(torch.float32).contiguous())
+
+
+def to_tile_major(forcing, tp: int):
+    """Point-major [T, nch, P] forcing -> tile-major [P / tp, T, nch, tp]
+    (a copy)."""
+    T, nch, P = forcing.shape
+    return (forcing.reshape(T, nch, P // tp, tp).permute(2, 0, 1, 3)
+            .contiguous())
+
+
+def to_point_major(forcing):
+    """Tile-major [n_tiles, T, nch, TP] forcing -> point-major [T, nch, P]
+    (a copy)."""
+    nt, T, nch, tp = forcing.shape
+    return forcing.permute(1, 2, 0, 3).reshape(T, nch, nt * tp)
 
 
 def pack_aux(coupling_tsurf, sw_corr=None, lw_corr=None, coupling_end=None):

@@ -23,14 +23,18 @@ def net_radiation(tsurf, albedo, sw, lw, sw_cof, lw_cof, p: PhysicsParams):
 
 
 def modify_radiation(sw, sw_dir, lw, lw_net, elev, azim, sky_view,
-                     horizons, p: PhysicsParams):
+                     horizons, p: PhysicsParams, flat_horizons: bool = False,
+                     time_axis: int = 0):
     """Sky-view/horizon correction of the radiation forcing
     (src/ModRadiation.f90:7-73).
 
-    sw/sw_dir/lw/lw_net/elev/azim: time-major [T, P] (elev/azim from
+    sw/sw_dir/lw/lw_net/elev/azim: one layout with time on ``time_axis``
+    and the point axes on the others ([T, P], or the kernel's tile layout
+    [n_tiles, T, TP] with ``time_axis=1``; elev/azim from
     sun.elevation_azimuth); sky_view broadcastable against them;
-    horizons: [P, 360] local horizon angles (degrees per azimuth degree),
-    or one shared [360] table.
+    horizons: [*point_shape, 360] local horizon angles (degrees per azimuth
+    degree), or one shared [360] table; flat_horizons: all-zero horizons,
+    known ahead, so the table is not read.
 
     Returns (sw_mod, lw_mod).  The caller applies this only where
     0 <= sky_view < 1, matching the reference's guard
@@ -44,13 +48,18 @@ def modify_radiation(sw, sw_dir, lw, lw_net, elev, azim, sky_view,
     # clamp -- the index rule of radiation.py:55.  The reference reads out
     # of bounds when the sun is below the horizon but the result is unused
     # then.
-    azim_idx = torch.clamp(torch.round(azim).to(torch.int64) % 360, 0, 359)
-    if horizons.dim() > 1:
-        # per-point tables: one gather on the 360 axis ([P, 360] -> [P, T]
-        # -> time-major)
-        horizon = torch.gather(horizons, 1, azim_idx.T).T
+    if flat_horizons:
+        horizon = torch.zeros_like(elev)
     else:
-        horizon = horizons[azim_idx]
+        azim_idx = torch.clamp(torch.round(azim).to(torch.int64) % 360, 0,
+                               359)
+        if horizons.dim() > 1:
+            # per-point tables: one gather on the 360 axis, with the time
+            # axis moved last ([*point_shape, T] indices)
+            idx = azim_idx.movedim(time_axis, -1)
+            horizon = torch.gather(horizons, -1, idx).movedim(-1, time_axis)
+        else:
+            horizon = horizons[azim_idx]
 
     shadow = torch.where(horizon > elev, 0.0, 1.0).to(elev.dtype)
     sun_up = elev > 0.0

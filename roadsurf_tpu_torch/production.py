@@ -1,23 +1,34 @@
 """Production-scale streamed execution: the operational nationwide run, on
 one GPU.
 
-The counterpart of the station path of ``roadsurf_tpu/production.py``
-(``StationExpander``, ``_Engine``, ``run_production``,
-``run_production_coupled``).  The reference's operational path is an async
-thread-pool runner over the full data plane
+The counterpart of ``roadsurf_tpu/production.py`` on one device
+(``StationExpander``, ``GridExpander``, ``CompositeExpander``,
+``merge_windows``, ``last_valid_scan``, ``validation_counts``, ``_Engine``,
+``run_production``, ``run_production_coupled``).  The reference's
+operational path is an async thread-pool runner over the full data plane
 (examples/example2/src/roadrunner.cpp:595-719).  Here:
 
- * the station-keyed series ([S, T], a few thousand stations) ship to the
-   device once; per-point forcing is expanded chunk by chunk ON DEVICE by a
-   gather from the nearest-station index, so the full [T, P] forcing tensor
+ * the compact forcing sources ship to the device once: station-keyed
+   series ([S, T], a few thousand stations) and NWP grids (the raw
+   [K, ny, nx] fields, extracted at the points on the device into [K, P]
+   series on the raw times); per-point forcing is expanded chunk by chunk
+   ON DEVICE (a row gather from the nearest-station index; the grid's
+   gap-capped time interpolation), so the full [T, P] forcing tensor
    (hundreds of GB at 1M points) never exists anywhere;
+ * every expander has a tile geometry (``tile_geometry`` of its point
+   count) and emits its raw window in the kernel's tile layout
+   [n_tiles, Tc, TP]; off the fast path the per-point forcing prep, sky
+   view included, runs in that layout and stacks straight into the
+   tile-major slim forcing of K3, with no point-major tensor or transpose
+   (the JAX package's fused-generic route);
  * with a ``prep_ctx`` the forcing preparation runs once at station rank
    (the fast path) and each chunk is one row gather: into the slim
    [Tc, NCH_SLIM, P] layout of K2 (``slim=True``, the counterpart of the
    JAX package's fused route) or the packed [Tc, NCH, P] layout of K1
-   (``slim=False``, its gather route); without it, each chunk runs the
-   per-point ``forcing.prepare_window`` + ``pack_forcing`` into K1's layout
-   (the generic path);
+   (``slim=False``, its gather route); an expander without a tile
+   geometry (a point count that is no multiple of 128) takes the generic
+   path, the per-point ``forcing.prepare_window`` + ``pack_forcing`` into
+   K1's layout, per chunk;
  * each chunk is one launch of the hand-written CUDA whole-scan kernel
    (``ops/scan_kernel.py``); the prognostic state stays on the device in the
    kernel's packed layout between chunks;
@@ -34,14 +45,14 @@ dispatch is not ported yet.
 from __future__ import annotations
 
 import time as timelib
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .config import MISSING
 from .forcing import Calendar, Prepared, RawForcing, cof_window, \
-    prepare_window
+    prepare_window, valid_threshold
 from .model import Model
 from .observability import Progress, RunMetrics
 from .ops import scan_kernel as sk
@@ -51,13 +62,44 @@ OUT_FIELD_ROWS = {"tsurf": sk.R_TSURF, "wat": sk.R_WAT, "snow": sk.R_SNOW,
                   "ice": sk.R_ICE, "ice2": sk.R_ICE2, "dep": sk.R_DEP}
 
 #: point-count multiple (the JAX engine's mesh x lane rule,
-#: production.py:90-93, on one device)
-LANE = 128
+#: production.py:90-93, on one device): the kernel's thread block
+LANE = sk.LANE
+
+#: default largest tile width of the tile-major kernel mode (K3), chosen by
+#: its timing on the card (PERF.md, Findings)
+TILE_P = 1024
 
 
 def padded_points(n_points: int) -> int:
     """Points padded to whole 128-point lanes (one device)."""
     return -(-n_points // LANE) * LANE
+
+
+def tile_geometry(n_points: int):
+    """``(n_tiles, TP)`` of the kernel's tile-major layout on one device
+    (production.py:96-107): TP the largest multiple of LANE up to TILE_P
+    that divides the point count; None for a count that is no multiple of
+    LANE (the expander then has no tile layout)."""
+    if n_points <= 0 or n_points % LANE:
+        return None
+    tp = min(TILE_P, n_points) // LANE * LANE
+    while n_points % tp:
+        tp -= LANE
+    return (n_points // tp, tp)
+
+
+def _to_tiles(x, tile_geom):
+    """A point-major [P, ...] tensor as the tile layout [n_tiles, TP, ...]
+    (a view)."""
+    nt, tp = tile_geom
+    return x.reshape((nt, tp) + tuple(x.shape[1:]))
+
+
+def _missing_like(shape, name, device):
+    """The missing sentinel of a RawForcing field, broadcast to ``shape``."""
+    if name == "prec_phase":
+        return torch.full(shape, -9999, dtype=torch.int32, device=device)
+    return torch.full(shape, MISSING, dtype=torch.float32, device=device)
 
 
 def _pad_tail(x: np.ndarray, n: int, axis: int = 0) -> np.ndarray:
@@ -92,6 +134,14 @@ class StationExpander:
     fast path the engine runs the kernel's slim mode K2 on the 11-channel
     ``slim_window``; ``slim=False`` keeps K1 on the 16-channel
     ``packed_window``.  It has no effect without ``prep_ctx``.
+
+    ``tile_geom`` (``tile_geometry(num_points)``; production.py:466-535):
+    ``window_tm`` emits raw windows in the kernel's tile layout, by the same
+    row gather as ``window``; the engine runs the per-point prep in that
+    layout and the kernel's tile-major mode K3 whenever it does not take
+    the fast path (sky view on, or no ``prep_ctx``), and a
+    CompositeExpander can overlay it on a grid in that layout.  The port
+    sorts no points.
     """
 
     def __init__(self, raw_st: RawForcing, st_idx, device, chunk_t: int,
@@ -100,6 +150,8 @@ class StationExpander:
         self.slim = bool(slim)
         self.device = torch.device(device)
         self.num_points = len(st_idx)
+        self.tile_geom = tile_geometry(self.num_points)
+        self.chunk_t = chunk_t
         S, T = np.asarray(raw_st.tair).shape
         # one extra chunk of tail padding: a window may overhang T by up to
         # chunk_t - 1 rows (masked off by the kernel's nsteps)
@@ -204,10 +256,43 @@ class StationExpander:
             "sidx": torch.tensor(np.where(ok, st_idx, S).astype(np.int64),
                                  device=dev)}
 
+    @property
+    def device_data(self) -> dict:
+        """The device tensors the expansion reads."""
+        d = {"ch": self.channels, "ok": self.ok, "sidx": self.st_idx}
+        if self.prep_data is not None:
+            d["prep"] = self.prep_data
+        return d
+
+    def host_at(self, sim_sel, names=("tair", "tdew", "rhz")) -> dict:
+        """Host per-point values at selected sim steps (production.py:
+        559-568): {name: [P, n]}."""
+        sel = np.asarray(sim_sel)
+        out = {}
+        for n in names:
+            v = np.asarray(getattr(self._raw_host, n))[:, sel]
+            out[n] = np.where(self._ok_host[:, None], v[self._ie_host],
+                              MISSING)
+        return out
+
     def window(self, t0: int, tc: int) -> RawForcing:
         """[tc, P] raw forcing for global steps [t0, t0+tc) (the generic
         path)."""
         return self.window_from(self.channels, self.ok, self.st_idx, t0, tc)
+
+    def window_tm(self, t0: int, tc: int) -> RawForcing:
+        """Raw forcing for global steps [t0, t0+tc) in the kernel's tile
+        layout, [n_tiles, tc, TP] leaves (point p at tile p // TP, lane
+        p % TP): the row gather of ``window``, laid out per tile."""
+        nt, tp = self.tile_geom
+        ok = self.ok.reshape(nt, 1, tp)
+
+        def expand(ch, name):
+            v = ch[:, t0:t0 + tc].index_select(0, self.st_idx)  # [P, tc]
+            v = v.reshape(nt, tp, -1).transpose(1, 2)        # [nt, tc, TP]
+            return torch.where(ok, v, _missing_like((), name, v.device))
+        return RawForcing(*(expand(getattr(self.channels, n), n)
+                            for n in RawForcing._fields))
 
     @staticmethod
     def window_from(channels: RawForcing, ok, st_idx, t0: int, tc: int
@@ -260,6 +345,564 @@ class StationExpander:
             trf_fric=pd["trf"][t0:t0 + tc])
 
 
+def merge_windows(windows: Sequence[RawForcing]) -> RawForcing:
+    """Source-overlay merge of windows of one layout, in config order:
+    later sources overwrite earlier values where valid (production.py:
+    632-646; DataHandler per-value overlay,
+    examples/example1/src/DataHandler.cpp:73-82)."""
+    if len(windows) == 1:
+        return windows[0]
+    out = {}
+    for name in RawForcing._fields:
+        thr = valid_threshold(name)
+        acc = getattr(windows[0], name)
+        for w in windows[1:]:
+            v = getattr(w, name)
+            acc = torch.where(v > thr, v, acc)
+        out[name] = acc
+    return RawForcing(**out)
+
+
+class CompositeExpander:
+    """Overlay of several expanders (grid + station sources in one config),
+    merged per value in source order (production.py:649-718; the example2
+    DataManager stack, examples/example2/src/DataManager.cpp:67-77).
+
+    The tile layout composes when all parts share one ``tile_geom``;
+    otherwise the composite has none and the engine runs the generic
+    path.  Parts that carry a point permutation are refused:
+    the port sorts no points."""
+
+    def __init__(self, parts: Sequence):
+        if not parts:
+            raise ValueError("CompositeExpander needs at least one part")
+        for p in parts:
+            if getattr(p, "point_perm", None) is not None:
+                raise ValueError(
+                    "CompositeExpander parts must not carry a point "
+                    "permutation: the port keeps every part in the "
+                    "caller's point order")
+        self.parts = list(parts)
+        self.num_points = parts[0].num_points
+        self.t_pad = parts[0].t_pad
+        self.chunk_t = min(p.chunk_t for p in parts)
+        self.device = parts[0].device
+        for p in parts[1:]:
+            if p.num_points != self.num_points or p.t_pad != self.t_pad:
+                raise ValueError(
+                    f"parts differ in points or padded steps: "
+                    f"{(p.num_points, p.t_pad)} vs "
+                    f"{(self.num_points, self.t_pad)}")
+        geoms = [getattr(p, "tile_geom", None) for p in parts]
+        self.tile_geom = (geoms[0] if all(
+            g is not None and g == geoms[0] for g in geoms) else None)
+        self.first_host = {}
+        for name in RawForcing._fields:
+            thr = valid_threshold(name)
+            acc = np.asarray(self.parts[0].first_host[name])
+            for p in self.parts[1:]:
+                v = np.asarray(p.first_host[name])
+                acc = np.where(v > thr, v, acc)
+            self.first_host[name] = acc
+
+    @property
+    def device_data(self):
+        return tuple(p.device_data for p in self.parts)
+
+    def window(self, t0: int, tc: int) -> RawForcing:
+        return merge_windows([p.window(t0, tc) for p in self.parts])
+
+    def window_tm(self, t0: int, tc: int) -> RawForcing:
+        """Tile-layout overlay: each part expands in the kernel's tile
+        layout; the per-value merge is elementwise."""
+        return merge_windows([p.window_tm(t0, tc) for p in self.parts])
+
+    def host_at(self, sim_sel, names=("tair", "tdew", "rhz")) -> dict:
+        outs = [p.host_at(sim_sel, names) for p in self.parts]
+        merged = {}
+        for n in names:
+            thr = valid_threshold(n)
+            acc = outs[0][n]
+            for o in outs[1:]:
+                acc = np.where(o[n] > thr, o[n], acc)
+            merged[n] = acc
+        return merged
+
+
+#: CheckValues input ranges (src/InputOutput.f90:55-82); a value outside its
+#: range (or missing, -9999.9) poisons the point from that step on.
+CHECK_RANGES = (("tair", -90.0, 100.0), ("tdew", -90.0, 100.0),
+                ("rhz", -0.1, 120.0), ("vz", -1.0, 100.0),
+                ("sw", -0.1, 4000.0), ("lw", -0.1, 1000.0),
+                ("prec", -0.1, 500.0))
+
+
+def validation_counts(expander, T: int, chunk_t: int = 64,
+                      n_real: Optional[int] = None):
+    """Per-variable CheckValues failure screen over the MERGED forcing
+    (production.py:729-775), chunk by chunk on the device: per variable,
+    the count of points carrying any out-of-range or missing value (the
+    final step is exempt: CheckValues does not run there,
+    Simulation.f90:100-113).  Returns ({var: point_count},
+    total_distinct_points).  Windows are at most the expander's own chunk
+    long: its window geometry (the grid's SPAN) covers no longer one."""
+    chunk_t = max(1, min(chunk_t, expander.chunk_t))
+    dev = expander.device
+    bad = torch.zeros((len(CHECK_RANGES), expander.num_points),
+                      dtype=torch.bool, device=dev)
+    for t0 in range(0, max(T - 1, 1), chunk_t):
+        raw = expander.window(t0, chunk_t)
+        live = (t0 + torch.arange(chunk_t, device=dev) < T - 1)[:, None]
+        for i, (name, lo, hi) in enumerate(CHECK_RANGES):
+            v = getattr(raw, name)
+            bad[i] |= (((v < lo) | (v > hi)) & live).any(dim=0)
+    badh = bad.cpu().numpy()
+    if n_real is not None:
+        badh = badh[:, :n_real]
+    counts = {name: int(c) for (name, _, _), c
+              in zip(CHECK_RANGES, badh.sum(axis=1))}
+    return counts, int(badh.any(axis=0).sum())
+
+
+def last_valid_scan(expander, T: int, chunk_t: int = 64,
+                    names=("tsurf_obs",), n_real: Optional[int] = None):
+    """Per-point last-valid 0-based sim index and value of merged forcing
+    channels, chunk by chunk on the device (production.py:778-829): the
+    coupling observation (latest valid TSurfObs and its index,
+    examples/example1/src/roadrunner.cpp:258-276) and the relaxation anchor
+    index (GetLatestObsIndex, JsonSource.cpp:397-414), without building the
+    [P, T] series.  Returns {name: (last_idx [P] int32 (-1 = none),
+    value_at_last [P] float32)}.  Windows are at most the expander's own
+    chunk long, as in ``validation_counts``."""
+    chunk_t = max(1, min(chunk_t, expander.chunk_t))
+    dev = expander.device
+    Pn = expander.num_points
+    carry = {n: (torch.full((Pn,), -1, dtype=torch.int32, device=dev),
+                 torch.full((Pn,), MISSING, dtype=torch.float32, device=dev))
+             for n in names}
+    krow = torch.arange(chunk_t, device=dev)[:, None]
+    for t0 in range(0, T, chunk_t):
+        raw = expander.window(t0, chunk_t)
+        live = t0 + krow < T
+        for n in names:
+            idx, val = carry[n]
+            v = getattr(raw, n).to(torch.float32)
+            valid = (v > valid_threshold(n)) & live
+            lastk = torch.where(valid, krow, -1).amax(dim=0)     # [P]
+            any_v = lastk >= 0
+            vlast = torch.gather(v, 0, lastk.clamp(min=0)[None])[0]
+            carry[n] = (torch.where(any_v, t0 + lastk, idx).to(torch.int32),
+                        torch.where(any_v, vlast, val))
+    out = {}
+    for n in names:
+        idxh, valh = (x.cpu().numpy() for x in carry[n])
+        if n_real is not None:
+            idxh, valh = idxh[:n_real], valh[:n_real]
+        out[n] = (idxh, valh)
+    return out
+
+
+class GridExpander:
+    """On-device gridded-NWP -> point forcing expansion (production.py:
+    832-1327; the QueryDataSource grid path,
+    examples/example2/src/QueryDataSource.cpp:585-722, streamed).
+
+    Once: the raw [K, ny, nx] grids go to the device and are extracted at
+    the points there (``_extract_device``: four-corner gathers with the
+    cell indices, weights and the prec_phase corner order computed on the
+    host in float64), giving compact [K, P] per-variable series on the RAW
+    forecast times (K ~ 75 hourly samples, tiny next to [T, P]);
+    ``extract="host"`` extracts on the host instead
+    (``io.gridsource.bilinear_at_points``).  The series are stored in the
+    kernel's tile layout [n_tiles, K, TP] when ``tile_geometry(P)`` exists,
+    else time-major [K, P].
+
+    Per chunk (``window`` / ``window_tm``): the reference's gap-capped time
+    interpolation with missing-sample search (QueryDataSource.cpp:331-425,
+    io.gridsource.interpolate_gapped / nearest_gapped) for the chunk's sim
+    steps, over a window of KW raw rows around the chunk's position (sized
+    at build time so every sample pair within the gap cap lies inside);
+    each step picks its piecewise-linear segment by a gather on the segment
+    axis, and prec_phase its sample by a gather on the raw-time axis.  Both
+    layouts run the same op sequence, so tiled equals flat bit for bit.
+    A window is at most ``chunk_t`` steps long: SPAN covers no longer one.
+    Float32 throughout.
+    """
+
+    #: host_at variables worth keeping resident (repeated reads); anything
+    #: else recomputes rather than pinning a [P, K] float64 series
+    _PV_STAPLES = ("tair", "tdew", "rhz", "vz")
+
+    def __init__(self, times, glats, glons, fields: dict, plat, plon,
+                 sim_epochs, device, chunk_t: int,
+                 max_gap_s: float = 180 * 60.0, extract: str = "device"):
+        if extract not in ("device", "host"):
+            raise ValueError(f"extract must be 'device' or 'host', got "
+                             f"{extract!r}")
+        plat = np.asarray(plat, np.float64)
+        plon = np.asarray(plon, np.float64)
+        self.device = dev = torch.device(device)
+        self.num_points = Pn = len(plat)
+        self.tile_geom = tile_geometry(Pn)
+        self.chunk_t = chunk_t
+        self.max_gap_s = float(max_gap_s)
+        sim = np.asarray(sim_epochs, np.int64)
+        T = len(sim)
+        self.sim_len = T
+        self.t_pad = t_pad = (-(-T // chunk_t) + 1) * chunk_t
+
+        times = np.asarray(times, np.int64)
+        order = np.argsort(times, kind="stable")
+        # keep-last at duplicate raw times (directory-merge convention)
+        keep = np.ones(len(times), bool)
+        keep[:-1] = np.diff(times[order]) > 0
+        sel = order[keep]
+        times = times[sel]
+        fields = {k: np.asarray(v, np.float64)[sel] for k, v in fields.items()}
+        K = len(times)
+        if K == 0:
+            raise ValueError("grid source has no time samples")
+
+        # --- position machinery on the padded sim grid (:902-914) ---------
+        sim_pad = np.concatenate([sim, np.full(t_pad - T, sim[-1], np.int64)])
+        pos = np.searchsorted(times, sim_pad, side="left")         # in [0, K]
+        in_data = pos < K
+        posc = np.clip(pos, 0, K - 1)
+        texact = in_data & (times[posc] == sim_pad)
+        # nearest-time pick for prec_phase (QueryDataSource.cpp:397-425):
+        # candidates pos-1/pos, ties to the later sample, gap-capped
+        p1 = np.clip(posc - 1, 0, K - 1)
+        gap1 = (sim_pad - times[p1]).astype(np.float64)
+        gap2 = (times[posc] - sim_pad).astype(np.float64)
+        have_n = (pos > 0) & in_data & (np.minimum(gap1, gap2) <= max_gap_s)
+        pick = np.where(gap1 < gap2, p1, posc)
+
+        # --- window geometry (:916-935): MB raw rows below the position
+        # cover every earlier sample within the gap cap, MF rows above every
+        # later one; SPAN is the largest position advance in a chunk
+        if K > 1:
+            jmin = np.searchsorted(times, times[:-1] - int(max_gap_s),
+                                   side="right")
+            MB = int(np.max(np.arange(1, K) - jmin))
+            jmax = np.searchsorted(times, times[1:] + int(max_gap_s),
+                                   side="right") - 1
+            MF = int(np.max(jmax - np.arange(1, K))) + 1
+        else:
+            MB, MF = 1, 1
+        self.MB = MB = max(MB, 1)
+        self.SPAN = int(np.max(pos[chunk_t - 1:]
+                               - pos[:t_pad - chunk_t + 1])) + 1
+        self.KW = min(K, MB + self.SPAN + MF)
+        self.K = K
+
+        self.var_names = [n for n in RawForcing._fields if n in fields]
+        self._href = (times, glats, glons, fields, plat, plon, sim)
+        self._pv_cache = {}        # name -> [P, K] float64 point series
+        if (extract == "device" and self.var_names
+                and len(np.atleast_1d(glats)) >= 2
+                and len(np.atleast_1d(glons)) >= 2):
+            pv = self._extract_device(fields, glats, glons, plat, plon)
+        else:
+            pv = {}
+            for name in self.var_names:
+                x = torch.tensor(self._point_series(name).astype(np.float32),
+                                 device=dev)                      # [P, K]
+                pv[name] = (_to_tiles(x, self.tile_geom).transpose(1, 2)
+                            .contiguous() if self.tile_geom is not None
+                            else x.T.contiguous())
+        put = lambda x: torch.tensor(x, device=dev)
+        self._pos_host = pos
+        self._data = {
+            "pv": pv,
+            "trw": put((times - sim[0]).astype(np.float32)),
+            "pos": put(pos.astype(np.int64)),
+            "trel": put((sim_pad - sim[0]).astype(np.float32)),
+            "tex": put(texact),
+            "pick": put(pick.astype(np.int64)),
+            "havep": put(have_n),
+            "miss": torch.tensor(MISSING, dtype=torch.float32, device=dev),
+        }
+
+        # first-step values from only the raw samples that can influence
+        # sim[0] (within the gap cap), not the full series (:977-996)
+        from .io.gridsource import (bilinear_at_points,
+                                    nearest_corner_at_points,
+                                    timeseries_at_points)
+        k1 = min(K, int(np.searchsorted(
+            times, sim[0] + np.int64(max_gap_s), side="right")) + 1)
+        pv1 = {}
+        for n in self.var_names:
+            sp = (nearest_corner_at_points if n == "prec_phase"
+                  else bilinear_at_points)
+            pv1[n] = sp(fields[n][:k1], glats, glons, plat, plon).T
+        first = timeseries_at_points(times[:k1], pv1, sim[:1],
+                                     self.max_gap_s)
+        self.first_host = {
+            n: (first[n][:, 0] if n in first
+                else np.full(Pn, -9999 if n == "prec_phase" else MISSING))
+            for n in RawForcing._fields}
+
+    def _extract_device(self, fields, glats, glons, plat, plon) -> dict:
+        """Device-side spatial extraction (production.py:998-1103): the raw
+        [K, ny*nx] grids go to the device with per-point cell geometry
+        computed on the host in float64 -- the decisions of
+        io.gridsource.bilinear_at_points / nearest_corner_at_points,
+        including the weight-sorted corner order where the first valid
+        corner wins for prec_phase -- so only the weighted accumulation
+        runs in float32 (QueryDataSource.cpp:931, InterpolatedValue).
+        Returns {name: [n_tiles, K, TP] or [K, P] float32}."""
+        K, dev = self.K, self.device
+        la = np.asarray(glats, np.float64)
+        lo_ = np.asarray(glons, np.float64)
+        flip = len(la) > 1 and la[1] < la[0]
+        if flip:
+            la = la[::-1]
+        ny, nx = len(la), len(lo_)
+        iy = np.clip(np.searchsorted(la, plat, side="right") - 1, 0, ny - 2)
+        ix = np.clip(np.searchsorted(lo_, plon, side="right") - 1, 0,
+                     nx - 2)
+        inside = ((plat >= la[0]) & (plat <= la[-1])
+                  & (plon >= lo_[0]) & (plon <= lo_[-1]))
+        dy = la[iy + 1] - la[iy]
+        dx = lo_[ix + 1] - lo_[ix]
+        fy = np.where(dy > 0, (plat - la[iy]) / np.where(dy > 0, dy, 1.0),
+                      0.0)
+        fx = np.where(dx > 0, (plon - lo_[ix]) / np.where(dx > 0, dx, 1.0),
+                      0.0)
+        i_list, w_list = [], []
+        for cy, cx, w in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                          (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+            i_list.append((iy + cy) * nx + (ix + cx))
+            w_list.append(w)
+        idx4 = np.stack(i_list, axis=1)                    # [P, 4]
+        w4 = np.stack(w_list, axis=1)                      # [P, 4] float64
+        # nearest-valid-corner pick order: weight-descending, stable in
+        # corner order (the host loop's strict `w > best` tie-break)
+        order = np.argsort(-w4, axis=1, kind="stable")
+        sidx4 = np.take_along_axis(idx4, order, axis=1)
+        put = lambda x, dt=None: torch.tensor(np.ascontiguousarray(x),
+                                              dtype=dt, device=dev)
+        idx4_d, sidx4_d = put(idx4, torch.int64), put(sidx4, torch.int64)
+        w4_d = put(w4.astype(np.float32))
+        ins_d = put(inside)[None, :]
+        miss = torch.tensor(MISSING, dtype=torch.float32, device=dev)
+
+        def extract(ff, nearest):
+            # ff: [K, ny*nx] float32 -> [K, P]
+            valid_of = lambda v: ~(torch.isnan(v) | (v <= -9000.0))
+            if nearest:
+                best = torch.full((K, self.num_points), MISSING,
+                                  dtype=ff.dtype, device=dev)
+                havec = torch.zeros(best.shape, dtype=torch.bool, device=dev)
+                for c in range(4):
+                    v = ff.index_select(1, sidx4_d[:, c])
+                    valid = valid_of(v)
+                    best = torch.where(valid & ~havec, v, best)
+                    havec = havec | valid
+                return torch.where(ins_d, best, miss)
+            acc = torch.zeros((K, self.num_points), dtype=ff.dtype,
+                              device=dev)
+            wsum = torch.zeros_like(acc)
+            for c in range(4):
+                v = ff.index_select(1, idx4_d[:, c])
+                valid = valid_of(v)
+                w = w4_d[:, c][None, :]
+                acc = acc + torch.where(valid, v, 0.0) * w
+                wsum = wsum + w * valid
+            ok = (wsum > 1e-12) & ins_d
+            return torch.where(ok, acc / torch.where(wsum > 1e-12, wsum, 1.0),
+                               miss)
+
+        pv = {}
+        for name in self.var_names:
+            f = np.asarray(fields[name])
+            if flip:
+                f = f[:, ::-1, :]
+            ff = put(f.reshape(K, ny * nx).astype(np.float32))
+            out = extract(ff, name == "prec_phase")              # [K, P]
+            if self.tile_geom is not None:
+                nt, tp = self.tile_geom
+                out = out.reshape(K, nt, tp).transpose(0, 1).contiguous()
+            pv[name] = out
+            del ff
+        return pv
+
+    def _point_series(self, name) -> np.ndarray:
+        """Spatially-extracted [P, K] float64 series on the host; the
+        staples are cached (production.py:1105-1125)."""
+        if name in self._pv_cache:
+            return self._pv_cache[name]
+        from .io.gridsource import bilinear_at_points, \
+            nearest_corner_at_points
+        times, glats, glons, fields, plat, plon, _ = self._href
+        interp_sp = (nearest_corner_at_points if name == "prec_phase"
+                     else bilinear_at_points)
+        out = interp_sp(fields[name], glats, glons, plat, plon).T  # [P, K]
+        if name in self._PV_STAPLES:
+            self._pv_cache[name] = out
+        return out
+
+    def _host_values(self, sim_abs, names) -> dict:
+        """The extraction pipeline on the host at arbitrary epoch times
+        (io.gridsource.timeseries_at_points over the per-point series;
+        production.py:1127-1144): {name: [P, n]}, missing-filled for
+        absent variables."""
+        from .io.gridsource import timeseries_at_points
+        times = self._href[0]
+        want = set(names) | ({"tair", "tdew", "rhz"} & set(self.var_names))
+        sim_abs = np.asarray(sim_abs, np.int64)
+        pv = {n: self._point_series(n)
+              for n in sorted(want & set(self.var_names))}
+        out = timeseries_at_points(times, pv, sim_abs, self.max_gap_s)
+        for n in names:
+            if n not in out:
+                out[n] = np.full((self.num_points, len(sim_abs)),
+                                 -9999 if n == "prec_phase" else MISSING)
+        return out
+
+    def host_at(self, sim_sel, names=("tair", "tdew", "rhz")) -> dict:
+        """Host per-point values at selected sim steps (for output writers
+        and anchor derivation): {name: [P, n]}."""
+        sim = self._href[6]
+        return self._host_values(sim[np.asarray(sim_sel)], tuple(names))
+
+    @property
+    def device_data(self) -> dict:
+        return self._data
+
+    def window(self, t0: int, tc: int) -> RawForcing:
+        """[tc, P] raw forcing for global sim steps [t0, t0+tc)."""
+        if self.tile_geom is None:
+            return self._raw_window(t0, tc, tiled=False)
+        out = self._raw_window(t0, tc, tiled=True)
+        return RawForcing(*(x.transpose(0, 1).reshape(tc, self.num_points)
+                            for x in out))
+
+    def window_tm(self, t0: int, tc: int) -> RawForcing:
+        """Raw forcing in the kernel's tile layout, [n_tiles, tc, TP]
+        leaves (point p at tile p // TP, lane p % TP): the interpolation
+        runs in that layout, so no transpose comes between it and K3."""
+        return self._raw_window(t0, tc, tiled=True)
+
+    def _raw_window(self, t0: int, tc: int, tiled: bool) -> RawForcing:
+        """The gap-capped interpolation (production.py:1175-1327) in either
+        layout: ``tiled`` works on [n_tiles, *, TP] (series [n_tiles, K,
+        TP], time on axis 1), else on [*, P] (series [K, P], time on axis
+        0).  Every rule is elementwise over points, so both run the one op
+        sequence."""
+        if tc > self.chunk_t:
+            raise ValueError(
+                f"a {tc}-step window is longer than the expander's chunk of "
+                f"{self.chunk_t} steps, which its SPAN was sized for")
+        KW, MB, SPAN, K = self.KW, self.MB, self.SPAN, self.K
+        d = self._data
+        dev, miss = self.device, d["miss"]
+        k0 = int(self._pos_host[t0])
+        lo = min(max(k0 - MB, 0), max(K - KW, 0))
+        tw = d["trw"][lo:lo + KW]                                  # [KW]
+        pos_c = d["pos"][t0:t0 + tc]                               # [tc]
+        s_t = (pos_c - k0).clamp(0, SPAN - 1)
+        t_r = d["trel"][t0:t0 + tc]
+        tr0 = t_r[0]
+        if tiled:
+            ta = 1
+            nt, tp = self.tile_geom
+            pshape, oshape = (nt, tp), (nt, tc, tp)
+            tvec = lambda x: x.reshape(1, tc, 1)
+        else:
+            ta = 0
+            pshape, oshape = (self.num_points,), (tc, self.num_points)
+            tvec = lambda x: x.reshape(tc, 1)
+        row = lambda a, k: a.select(ta, k)            # one raw-time row
+        tex = tvec(d["tex"][t0:t0 + tc])
+        NEG = torch.tensor(-3e38, dtype=torch.float32, device=dev)
+        POS = torch.tensor(3e38, dtype=torch.float32, device=dev)
+
+        def continuous(pvw, validw):
+            # running last-valid / next-valid (time, value) pairs over the
+            # KW window rows (raw times increase: a plain where-carry)
+            lv_t, lv_v, nx_t, nx_v = [], [], [None] * KW, [None] * KW
+            ct = NEG.expand(pshape)
+            cv = torch.zeros(pshape, dtype=torch.float32, device=dev)
+            for k in range(KW):
+                ct = torch.where(row(validw, k), tw[k], ct)
+                cv = torch.where(row(validw, k), row(pvw, k), cv)
+                lv_t.append(ct)
+                lv_v.append(cv)
+            ct = POS.expand(pshape)
+            cv = torch.zeros(pshape, dtype=torch.float32, device=dev)
+            for k in reversed(range(KW)):
+                ct = torch.where(row(validw, k), tw[k], ct)
+                cv = torch.where(row(validw, k), row(pvw, k), cv)
+                nx_t[k] = ct
+                nx_v[k] = cv
+            # each segment's line and exact-time sample, then one gather on
+            # the segment axis picks each step's (the JAX package's SPAN-way
+            # select chain works around a [tc]-indexed take on the TPU's
+            # scalar core)
+            alpha, beta, ex_v, ex_ok = [], [], [], []
+            for s in range(SPAN):
+                kg = k0 + s                       # global position index
+                kl = min(max(kg - lo, 0), KW - 1)
+                klm1 = min(max(kg - lo - 1, 0), KW - 1)
+                t1, v1 = lv_t[klm1], lv_v[klm1]
+                t2, v2 = nx_t[kl], nx_v[kl]
+                gap = t2 - t1
+                have = ((t1 > NEG * 0.5) & (t2 < POS * 0.5)
+                        & (gap <= self.max_gap_s) & (0 < kg < K))
+                invg = torch.where(gap > 0, 1.0 / gap, 0.0)
+                b = torch.where(have, (v2 - v1) * invg, 0.0)
+                # chunk-rebased intercept: v(t) = alpha + (t - tr0) * beta
+                # keeps the f32 cancellation at window scale, not run scale
+                alpha.append(torch.where(have, v1 + (tr0 - t1) * b, miss))
+                beta.append(b)
+                ex_v.append(row(pvw, kl))
+                ex_ok.append(row(validw, kl) & (kg < K))
+            pick = lambda xs: torch.stack(xs).index_select(0, s_t).movedim(
+                0, ta)                            # [SPAN, *p] -> layout
+            res = pick(alpha) + tvec(t_r - tr0) * pick(beta)
+            # exact-time valid samples override unconditionally
+            # (QueryDataSource.cpp:798-801 / interpolate_gapped)
+            return torch.where(tex & pick(ex_ok), pick(ex_v), res)
+
+        out = {}
+        for name in RawForcing._fields:
+            arr = d["pv"].get(name)
+            if arr is None:
+                out[name] = _missing_like(oshape, name, dev)
+                continue
+            pvw = arr.narrow(ta, lo, KW)        # the window's raw rows
+            validw = pvw > -9000.0
+            if name == "prec_phase":
+                havep = tvec(d["havep"][t0:t0 + tc])
+                lpick = (d["pick"][t0:t0 + tc] - lo).clamp(0, KW - 1)
+                lpos = (pos_c - lo).clamp(0, KW - 1)
+                vex = pvw.index_select(ta, lpos)
+                res = torch.where(
+                    tex & validw.index_select(ta, lpos), vex,
+                    torch.where(havep, pvw.index_select(ta, lpick), miss))
+                out[name] = torch.where(res > -9000.0, res,
+                                        -9999.0).to(torch.int32)
+                continue
+            res = continuous(pvw, validw)
+            if name == "rhz":
+                res = torch.where(res > -9000.0, res.clamp(0.0, 100.0), res)
+            if name == "prec":
+                res = torch.where(res > 100.0, miss, res)
+            out[name] = res
+
+        # Tdew <-> RH completion per source (QueryDataSource.cpp:817-828)
+        ta_, td, rh = out["tair"], out["tdew"], out["rhz"]
+        t_ok = ta_ > -9000.0
+        if "tair" in self.var_names:
+            from .physics.moisture import rh_from_tdew, tdew_from_rh
+            need_td = (td <= -9000.0) & (rh > -9000.0) & t_ok
+            need_rh = (rh <= -9000.0) & (td > -9000.0) & t_ok
+            out["tdew"] = torch.where(need_td, tdew_from_rh(ta_, rh), td)
+            out["rhz"] = torch.where(need_rh, rh_from_tdew(ta_, td), rh)
+        return RawForcing(**out)
+
+
 class ProductionResult(NamedTuple):
     state: State                 #: final prognostic state (unpadded, host)
     out_steps: np.ndarray        #: [n_out] global 0-based step indices
@@ -270,9 +913,19 @@ class ProductionResult(NamedTuple):
 class _Engine:
     """Device placement + chunk functions + range streaming shared by the
     uncoupled and coupled runs (production.py:1340-1930, the
-    single-device parts)."""
+    single-device parts).
 
-    def __init__(self, model: Model, expander: StationExpander,
+    Routes, in order: the station fast path (``prep_data``, sky view off;
+    K2, or K1 with ``slim=False``); the tile-major path for an expander with
+    a ``tile_geom`` (per-point prep in the tile layout, sky view included;
+    K3 slim); else the generic path (per-point prep in [Tc, P]; K1)."""
+
+    #: True sends every run off the fast path down the generic route (the
+    #: reference the tile-major route is held to in the tests and on the
+    #: card)
+    force_generic = False
+
+    def __init__(self, model: Model, expander,
                  pts: PointParams, cal: Calendar, state: State, *,
                  anchors=None, chunk_t: int = 64,
                  out_stride: Optional[int] = None,
@@ -293,10 +946,10 @@ class _Engine:
                 "per-point out_depth is not supported by the scan kernel; "
                 "use Model.run or set the global model.tsurfOutputDepth")
         sky = np.asarray(pts.sky_view)
-        if np.any((sky < 1.0) & (sky > -0.01)):
-            raise NotImplementedError(
-                "sky view in the production engine is not ported yet; "
-                "use Model.run")
+        self.enable_sky = bool(np.any((sky < 1.0) & (sky > -0.01)))
+        hor_np = np.asarray(pts.horizons)
+        # all-zero horizons skip the lookup and never read the table
+        self.flat_horizons = not hor_np.any()
 
         self.n_real = int(np.asarray(pts.lat).shape[0])
         self.P_pad = padded_points(self.n_real)
@@ -312,13 +965,17 @@ class _Engine:
                 x = _pad_tail(np.asarray(x), self.P_pad, axis=0)
                 return torch.tensor(x.astype(dt), device=dev)
 
-            # horizons stay a 1-wide placeholder: sky view is off here, and
-            # a real [P, 360] table is 1.5 GB at 1M points
+            # the [P, 360] horizon table (1.5 GB at 1M points) only when
+            # sky view reads it; else a 1-wide placeholder
+            if self.enable_sky and not self.flat_horizons:
+                horizons = put_pts(hor_np, f32)
+            else:
+                horizons = torch.zeros((self.P_pad, 1), dtype=torch.float32,
+                                       device=dev)
             self.pts_dev = PointParams(
                 lat=put_pts(pts.lat, f32), lon=put_pts(pts.lon, f32),
                 sky_view=put_pts(pts.sky_view, f32),
-                horizons=torch.zeros((self.P_pad, 1), dtype=torch.float32,
-                                     device=dev),
+                horizons=horizons,
                 init_len=put_pts(pts.init_len, np.int32),
                 tair_relax=put_pts(pts.tair_relax, f32),
                 vz_relax=put_pts(pts.vz_relax, f32),
@@ -342,6 +999,11 @@ class _Engine:
             self.hour_dev = torch.tensor(
                 _pad_tail(np.asarray(cal.hour, np.int64), expander.t_pad),
                 device=dev)
+            # the Julian day in the run dtype, float32 (forcing.py:301)
+            self.jde_dev = (torch.tensor(
+                _pad_tail(np.asarray(cal.jde, np.float64),
+                          expander.t_pad).astype(np.float32), device=dev)
+                if self.enable_sky else None)
 
             # packed state; padded points marked failed -> frozen at step 0
             # (production.py:1478-1498)
@@ -356,18 +1018,45 @@ class _Engine:
             self.scal0[sk.R_FAILED, self.n_real:] = 1.0
             self.template = state
 
-        # station-level prepared channels bypass per-point forcing prep
-        self.fast = expander.prep_data is not None
+        # station-level prepared channels bypass per-point forcing prep;
+        # the per-point sky-view correction cannot ride them
+        self.fast = (not self.enable_sky
+                     and getattr(expander, "prep_data", None) is not None)
         self.slim = self.fast and expander.slim
+        # tile-major: the expander emits raw windows in the kernel's tile
+        # layout (production.py:1517-1539)
+        self.tile_geom = expander.tile_geom
+        self.tile_major = (not self.fast and not self.force_generic
+                           and self.tile_geom is not None)
+        sky_note = ", incl. sky view" if self.enable_sky else ""
         if self.fast:
             self._check_fast_contract(expander, pts)
             self.metrics.note(
                 "station-level prepared channels active ("
                 + ("slim kernel mode K2" if self.slim
                    else "packed row gather, kernel mode K1") + ")")
+        elif self.tile_major:
+            self.metrics.note(
+                "tile-major forcing path (per-point prep in the kernel's "
+                f"tile layout{sky_note}, kernel mode K3)")
         else:
-            self.metrics.note("station expander built without prep_ctx: "
-                              "generic per-point forcing prep")
+            self.metrics.note("generic per-point forcing prep (kernel mode "
+                              f"K1{sky_note})")
+        if self.tile_major:
+            # per-point params and anchors as views in the tile layout
+            # [n_tiles, TP] (horizons [n_tiles, TP, 360] when read), and the
+            # time-only traffic friction (SetDayDependendVariables,
+            # src/BalanceModel.f90:354-387; production.py:1553-1594)
+            tiles = lambda x: _to_tiles(x, self.tile_geom)
+            self.pts_tm = PointParams(*(tiles(x) for x in self.pts_dev))
+            self.anchors_tm = (tuple(tiles(a) for a in self.anchors_dev)
+                               if self.anchors_dev is not None else None)
+            prm = self.params
+            t32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+            night = ((self.hour_dev >= prm.night_on)
+                     | (self.hour_dev <= prm.night_off))
+            self.trf_dev = torch.where(night, t32(prm.trf_fric_ngt),
+                                       t32(prm.trf_fric_day))
         # fixed output-row allocation: the most stride hits any chunk holds
         self.k_alloc = (chunk_t - 1) // self.os_ + 1
         if self.device.type == "cuda":
@@ -427,6 +1116,23 @@ class _Engine:
 
     # -- chunk functions ----------------------------------------------------
 
+    def prepare(self, t0: int, tc: int, tiled: bool = False) -> Prepared:
+        """Per-point forcing prep of global steps [t0, t0 + tc) from the
+        expander's raw window: [tc, P] leaves, or with ``tiled`` the tile
+        layout [n_tiles, tc, TP] (production.py:1668-1700, 1717-1726)."""
+        if tiled:
+            raw = self.expander.window_tm(t0, tc)
+            pts, anchors = self.pts_tm, self.anchors_tm
+        else:
+            raw = self.expander.window(t0, tc)
+            pts, anchors = self.pts_dev, self.anchors_dev
+        return prepare_window(
+            raw, pts, self.hour_dev[t0:t0 + tc], self.settings, self.params,
+            t_offset=t0, t_total=self.T, anchors=anchors,
+            jde=self.jde_dev[t0:t0 + tc] if self.enable_sky else None,
+            enable_skyview=self.enable_sky,
+            flat_horizons=self.flat_horizons, time_axis=1 if tiled else 0)
+
     def chunk_forcing(self, t0: int, cofs=None):
         """[chunk_t, NCH, P] packed K1 forcing for global steps
         [t0, t0 + chunk_t): the station-level row gather (fast) or the
@@ -441,11 +1147,7 @@ class _Engine:
         if self.fast:
             return self.expander.packed_window(t0, tc, swc, lwc,
                                                self.obs_dev)
-        rawT = self.expander.window(t0, tc)
-        prep = prepare_window(
-            rawT, self.pts_dev, self.hour_dev[t0:t0 + tc], self.settings,
-            self.params, t_offset=t0, t_total=self.T,
-            anchors=self.anchors_dev, enable_skyview=False)
+        prep = self.prepare(t0, tc)
         if cofs is None:
             swc = lwc = torch.ones(prep.tair.shape, dtype=torch.float32,
                                    device=self.device)
@@ -453,20 +1155,27 @@ class _Engine:
 
     def kernel_inputs(self, t0: int, cofs=None):
         """(forcing, slim keyword arguments of ``scan``) for the chunk at
-        t0: K2's slim window with the time-only TRF and the aux rows (the
+        t0: the slim forcing with the time-only TRF and the aux rows (the
         coupling obs, and with ``cofs`` the corrections and window ends of
         the in-kernel decay, production.py:1755-1766) when the engine runs
-        slim, else K1's packed forcing."""
-        if not self.slim:
+        K2 (the station window) or K3 (the tile-major prep), else K1's
+        packed forcing."""
+        if self.tile_major:
+            forc = sk.pack_forcing_slim_tm(
+                self.prepare(t0, self.chunk_t, tiled=True))[0]
+            trf = self.trf_dev
+        elif self.slim:
+            forc = self.expander.slim_window(t0, self.chunk_t)
+            trf = self.expander.prep_data["trf"]
+        else:
             return self.chunk_forcing(t0, cofs), {}
-        kw = dict(slim_trf=self.expander.prep_data["trf"],
-                  aux_rows=sk.pack_aux(self.obs_dev))
+        kw = dict(slim_trf=trf, aux_rows=sk.pack_aux(self.obs_dev))
         if cofs is not None:
             kw.update(aux_rows=sk.pack_aux(self.obs_dev, cofs[0], cofs[1],
                                            self.pts_dev.coupling_end),
                       aux_cofs=True, t_total=self.T,
                       cof_red=self.settings.coupling_effect_reduction)
-        return self.expander.slim_window(t0, self.chunk_t), kw
+        return forc, kw
 
     def run_chunk(self, tmp, scal, t0: int, nsteps: int, cofs=None):
         """One chunk: forcing -> one whole-scan kernel launch; returns
@@ -543,7 +1252,7 @@ class _Engine:
                                 fields=fields, point_steps_per_s=rate)
 
 
-def run_production(model: Model, expander: StationExpander,
+def run_production(model: Model, expander,
                    pts: PointParams, cal: Calendar, state: State, *,
                    anchors=None, chunk_t: int = 64,
                    out_stride: Optional[int] = None,
@@ -556,15 +1265,16 @@ def run_production(model: Model, expander: StationExpander,
     expander must already be built at the padded count).  anchors: the
     per-point relaxation anchor triple (forcing.relax_anchors), required
     when settings.use_relaxation.  Returns outputs at the global
-    ``out_stride`` cadence (default settings.output_stride).  The device is
-    the expander's: CUDA runs the kernel, CPU its plain version.
+    ``out_stride`` cadence (default settings.output_stride).  The expander
+    is a StationExpander, GridExpander or CompositeExpander; the device is
+    its: CUDA runs the kernel, CPU its plain version.
     """
     eng = _Engine(model, expander, pts, cal, state, anchors=anchors,
                   chunk_t=chunk_t, out_stride=out_stride, metrics=metrics)
     return eng.run_uncoupled(progress)
 
 
-def run_production_coupled(model: Model, expander: StationExpander,
+def run_production_coupled(model: Model, expander,
                            pts: PointParams, cal: Calendar, state: State, *,
                            anchors=None, chunk_t: int = 64,
                            out_stride: Optional[int] = None,
@@ -579,7 +1289,7 @@ def run_production_coupled(model: Model, expander: StationExpander,
       B [ws, we_b]   unpack -> coupling.run_window_passes (first / re-runs /
                      tail) in plain torch on the device -> repack
       C [we_b+1, T]  streamed kernel with the post-window coefficient decay
-                     (in kernel on the slim path, cof_window channels on K1)
+                     (in kernel on K2 and K3, cof_window channels on K1)
 
     With no coupled window the run is the uncoupled stream.
     ``wcache_bytes``: device-memory budget for caching the pass-invariant
@@ -618,10 +1328,9 @@ def run_production_coupled(model: Model, expander: StationExpander,
         if eng.fast:
             # station-level prepared channels: one row gather per chunk
             return expander.prepared_window(t0, wck)
-        rawT = expander.window(t0, wck)
-        return prepare_window(rawT, eng.pts_dev, eng.hour_dev[t0:t0 + wck],
-                              settings, eng.params, t_offset=t0, t_total=T,
-                              anchors=eng.anchors_dev, enable_skyview=False)
+        # the expander's [wck, P] window and the per-point prep, sky view
+        # included
+        return eng.prepare(t0, wck)
 
     def phase_b(tmp, scal):
         st = sk.unpack_state(tmp, scal, eng.grid.nlayers, eng.template)

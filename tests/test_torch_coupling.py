@@ -155,8 +155,9 @@ def test_coupling_control_matches_jax(case):
     jcv = jcoupling.CouplingVars(**{k: jnp.asarray(v) for k, v in cv.items()})
     want = jcoupling.coupling_control(jnp.asarray(tsurf), jnp.asarray(obs),
                                       jcv, jnp.asarray(do))
-    got = tcoupling.coupling_control(_t(tsurf), _t(obs),
-                                     interop.coupling_vars(jcv), _t(do))
+    got = tcoupling.coupling_control(
+        _t(tsurf), _t(obs), interop.coupling_vars(jcv, device="cpu"),
+        _t(do))
     for name, g, w in zip(got._fields, got, want):
         g, w = g.numpy(), np.asarray(w)
         assert g.dtype == w.dtype, name
@@ -203,7 +204,7 @@ def test_run_coupled_matches_jax(scenario, seed, obs_shift):
     settings, raw, pts, cal = _coupled_case(scenario, seed,
                                             obs_shift=obs_shift)
     jfinal, jout = Model(settings).run_coupled(raw, pts, cal)
-    tfinal, tout = tmodel.Model(interop.settings(settings)).run_coupled(
+    tfinal, tout = tmodel.Model(interop.settings(settings), device="cpu").run_coupled(
         raw, pts, cal)
     assert tout.dtype == torch.float64
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL9)
@@ -231,7 +232,7 @@ def test_run_coupled_matches_golden():
         coupling_start=np.full(n, start, np.int32),
         coupling_end=np.full(n, 120, np.int32),
         coupling_tsurf=np.asarray(raw.tair)[:, 119] - 1.2)
-    _, out = tmodel.Model(interop.settings(settings)).run_coupled(
+    _, out = tmodel.Model(interop.settings(settings), device="cpu").run_coupled(
         raw, pts, Calendar.from_epochs(golden["epochs"]))
     for pnt in range(n):
         np.testing.assert_allclose(out[:, pnt].numpy(),
@@ -256,7 +257,7 @@ def test_segmented_matches_pc_bitwise(kw):
     out_stride = kw.pop("out_stride", 1)
     wchunk = kw.pop("wchunk", 16)
     settings, raw, pts, cal = _coupled_case(**kw)
-    tm = tmodel.Model(interop.settings(settings))
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
     final_pc, out_pc = tm.run_coupled(raw, pts, cal, out_stride=out_stride)
     prep = tm.prepare(raw, pts, cal)
     state = tm.init(raw, cal, dtype=prep.tair.dtype, pts=pts)

@@ -43,7 +43,7 @@ def _both(settings, raw, pts, cal):
     """(port, JAX) [T, P, 6] trajectories and final states on the same
     inputs."""
     jfinal, jout = Model(settings).run(raw, pts, cal)
-    tfinal, tout = tmodel.Model(interop.settings(settings)).run(raw, pts,
+    tfinal, tout = tmodel.Model(interop.settings(settings), device="cpu").run(raw, pts,
                                                                  cal)
     return _stack(tout), _stack(jout), tfinal, jfinal
 
@@ -114,7 +114,7 @@ def test_model_run_matches_golden_free(sc):
     pts = default_point_params(2, init_len=12)._replace(
         lat=np.array([61.0, 62.0]), lon=np.array([24.0, 25.0]))
     settings = ModelSettings(sim_len=241, dt=30.0)
-    _, out = tmodel.Model(interop.settings(settings)).run(
+    _, out = tmodel.Model(interop.settings(settings), device="cpu").run(
         raw, pts, interop.calendar(cal))
     fields = _stack(out)
     for pnt in range(2):
@@ -129,7 +129,7 @@ def _drift_run(dtype, scenario, seed, sim_len=2881, npoints=16):
     """tests/test_precision.py:18-31 on the port: forcing prepared in
     float64, then the prepared channels, state and scan in ``dtype``."""
     m = tmodel.Model(interop.settings(ModelSettings(sim_len=sim_len,
-                                                    dt=30.0)))
+                                                    dt=30.0)), device="cpu")
     raw, cal = synthetic_raw(npoints, sim_len, seed=seed, scenario=scenario)
     pts = default_point_params(npoints)
     prep = m.prepare(raw, pts, cal)

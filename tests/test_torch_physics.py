@@ -333,13 +333,15 @@ def test_prepare(use_relaxation):
                            vz_relax=raw.vz[rows, il] + 0.1,
                            rh_relax=raw.rhz[rows, il] - 2.0)
     want = jforcing.prepare(raw, pts, cal, settings, JP)
-    got = tforcing.prepare(interop.raw_forcing(raw), interop.point_params(pts),
+    got = tforcing.prepare(interop.raw_forcing(raw, device="cpu"),
+                           interop.point_params(pts, device="cpu"),
                            interop.calendar(cal), interop.settings(settings),
                            TP)
     _close(list(got), list(want))
     anchors = [np.asarray(a) for a in jforcing.relax_anchors(raw, pts)]
-    _close(tforcing.relax_anchors(interop.raw_forcing(raw),
-                                  interop.point_params(pts)), anchors)
+    _close(tforcing.relax_anchors(interop.raw_forcing(raw, device="cpu"),
+                                  interop.point_params(pts, device="cpu")),
+           anchors)
     for a, b in zip(tforcing.relax_anchors(raw, pts), anchors):
         assert np.array_equal(a, b)
 
@@ -364,7 +366,7 @@ def test_interop_round_trip_exact():
     prep = jforcing.prepare(raw, pts, cal, settings, JP)
     for obj, conv in ((raw, interop.raw_forcing), (pts, interop.point_params),
                       (state, interop.state), (prep, interop.prepared)):
-        back = interop.to_numpy(conv(obj), cls=type(obj))
+        back = interop.to_numpy(conv(obj, device="cpu"), cls=type(obj))
         assert type(back) is type(obj)
         for name in obj._fields:
             a, b = np.asarray(getattr(back, name)), np.asarray(

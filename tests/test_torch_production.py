@@ -119,13 +119,13 @@ def test_port_production_matches_jax(chunk_t, out_stride, path):
         chunk_t=chunk_t, out_stride=out_stride, inner_chunk_t=8,
         interpret=True)
 
-    tmod = tmodel.Model(interop.settings(settings))
+    tmod = tmodel.Model(interop.settings(settings), device="cpu")
     texp = tprod.StationExpander(
         raw_st, st_idx_pad, "cpu", chunk_t=chunk_t,
         prep_ctx=_port_ctx(ctx) if ctx is not None else None)
     assert (texp.prep_data is not None) == (path == "fast")
     got = tprod.run_production(
-        tmod, texp, pts, cal, interop.state(state0),
+        tmod, texp, pts, cal, interop.state(state0, device="cpu"),
         anchors=anchors, chunk_t=chunk_t, out_stride=out_stride)
 
     assert np.array_equal(got.out_steps, np.arange(0, T, out_stride))
@@ -151,7 +151,7 @@ def test_port_fast_path_matches_generic():
     st_idx_pad = np.pad(st_idx, (0, tprod.padded_points(P) - P),
                         constant_values=-1)
     ctx = _port_ctx(_station_prep_ctx(settings, model, raw_st, cal, pts))
-    tmod = tmodel.Model(interop.settings(settings))
+    tmod = tmodel.Model(interop.settings(settings), device="cpu")
     state0 = tmod.init(raw_pt, cal, dtype=torch.float32)
     anchors = relax_anchors(raw_pt, pts)
     runs = {}
@@ -181,7 +181,7 @@ def test_port_production_matches_port_model_run():
     st_idx_pad = np.pad(st_idx, (0, tprod.padded_points(P) - P),
                         constant_values=-1)
     ctx = _port_ctx(_station_prep_ctx(settings, model, raw_st, cal, pts))
-    tmod = tmodel.Model(interop.settings(settings))
+    tmod = tmodel.Model(interop.settings(settings), device="cpu")
     final_ref, out_ref = tmod.run(raw_pt, pts, cal)
     exp = tprod.StationExpander(raw_st, st_idx_pad, "cpu", chunk_t=16,
                                 prep_ctx=ctx)

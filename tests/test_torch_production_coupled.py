@@ -80,7 +80,7 @@ def _port_ctx(ctx):
 def _port_run(setup, chunk_t=32, out_stride=6, fast=True, slim=True,
               **kw):
     settings, raw_st, raw_pt, cal, pts, st_idx, ctx = setup
-    tm = tmodel.Model(interop.settings(settings))
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
     exp = tprod.StationExpander(raw_st, _padded(st_idx), "cpu",
                                 chunk_t=chunk_t,
                                 prep_ctx=_port_ctx(ctx) if fast else None,
@@ -147,7 +147,7 @@ def test_port_fast_provider_matches_generic_bitwise():
     both sides (tests/test_production_fused.py:105-136)."""
     setup = _coupled_setup()
     settings, raw_st, raw_pt, cal, pts, st_idx, ctx = setup
-    tm = tmodel.Model(interop.settings(settings))
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
     state0 = tm.init(raw_pt, cal, dtype=torch.float32, pts=pts)
     engines = [tprod._Engine(tm, tprod.StationExpander(
         raw_st, _padded(st_idx), "cpu", chunk_t=32, prep_ctx=c), pts, cal,
@@ -183,7 +183,7 @@ def test_port_no_window_falls_back():
     pts = pts._replace(coupling_tsurf=np.full(len(st_idx), -9999.9))
     ctx["st_pts"] = ctx["st_pts"]._replace(
         coupling_tsurf=np.full(len(ctx["st_pts"].lat), -9999.9))
-    tm = tmodel.Model(interop.settings(settings))
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
     state0 = tm.init(raw_pt, cal, dtype=torch.float32, pts=pts)
     exp = tprod.StationExpander(raw_st, _padded(st_idx), "cpu", chunk_t=32,
                                 prep_ctx=_port_ctx(ctx))

@@ -56,7 +56,7 @@ def _inputs(scenario="winter_mix", sim_len=128, npoints=1024, seed=21,
     prep = prep._replace(**{k: jnp.asarray(getattr(prep, k), jnp.float32)
                             for k in F32_KEYS})
     state = model.init(raw, cal, dtype=jnp.float32)
-    tm = tmodel.Model(interop.settings(settings))
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
     return model, tm, pts, prep, state
 
 
@@ -68,10 +68,10 @@ def _jax_packed(prep, state, pts):
 
 
 def _port_packed(prep, state, pts):
-    tprep = interop.prepared(prep)
+    tprep = interop.prepared(prep, device="cpu")
     ones = torch.ones(tprep.tair.shape, dtype=torch.float32)
     obs = torch.tensor(np.asarray(pts.coupling_tsurf, np.float32))
-    tmp0, scal0 = sk.pack_state(interop.state(state))
+    tmp0, scal0 = sk.pack_state(interop.state(state, device="cpu"))
     return tmp0, scal0, sk.pack_forcing(tprep, ones, ones, obs)
 
 
@@ -98,7 +98,7 @@ def test_port_packing_matches_jax():
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-6,
                                atol=0)
     back = sk.unpack_state(tt, ts, model.settings.nlayers,
-                           interop.state(state))
+                           interop.state(state, device="cpu"))
     for name in back._fields:
         np.testing.assert_array_equal(interop.to_numpy(getattr(back, name)),
                                       np.asarray(getattr(state, name)),
@@ -133,7 +133,7 @@ def test_reference_offset_and_partial_chunk():
     jt, js, jout = ps.pallas_scan(*packed, model.cfg, model.params,
                                   model.grid, chunk_t=64, interpret=True,
                                   **kw)
-    tt, ts, tout = sk.scan_reference(*interop.packed(*packed), tm.cfg,
+    tt, ts, tout = sk.scan_reference(*interop.packed(*packed, device="cpu"), tm.cfg,
                                      tm.params, tm.grid, **kw)
     assert tout.shape == (n_out, sk.N_OUT_FIELDS, 1024)
     _assert_close(tout, jout, tt, jt)
@@ -147,8 +147,8 @@ def test_reference_matches_port_scan(combo):
     layer count above 16."""
     model, tm, pts, prep, state = _inputs(sim_len=96, npoints=256, seed=31,
                                           **combo)
-    tprep = interop.prepared(prep)
-    tstate = interop.state(state)
+    tprep = interop.prepared(prep, device="cpu")
+    tstate = interop.state(state, device="cpu")
     ones = torch.ones(tprep.tair.shape, dtype=torch.float32)
     obs = torch.tensor(np.asarray(pts.coupling_tsurf, np.float32))
     final, out = tmodel.scan_steps(tstate, tprep, ones, ones, obs, tm.cfg,
@@ -241,14 +241,14 @@ def _slim_case(npoints=1024, sim_len=128, off=0, nsteps=None, seed=5):
 
 def _port_slim(tm, prep, state, aux, off, t_total, cofs):
     """(tmp0, scal0, forcing [T, 11, P]) and the slim keyword arguments."""
-    tprep = interop.prepared(prep)
+    tprep = interop.prepared(prep, device="cpu")
     forc, trf = sk.pack_forcing_slim(tprep)
     trf_g = torch.zeros(off + trf.shape[0], dtype=torch.float32)
     trf_g[off:] = trf                      # indexed by the global step
     t = lambda k: torch.tensor(aux[k])
     rows = (sk.pack_aux(t("obs"), t("sw"), t("lw"), t("cend")) if cofs
             else sk.pack_aux(t("obs")))
-    tmp0, scal0 = sk.pack_state(interop.state(state))
+    tmp0, scal0 = sk.pack_state(interop.state(state, device="cpu"))
     kw = dict(slim_trf=trf_g, aux_rows=rows)
     if cofs:
         kw.update(aux_cofs=True, t_total=t_total,
@@ -335,7 +335,7 @@ def test_reference_slim_equals_packed_bitwise(cofs):
     k1 = _k1_forcing(forc, kw["slim_trf"][off:], swc, lwc,
                      kw["aux_rows"][sk.A_CPLOBS])
     # the 16-channel packing of the same prep, as production builds it
-    tprep = interop.prepared(prep)._replace(trf_fric=kw["slim_trf"][off:])
+    tprep = interop.prepared(prep, device="cpu")._replace(trf_fric=kw["slim_trf"][off:])
     assert torch.equal(k1, sk.pack_forcing(tprep, swc, lwc,
                                            kw["aux_rows"][sk.A_CPLOBS]))
     want = sk.scan_reference(packed[0], packed[1], k1, tm.cfg, tm.params,
@@ -403,3 +403,148 @@ def test_slim_kernel_matches_reference_on_cuda(cofs):
                      tm.cfg, tm.params, tm.grid, **geo)
         for g, w in zip(got, k1):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K3: the tile-major forcing layout [P / TP, T, nch, TP], either channel set
+# ---------------------------------------------------------------------------
+
+# (channel set, in-kernel decay): K1's 16 channels, K2's 11 without and
+# with the decay
+TM_MODES = [("k1", False), ("k2", False), ("k2", True)]
+TM_IDS = ["k1", "k2", "k2-cofs"]
+
+
+def _tm_case(mode, cofs, npoints=1024, off=40, nsteps=100, stride=4):
+    """The slim chunk of ``_slim_case`` (offset 40, 100 of 128 steps, the
+    run's last step inside) as (packed point-major args, slim keyword
+    arguments, output geometry, port model); K1's forcing is the
+    16-channel packing of the same values with ones coefficients."""
+    model, tm, pts, prep, state, t_total, aux = _slim_case(
+        npoints=npoints, off=off, nsteps=nsteps)
+    packed, kw = _port_slim(tm, prep, state, aux, off, t_total, cofs)
+    if mode == "k1":
+        T, _, P = packed[2].shape
+        ones = torch.ones((T, P), dtype=torch.float32)
+        packed = (packed[0], packed[1],
+                  _k1_forcing(packed[2], kw["slim_trf"][off:], ones, ones,
+                              kw["aux_rows"][sk.A_CPLOBS]))
+        kw = {}
+    return packed, kw, _geometry(off, nsteps, stride), tm
+
+
+@pytest.mark.parametrize("tp", [128, 256])
+@pytest.mark.parametrize("mode,cofs", TM_MODES, ids=TM_IDS)
+def test_reference_tile_major_equals_point_major(mode, cofs, tp):
+    """scan_reference on the tile-major forcing equals the point-major
+    call bit for bit, for both channel sets, with and without the decay,
+    on an offset chunk with nsteps < T that holds the run's last step."""
+    (tmp0, scal0, forc), kw, geo, tm = _tm_case(mode, cofs)
+    want = sk.scan_reference(tmp0, scal0, forc, tm.cfg, tm.params, tm.grid,
+                             **geo, **kw)
+    f4 = sk.to_tile_major(forc, tp)
+    assert f4.shape == (1024 // tp, forc.shape[0], forc.shape[1], tp)
+    assert torch.equal(sk.to_point_major(f4), forc)
+    got = sk.scan_reference(tmp0, scal0, f4, tm.cfg, tm.params, tm.grid,
+                            **geo, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_reference_tile_major_matches_pallas():
+    """The port's 16-channel tile-major scan_reference against the JAX
+    kernel fed the 5-D tile-major forcing [n_tiles, T, NCH, subl, LANE]
+    (pallas_step.py:387-398), an offset chunk with nsteps < T."""
+    (tmp0, scal0, forc), _, geo, tm = _tm_case("k1", False)
+    model = Model(ModelSettings(sim_len=128, dt=30.0))
+    tp = 256
+    f4 = sk.to_tile_major(forc, tp)
+    tt, ts, tout = sk.scan_reference(tmp0, scal0, f4, tm.cfg, tm.params,
+                                     tm.grid, **geo)
+    T = forc.shape[0]
+    f5 = f4.numpy().reshape(1024 // tp, T, sk.NCH, tp // ps.LANE, ps.LANE)
+    jt, js, jout = ps.pallas_scan(jnp.asarray(tmp0.numpy()),
+                                  jnp.asarray(scal0.numpy()),
+                                  jnp.asarray(f5), model.cfg, model.params,
+                                  model.grid, chunk_t=64, interpret=True,
+                                  **geo)
+    assert tout.shape == jout.shape
+    _assert_close(tout, jout, tt, jt)
+    assert np.array_equal(ts.numpy()[sk.R_FAILED], np.asarray(js)[ps.R_FAILED])
+
+
+def test_pack_forcing_tile_major():
+    """pack_forcing_tm / pack_forcing_slim_tm of a tile-layout Prepared
+    equal the point-major packings laid out per tile."""
+    model, tm, pts, prep, state = _inputs(npoints=512, sim_len=32)
+    tprep = interop.prepared(prep, device="cpu")
+    nt, tp = 2, 256
+    tile = lambda x: x.reshape(x.shape[0], nt, tp).transpose(0, 1)
+    tprep_tm = tprep._replace(**{n: tile(getattr(tprep, n))
+                                 for n in tprep._fields if n != "trf_fric"})
+    T, P = tprep.tair.shape
+    swc = torch.tensor(np.random.default_rng(3).uniform(0.5, 1.5, (T, P)),
+                       dtype=torch.float32)
+    obs = torch.tensor(np.asarray(pts.coupling_tsurf, np.float32))
+    want = sk.pack_forcing(tprep, swc, 1.0, obs)
+    got = sk.pack_forcing_tm(tprep_tm, tile(swc), 1.0, obs.reshape(nt, tp))
+    assert torch.equal(got, sk.to_tile_major(want, tp))
+    slim, trf = sk.pack_forcing_slim(tprep)
+    slim_tm, trf_tm = sk.pack_forcing_slim_tm(tprep_tm)
+    assert torch.equal(slim_tm, sk.to_tile_major(slim, tp))
+    assert torch.equal(trf_tm, trf)
+
+
+def test_tile_major_wrapper_checks():
+    (tmp0, scal0, forc), kw, geo, tm = _tm_case("k2", True, npoints=256,
+                                                nsteps=24)
+    f4 = sk.to_tile_major(forc, 128)
+    before = (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM)
+    stats = {}
+    sk.scan(tmp0, scal0, f4, tm.cfg, tm.params, tm.grid, **geo, **kw)
+    sk.scan_reference(tmp0, scal0, f4, tm.cfg, tm.params, tm.grid,
+                      stats=stats, **geo, **kw)
+    assert (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM) == before
+    # the work these inputs need: every point runs every step, and the
+    # boundary-layer loop takes 5 to bl_max_iter iterations a step
+    assert stats["point_steps"] == 256 * 24
+    assert (5 * stats["point_steps"] <= stats["bl_iters"]
+            <= tm.cfg.bl_max_iter * stats["point_steps"])
+    with pytest.raises(ValueError):
+        sk.scan_cuda(tmp0, scal0, f4, tm.cfg, tm.params, tm.grid, **geo,
+                     **kw)
+    bad = forc.reshape(forc.shape[0], forc.shape[1], 4, 64).permute(
+        2, 0, 1, 3).contiguous()                 # TP = 64: not a lane width
+    with pytest.raises(ValueError):
+        sk.scan_reference(tmp0, scal0, bad, tm.cfg, tm.params, tm.grid,
+                          **geo, **kw)
+    with pytest.raises(ValueError):              # 16-channel layout, slim
+        sk.scan_reference(tmp0, scal0, torch.zeros(2, 128, sk.NCH, 128),
+                          tm.cfg, tm.params, tm.grid, **geo, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [128, 1024])
+@pytest.mark.parametrize("mode,cofs", TM_MODES, ids=TM_IDS)
+def test_tile_major_kernel_on_cuda(mode, cofs, tp):
+    """K3 on the card against its plain version at the kernel tolerances
+    with equal failed masks, and against K1 / K2 on the same values, bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    packed, kw, geo, tm = _tm_case(mode, cofs, npoints=4096)
+    tmp0, scal0, forc = (x.cuda() for x in packed)
+    kw = {k: (v.cuda() if isinstance(v, torch.Tensor) else v)
+          for k, v in kw.items()}
+    args = (tm.cfg, tm.params, tm.grid)
+    f4 = sk.to_tile_major(forc, tp)
+    before = sk.LAUNCHES_TM
+    got = sk.scan(tmp0, scal0, f4, *args, **geo, **kw)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES_TM == before + 1
+    want = sk.scan_reference(tmp0, scal0, f4, *args, **geo, **kw)
+    _assert_close(got[2].cpu(), want[2].cpu(), got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1][sk.R_FAILED], want[1][sk.R_FAILED])
+    pm = sk.scan(tmp0, scal0, forc, *args, **geo, **kw)
+    for g, w in zip(got, pm):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
