@@ -1,13 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: builds the
 hand-written scan kernel (K1, point-major; K2, slim; K3, tile-major: modes
-of one source) from this checkout, holds each mode against its plain torch
-version, drives the station-fed production forecast end to end at
-1,048,576 points x 8,881 steps (the operational 74-hour run at dt 30 s),
-uncoupled and observation-coupled, and the NWP-grid and grid+station
-forecasts with sky view at the same size, and prints a JSON summary.
+of one source) and its sharded launch (K4) from this checkout, holds each
+against its plain torch version, drives the station-fed production forecast
+end to end at 1,048,576 points x 8,881 steps (the operational 74-hour run
+at dt 30 s), uncoupled and observation-coupled, and the NWP-grid and
+grid+station forecasts with sky view at the same size, then the same
+forecasts over several point blocks and over two processes, and prints a
+JSON summary.
 
     python3 chip_smoke.py            # every phase (one card)
     python3 chip_smoke.py 3c 4c      # only the named phases, no summary
+    python3 chip_smoke.py 3d 8 8b    # the sharded launch and paths alone
 
 Phases (each fails the run on any error; nothing falls back to the CPU or to
 the plain version):
@@ -74,8 +77,37 @@ the plain version):
     U(0, 25) degree horizons on every third point, at the same size and
     under the same bounds.
 
-Phases run in the order 1, 2, 3, 3b, 4, 4b, 5, 6, 7 (with 3c before its
-run), 4c, 7b.  The last three lines of standard output are the kernel
+ 3d. K4 against its plain version and against one launch: the offset chunk
+    of phases 3b/3c (65,536 points x 128 steps) for K1, K2 with the decay
+    and K3 (TP 1024), at 2, 4 and 8 blocks on the card, each block on a
+    stream of its own (and, with more cards visible, one block a card):
+    scan_sharded against scan_sharded_reference at the kernel tolerances
+    with equal failed masks, and against one scan launch bit for bit; then
+    phase 5's 1,048,576 x 64 chunk (K2) at 1, 2, 4 and 8 blocks, bit for
+    bit against one launch and timed beside it;
+ 8. the sharded main path at full width and depth: phase 5's station cell
+    and phase 7b's grid + stations with sky view, each through
+    run_production(devices=[the card] * 4) (or the visible cards) against
+    the one-block run, bit for bit over every output row and the final
+    state; phase 4b's coupled station case at 4 blocks against 1, bit for
+    bit; stream seconds, point-steps/s, launches and peak memory per device
+    are printed;
+ 8b. two processes on the card: the script starts itself twice as a worker
+    (rendezvous on 127.0.0.1, the gloo backend); each takes its
+    host_point_range of the station cell at 1,048,576 points x 961 steps,
+    output stride 120, runs run_production(drain="shard") on two blocks,
+    writes its shard and a per-shard checkpoint into a temporary directory,
+    and joins the failed-count reduction; the parent merges the shards,
+    restores the checkpoints, and holds both to a one-process run bit for
+    bit.  A worker that fails fails the run.
+
+Every run_production launch goes through K4 (one sharded launch a chunk,
+whatever the number of blocks), so K4's launches are counted over every
+main-path run.  Phases run in the order 1, 2, 3, 3b, 3d, 4, 4b, 5, 6, 7
+(with 3c before its run), 4c, 7b, 8, 8b.  The 64-point sample re-runs of
+phases 5, 6, 7 and 7b are plain torch on the host: each starts in worker
+processes when its full-size run ends, runs beside the phases that follow,
+and is checked at the end.  The last three lines of standard output are the kernel
 summary (JSON), the card's name and power limit, and the device line
 (JSON); with phases named on the command line they are not printed.
 """
@@ -83,8 +115,10 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,6 +142,8 @@ from roadsurf_tpu_torch.observability import Progress, RunMetrics  # noqa: E402
 from roadsurf_tpu_torch.ops import build  # noqa: E402
 from roadsurf_tpu_torch.ops import scan_kernel as sk  # noqa: E402
 from roadsurf_tpu_torch import production  # noqa: E402
+from roadsurf_tpu_torch.io import writer  # noqa: E402
+from roadsurf_tpu_torch.parallel import distributed, sharding  # noqa: E402
 from roadsurf_tpu_torch.forcing import relax_anchors  # noqa: E402
 from roadsurf_tpu_torch.state import PointParams, default_point_params  # noqa: E402
 
@@ -145,6 +181,28 @@ T0 = time.perf_counter()
 
 def log(msg):
     print(msg, flush=True)
+
+
+#: sharded launches (K4) of the main-path runs, summed as each run is read
+MAIN_PATH_K4 = [0]
+
+
+def reset_counts():
+    """Every launch count to 0, just before a main-path run."""
+    sk.LAUNCHES = sk.LAUNCHES_SLIM = sk.LAUNCHES_TM = 0
+    sk.LAUNCHES_SHARDED = 0
+
+
+def read_counts(n_chunks=None):
+    """(K1, K2, K3) launches since reset_counts, just after a main-path
+    run; the run's sharded launches (one a chunk, whatever its blocks) go
+    to MAIN_PATH_K4."""
+    if n_chunks is not None:
+        assert sk.LAUNCHES_SHARDED == n_chunks, (sk.LAUNCHES_SHARDED,
+                                                 n_chunks)
+    assert sk.LAUNCHES_SHARDED > 0
+    MAIN_PATH_K4[0] += sk.LAUNCHES_SHARDED
+    return sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM
 
 
 def card_line() -> str:
@@ -688,14 +746,14 @@ def phase_main_full(cfg, metrics, exp):
     model, T = cfg["model"], cfg["T"]
     slim = exp.slim
     torch.cuda.reset_peak_memory_stats(DEV)
-    sk.LAUNCHES = sk.LAUNCHES_SLIM = 0
+    n_chunks = -(-T // cfg["chunk_t"])
+    reset_counts()
     res = production.run_production(
         model, exp, cfg["pts"], cfg["cal"], cfg["state0"],
         chunk_t=cfg["chunk_t"], metrics=metrics,
         progress=Progress(T, every_s=2.0))
-    launches = (sk.LAUNCHES, sk.LAUNCHES_SLIM)
+    launches = read_counts(n_chunks)[:2]
     peak = torch.cuda.max_memory_allocated(DEV)
-    n_chunks = -(-T // cfg["chunk_t"])
     assert launches == ((0, n_chunks) if slim else (n_chunks, 0)), launches
     check_outputs(res, cfg)
     failed = float(res.state.failed.float().mean())
@@ -712,93 +770,139 @@ def check_outputs(res, cfg):
         assert np.all(np.isfinite(f) | (f == -9999.0)), name
 
 
-def phase_sample_long(cfg, res, n=64, coupled=False, raw_fn=None,
-                      hold_f32=False):
-    """A sample of points re-run through Model.run (Model.run_coupled when
-    ``coupled``: the per-point-PC engine) over the whole horizon, in float32
-    and in float64 (the plain torch path on the host: at 64 points its step
-    is dispatch-bound, and the CPU dispatches faster than the card).  Over
-    8,881 steps no two float32 implementations agree at the kernel
-    tolerances: where a storage runs out (the last ice melts, wet snow
-    turns to water) the step and the remainder hang on rounding accumulated
-    over thousands of steps, and tsurf or water jumps there.  So the bound
-    is relative: per field, the kernel path's largest error against the
-    float64 run is at most twice the float32 plain run's own, plus the
-    field's tolerance; the failed masks are equal.  ``raw_fn(idx)`` gives
-    the sample's float64 forcing ([n, T] RawForcing), by default the
-    station series of its points.  ``hold_f32`` also holds the kernel path
-    to the float32 run elementwise at the kernel tolerances, tsurf's atol
-    widened by RUNOUT_T for one storage run-out event: where both float32
-    paths carry the same large error against float64 (sky view's
-    correction reads the float32 Julian day), that is the check that can
-    see a wrong correction.  The station phases do not take it: over their
-    8,881 steps the two float32 paths see run-out events in the storages
-    too (PERF.md)."""
+def sample_reference(settings, pts, cal, raw, coupled, steps):
+    """One plain re-run of a sample of points over the whole horizon, on the
+    host, in the float type of ``raw`` (a worker process of SampleRuns):
+    Model.run, or Model.run_coupled (the per-point-PC engine).  Returns
+    (failed [n] bool, {field: [len(steps), n]}) as numpy, the rows at the
+    0-based output steps ``steps``."""
+    torch.set_num_threads(1)
+    model = Model(settings, device="cpu")
     if coupled:
-        cand = np.nonzero(np.asarray(cfg["pts"].coupling_end) >= 1)[0]
-        idx = cand[np.linspace(0, len(cand) - 1, n).astype(np.int64)]
+        final, out = model.run_coupled(raw, pts, cal, settings.output_stride)
+        rows = {name: out[:, :, k].numpy()
+                for k, name in enumerate(production.OUT_FIELD_ROWS)}
     else:
-        idx = np.linspace(0, cfg["npoints"] - 1, n).astype(np.int64)
-    if raw_fn is None:
-        raw = RawForcing(*(np.asarray(getattr(cfg["raw_st"], f))[
-            cfg["st_idx"][idx]] for f in RawForcing._fields))
-    else:
-        raw = raw_fn(idx)
-    raw64 = RawForcing(*(x.astype(np.float64) if x.dtype.kind == "f" else x
-                         for x in raw))
-    raw = RawForcing(*(x.astype(np.float32) if x.dtype.kind == "f" else x
-                       for x in raw))
-    model = Model(cfg["model"].settings, device="cpu")
-    pts = PointParams(*(np.asarray(x)[idx] for x in cfg["pts"]))
-    t0 = time.perf_counter()
-    if coupled:
-        stride = cfg["model"].settings.output_stride
-        final, out32 = model.run_coupled(raw, pts, cfg["cal"], stride)
-        final64, out64 = model.run_coupled(raw64, pts, cfg["cal"], stride)
-        pick = lambda out, k, name: out[:, :, k].numpy()
-    else:
-        final, out32 = model.run(raw, pts, cfg["cal"])
-        final64, out64 = model.run(raw64, pts, cfg["cal"])
-        pick = lambda out, k, name: getattr(out, name)[res.out_steps].numpy()
-    secs = time.perf_counter() - t0
-    assert torch.equal(final.failed, res.state.failed[idx]), "failed masks"
-    assert torch.equal(final64.failed, res.state.failed[idx]), "failed masks"
-    err, err32, err_k32 = {}, {}, {}
-    for k, name in enumerate(production.OUT_FIELD_ROWS):
-        ref = pick(out64, k, name)
-        got = res.fields[name][:, idx]
-        err[name] = float(np.abs(got - ref).max())
-        err32[name] = float(np.abs(pick(out32, k, name) - ref).max())
-        err_k32[name] = float(np.abs(got - pick(out32, k, name)).max())
-        tol = TOL_T if k == 0 else TOL_S
-        assert err[name] <= 2.0 * err32[name] + tol["atol"], \
-            (name, err[name], err32[name])
-        if hold_f32:
-            check_close(f"{n}-point sample {name} vs float32 {name}",
-                        torch.from_numpy(got),
-                        torch.from_numpy(pick(out32, k, name)),
+        final, out = model.run(raw, pts, cal)
+        rows = {name: getattr(out, name)[steps].numpy()
+                for name in production.OUT_FIELD_ROWS}
+    return final.failed.numpy(), rows
+
+
+class SampleRuns:
+    """The long sample re-runs, made in worker processes on the host while
+    the card goes on with the next phases: ``start`` hands a full-size run's
+    sample to two workers (float32 and float64), ``finish`` waits for them
+    all and holds each run to its bound.  At 64 points the plain torch
+    step is dispatch-bound on one core, so the re-runs cost no card time and
+    little of the host's."""
+
+    def __init__(self, workers=4):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn"))
+        self.pending = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    def start(self, cfg, res, n=64, coupled=False, raw_fn=None,
+              hold_f32=False):
+        """A sample of ``n`` points of the run ``res`` re-run through
+        Model.run (Model.run_coupled when ``coupled``) over the whole
+        horizon, in float32 and in float64.  ``raw_fn(idx)`` gives the
+        sample's float64 forcing ([n, T] RawForcing), by default the station
+        series of its points.  ``hold_f32``: see ``finish``."""
+        if coupled:
+            cand = np.nonzero(np.asarray(cfg["pts"].coupling_end) >= 1)[0]
+            idx = cand[np.linspace(0, len(cand) - 1, n).astype(np.int64)]
+        else:
+            idx = np.linspace(0, cfg["npoints"] - 1, n).astype(np.int64)
+        if raw_fn is None:
+            raw = RawForcing(*(np.asarray(getattr(cfg["raw_st"], f))[
+                cfg["st_idx"][idx]] for f in RawForcing._fields))
+        else:
+            raw = raw_fn(idx)
+        cast = lambda dt: RawForcing(*(
+            x.astype(dt) if x.dtype.kind == "f" else x for x in raw))
+        pts = PointParams(*(np.asarray(x)[idx] for x in cfg["pts"]))
+        settings = cfg["model"].settings
+        jobs = [self.pool.submit(sample_reference, settings, pts, cfg["cal"],
+                                 cast(dt), coupled, res.out_steps)
+                for dt in (np.float32, np.float64)]
+        self.pending.append(dict(
+            jobs=jobs, n=n, T=cfg["T"], coupled=coupled, hold_f32=hold_f32,
+            t0=time.perf_counter(), failed=res.state.failed[idx].numpy(),
+            got={name: res.fields[name][:, idx].copy()
+                 for name in production.OUT_FIELD_ROWS}))
+
+    def finish(self):
+        """Wait for every sample and check it.  Over 8,881 steps no two
+        float32 implementations agree at the kernel tolerances: where a
+        storage runs out (the last ice melts, wet snow turns to water) the
+        step and the remainder hang on rounding accumulated over thousands
+        of steps, and tsurf or water jumps there.  So the bound is
+        relative: per field, the kernel path's largest error against the
+        float64 run is at most twice the float32 plain run's own, plus the
+        field's tolerance; the failed masks are equal.  ``hold_f32`` also
+        holds the kernel path to the float32 run elementwise at the kernel
+        tolerances, tsurf's atol widened by RUNOUT_T for one storage
+        run-out event: where both float32 paths carry the same large error
+        against float64 (sky view's correction reads the float32 Julian
+        day), that is the check that can see a wrong correction.  The
+        station phases do not take it: over their 8,881 steps the two
+        float32 paths see run-out events in the storages too (PERF.md)."""
+        errs = []
+        for s in self.pending:
+            (failed32, out32), (failed64, out64) = (
+                j.result(timeout=600) for j in s["jobs"])
+            secs = time.perf_counter() - s["t0"]
+            assert np.array_equal(failed32, s["failed"]), "failed masks"
+            assert np.array_equal(failed64, s["failed"]), "failed masks"
+            err, err32, err_k32 = {}, {}, {}
+            for k, name in enumerate(production.OUT_FIELD_ROWS):
+                ref, got = out64[name], s["got"][name]
+                err[name] = float(np.abs(got - ref).max())
+                err32[name] = float(np.abs(out32[name] - ref).max())
+                err_k32[name] = float(np.abs(got - out32[name]).max())
+                tol = TOL_T if k == 0 else TOL_S
+                assert err[name] <= 2.0 * err32[name] + tol["atol"], \
+                    (name, err[name], err32[name])
+                if s["hold_f32"]:
+                    check_close(
+                        f"{s['n']}-point sample {name} vs float32 {name}",
+                        torch.from_numpy(got), torch.from_numpy(out32[name]),
                         dict(tol, atol=tol["atol"] + (RUNOUT_T if k == 0
                                                       else 0.0)))
-    fmt = lambda e: json.dumps({k: float(f"{v:.3e}") for k, v in e.items()})
-    what = "Model.run_coupled" if coupled else "Model.run"
-    log(f"  {n}-point sample over {cfg['T']} steps ({secs:.0f} s), max |err| "
-        f"against float64 {what}: kernel path {fmt(err)}; float32 "
-        f"{what} {fmt(err32)}; kernel path against float32 {what} "
-        f"{fmt(err_k32)}")
-    return err
+            fmt = lambda e: json.dumps({k: float(f"{v:.3e}")
+                                        for k, v in e.items()})
+            what = "Model.run_coupled" if s["coupled"] else "Model.run"
+            log(f"  {s['n']}-point sample over {s['T']} steps (ready "
+                f"{secs:.0f} s after its run), max |err| against float64 "
+                f"{what}: kernel path {fmt(err)}; float32 {what} "
+                f"{fmt(err32)}; kernel path against float32 {what} "
+                f"{fmt(err_k32)}")
+            errs.append(err)
+        self.pending = []
+        return errs
 
 
 def phase_coupled_full(cfg6, metrics):
     model, T = cfg6["model"], cfg6["T"]
     torch.cuda.reset_peak_memory_stats(DEV)
-    sk.LAUNCHES = sk.LAUNCHES_SLIM = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = production.run_production_coupled(
         model, cfg6["exp"], cfg6["pts"], cfg6["cal"], cfg6["state0"],
         anchors=cfg6["anchors"], chunk_t=cfg6["chunk_t"], metrics=metrics,
         progress=Progress(T, every_s=5.0))
+    launches = read_counts()[:2]
     wall = time.perf_counter() - t0
-    launches = (sk.LAUNCHES, sk.LAUNCHES_SLIM)
     peak = torch.cuda.max_memory_allocated(DEV)
     check_outputs(res, cfg6)
     c, ph = metrics.counters, metrics.phases
@@ -830,12 +934,13 @@ def utc(s):
     return callib.timegm(time.strptime(s, "%Y-%m-%d %H:%M"))
 
 
-def phase_kernel_tm_small(npoints=65536, T=128):
-    """K3 on 65,536 points x 128 steps at each tile width: the 16-channel
-    forcing against K1, the slim one without and with the decay against
-    K2, bit for bit, on an offset chunk (global offset 40, 100 of 128
-    steps, a run of 140 steps: the chunk holds the lastValues step), and
-    each against its plain version on the tile-major forcing."""
+def offset_chunk_case(npoints=65536, T=128):
+    """The offset chunk of phases 3c and 3d: 65,536 points x 128 steps at
+    global offset 40, 100 of 128 steps, in a run of 140 steps (the chunk
+    holds the lastValues step), window ends before and inside the chunk and
+    at the last step, the coupling flag set at random.  Returns (model,
+    tmp0, scal0, [(label, point-major forcing, slim keyword arguments)] for
+    K1, K2 and K2 with the decay, chunk geometry)."""
     model = Model(ModelSettings(sim_len=T, dt=30.0), device=DEV)
     raw, cal = synthetic_raw(npoints, T, seed=21, scenario="winter_mix",
                              dtype=np.float32)
@@ -870,6 +975,15 @@ def phase_kernel_tm_small(npoints=65536, T=128):
     modes = (("K1", k1, {}),
              ("K2", slim, dict(slim_trf=trf_g, aux_rows=sk.pack_aux(obs))),
              ("K2 + decay", slim, decay))
+    return model, tmp0, scal0, modes, geo
+
+
+def phase_kernel_tm_small(npoints=65536, T=128):
+    """K3 on 65,536 points x 128 steps at each tile width: the 16-channel
+    forcing against K1, the slim one without and with the decay against
+    K2, bit for bit, on the offset chunk of ``offset_chunk_case``, and each
+    against its plain version on the tile-major forcing."""
+    model, tmp0, scal0, modes, geo = offset_chunk_case(npoints, T)
     rest = (model.cfg, model.params, model.grid)
     max_err = 0.0
     for label, forc, kw in modes:
@@ -888,6 +1002,352 @@ def phase_kernel_tm_small(npoints=65536, T=128):
             max_err = max(max_err, err)
             del f4, got, want
     return max_err
+
+
+# ---------------------------------------------------------------------------
+# K4, the sharded launch, and the sharded paths (phases 3d, 8, 8b)
+# ---------------------------------------------------------------------------
+
+def device_lists(counts=(2, 4, 8)):
+    """The device lists K4 is held at: 2, 4 and 8 blocks on the first card
+    (each block on a stream of its own), and with more than one card
+    visible, one block on each."""
+    lists = [[DEV] * n for n in counts]
+    if torch.cuda.device_count() > 1:
+        lists.append([torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())])
+    return lists
+
+
+def shard_call(packed, kw, devices):
+    """scan_sharded's per-block arguments from whole packed tensors."""
+    tmp0, scal0, forc, trf, aux = sharding.shard_packed(
+        *packed, devices, slim_trf=kw.get("slim_trf"),
+        aux_rows=kw.get("aux_rows"))
+    kw = dict(kw)
+    if aux is not None:
+        kw.update(slim_trf=trf, aux_rows=aux)
+    return (tmp0, scal0, forc), kw
+
+
+def joined(results):
+    """Per-block (tmp, scal, out) joined on the points axis on DEV."""
+    return tuple(sharding.gather_blocks([r[k] for r in results], device=DEV)
+                 for k in range(3))
+
+
+def phase_kernel_sharded_small(npoints=65536, T=128):
+    """K4 on the offset chunk of phases 3b/3c, for K1, K2 with the decay
+    and K3 (TP 1024) at each device list: against its plain version (a loop
+    of scan_reference over the blocks) at the kernel tolerances with equal
+    failed masks, and against one launch of the whole, bit for bit."""
+    model, tmp0, scal0, modes, geo = offset_chunk_case(npoints, T)
+    rest = (model.cfg, model.params, model.grid)
+    k1, _, k2d = modes
+    cases = (("K1", k1[1], k1[2]), ("K2 + decay", k2d[1], k2d[2]),
+             ("K3 TP 1024", sk.to_tile_major(k2d[1], 1024), k2d[2]))
+    max_err = 0.0
+    for label, forc, kw in cases:
+        packed = (tmp0, scal0, forc)
+        one = sk.scan_cuda(*packed, *rest, **geo, **kw)
+        for devices in device_lists():
+            mesh = sharding.make_mesh(devices)
+            blocks, bkw = shard_call(packed, kw, mesh)
+            before = sk.LAUNCHES_SHARDED
+            got = sharding.scan_sharded(*blocks, *rest, mesh, **geo, **bkw)
+            torch.cuda.synchronize()
+            assert sk.LAUNCHES_SHARDED == before + 1
+            want = sharding.scan_sharded_reference(*blocks, *rest, **geo,
+                                                   **bkw)
+            what = (f"{len(mesh)} blocks on "
+                    f"{len(set(mesh.devices))} card(s)")
+            err = compare_scan(f"K4 {label} {what}", joined(got),
+                               joined(want), model.settings.nlayers)
+            assert_bitwise(f"K4 ({label}, {what}) vs one launch, "
+                           f"{npoints} x {T}", joined(got), one)
+            log(f"  K4 vs plain, {npoints} x {T}, {label}, {what}: max "
+                f"|err| {err:.3e}")
+            max_err = max(max_err, err)
+            del blocks, got, want
+    return max_err
+
+
+def phase_kernel_sharded_chunk(cfg):
+    """The 1,048,576 x 64 main-path chunk of phase 5 (K2, offset 448)
+    through K4 at 1, 2, 4 and 8 blocks on the card (and over the visible
+    cards), each against one launch bit for bit and timed with CUDA events
+    beside it (one launch, the block counts, one launch); at 4 blocks
+    against the plain version, which is timed too."""
+    model = cfg["model"]
+    eng = production._Engine(model, cfg["exp"], cfg["pts"], cfg["cal"],
+                             cfg["state0"], chunk_t=cfg["chunk_t"])
+    assert eng.slim
+    t0 = 7 * cfg["chunk_t"]
+    forc, skw = eng.kernel_inputs(t0)
+    packed = (eng.tmp0, eng.scal0, forc)
+    rest = (model.cfg, model.params, model.grid)
+    geo = eng.scan_kwargs(t0, cfg["chunk_t"])
+    one = sk.scan_cuda(*packed, *rest, **geo, **skw)
+    stats = {}
+    sk.scan_reference(*packed, *rest, stats=stats, **geo, **skw)
+    bound = scan_bound(packed, dict(geo, **skw), stats,
+                       model.settings.nlayers)
+    one_ms = [cuda_ms(lambda: sk.scan_cuda(*packed, *rest, **geo, **skw),
+                      reps=10)]
+    times, err, plain_ms = {}, None, None
+    for devices in device_lists((1, 2, 4, 8)):
+        mesh = sharding.make_mesh(devices)
+        blocks, bkw = shard_call(packed, skw, mesh)
+        run = lambda: sharding.scan_sharded(*blocks, *rest, mesh, **geo,
+                                            **bkw)
+        key = (f"{len(mesh)}" if len(set(mesh.devices)) == 1
+               else f"{len(mesh)} cards")
+        assert_bitwise(f"1M K2 chunk through K4, {key} blocks, vs one "
+                       f"launch", joined(run()), one)
+        times[key] = cuda_ms(run, reps=10)
+        if key == "4":
+            # the plain version is eager torch, four times the operations
+            # of the whole at a quarter of the size each: it is run once,
+            # and that run is the one timed
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter()
+            want = sharding.scan_sharded_reference(*blocks, *rest, **geo,
+                                                   **bkw)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t_plain)
+            err = compare_scan("1M K4 chunk, 4 blocks", joined(run()),
+                               joined(want), model.settings.nlayers)
+            del want
+        del blocks, bkw, run
+        torch.cuda.empty_cache()
+    one_ms.append(cuda_ms(lambda: sk.scan_cuda(*packed, *rest, **geo,
+                                               **skw), reps=10))
+    log(f"  [{card_line()}] K4 per 1M x 64 chunk (K2, offset {t0}) by "
+        f"blocks (ms): " + json.dumps({k: round(v, 4)
+                                       for k, v in times.items()})
+        + f"; one launch {one_ms[0]:.4f} / {one_ms[1]:.4f} ms; plain (4 "
+        f"blocks) {plain_ms:.1f} ms; K4 vs plain max |err| {err:.3e}")
+    del forc, one, eng
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=times["4"], plain_ms=plain_ms, bound=bound,
+                times=times, one_ms=one_ms)
+
+
+def assert_same_result(label, got, want):
+    """Two production results, bit for bit: every output row of every
+    field, every leaf of the final state, steps and point range."""
+    assert np.array_equal(got.out_steps, want.out_steps), label
+    assert got.point_range == want.point_range, (label, got.point_range)
+    bits = lambda a: np.ascontiguousarray(a).view(np.int32)
+    for name in production.OUT_FIELD_ROWS:
+        n_diff = int((bits(got.fields[name]) != bits(want.fields[name])).sum())
+        if n_diff:
+            raise AssertionError(f"{label}: {n_diff} values of {name} differ")
+    for name, g, w in zip(got.state._fields, got.state, want.state):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{label}: final state {name} differs")
+    log(f"  {label}: equal bit for bit ({len(got.out_steps)} rows x "
+        f"{got.fields['tsurf'].shape[1]} points x 6 fields and the final "
+        f"state)")
+
+
+def run_devices():
+    """Phase 8's device list: the visible cards, or 4 blocks of the one."""
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [DEV] * 4)
+
+
+def phase_sharded_run(cfg, label, ref=None, **kw):
+    """``cfg``'s full-size run over ``run_devices()`` against the one-block
+    run ``ref`` (made here when not given), bit for bit; the sharded
+    launches and the per-mode launches are counted over the run."""
+    T = cfg["T"]
+    n_chunks = -(-T // cfg["chunk_t"])
+    args = (cfg["model"], cfg["exp"], cfg["pts"], cfg["cal"], cfg["state0"])
+    if ref is None:
+        ref = production.run_production(*args, chunk_t=cfg["chunk_t"], **kw)
+    devices = run_devices()
+    for d in set(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+    metrics = RunMetrics(announce=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = production.run_production(*args, devices=devices,
+                                    chunk_t=cfg["chunk_t"], metrics=metrics,
+                                    progress=Progress(T, every_s=5.0), **kw)
+    launches = read_counts(n_chunks)
+    wall = time.perf_counter() - t0
+    assert sum(launches) == n_chunks * len(devices), launches
+    check_outputs(res, cfg)
+    peaks = {k[len("peak_device_bytes_"):]: round(v / 2**30, 2)
+             for k, v in metrics.counters.items()
+             if k.startswith("peak_device_bytes_")}
+    log(f"  [{card_line()}] run_production ({label}, {len(devices)} blocks "
+        f"on {len(set(devices))} card(s)) wall {wall:.2f} s, stream "
+        f"{metrics.phases['stream']:.2f} s = {res.point_steps_per_s:.6g} "
+        f"point-steps/s, kernel launches K1 {launches[0]} K2 {launches[1]} "
+        f"K3 {launches[2]}, sharded launches {n_chunks}, peak device memory "
+        f"(GiB) {json.dumps(peaks)}")
+    log(f"  [{card_line()}] phases (s): " + json.dumps(
+        {k: round(v, 3) for k, v in metrics.phases.items()}))
+    assert_same_result(f"{label}, {len(devices)} blocks vs 1", res, ref)
+
+
+def phase_sharded_coupled_small(P=8192):
+    """Phase 4b's coupled station case (8,192 points x 97 steps, window
+    [11, 40]) on 4 blocks against 1, bit for bit."""
+    settings, raw_st, raw_pt, cal, pts, st_idx, st_pts = \
+        _small_coupled_case(P=P)
+    model = Model(settings, device=DEV)
+    state0 = model.init(raw_pt, cal, dtype=torch.float32, pts=pts)
+    ctx = {"st_pts": st_pts, "anchors": None, "settings": settings,
+           "params": model.params, "hour": cal.hour,
+           "t_total": settings.sim_len}
+    exp = production.StationExpander(raw_st, st_idx, DEV, chunk_t=32,
+                                     prep_ctx=ctx)
+    runs = {}
+    for n in (1, 4):
+        metrics = RunMetrics()
+        reset_counts()
+        runs[n] = production.run_production_coupled(
+            model, exp, pts, cal, state0, devices=[DEV] * n, chunk_t=32,
+            out_stride=6, metrics=metrics)
+        launches = read_counts()
+        c = metrics.counters
+        assert c["coupling_reruns"] > 0 and launches[1] > 0, (c, launches)
+        log(f"  run_production_coupled, {P} points x 97 steps, {n} "
+            f"block(s): K2 launches {launches[1]}, reruns "
+            f"{c['coupling_reruns']}, window rows {c['coupling_window_rows']}"
+            f", coupled {c['coupling_points']}, failed "
+            f"{c['coupling_failed']}")
+    assert_same_result("coupled station run, 4 blocks vs 1", runs[4],
+                       runs[1])
+
+
+# ---- phase 8b: two processes on the card ----------------------------------
+
+MP_T, MP_STRIDE, MP_BLOCKS = 961, 120, 2
+MP_EPOCH = 1575244800                 # synthetic_raw's 2019-12-02T00:00Z
+
+
+def mp_case():
+    """Phase 8b's station cell: phase 5's 2,048 stations and 1,048,576
+    points over 961 steps, output stride 120."""
+    cfg = full_size_setup(RunMetrics(), T=MP_T)
+    cfg["point_ids"] = 1000000 + np.arange(cfg["npoints"])
+    return cfg
+
+
+def mp_run(cfg, devices, drain):
+    return production.run_production(
+        cfg["model"], cfg["exp"], cfg["pts"], cfg["cal"], cfg["state0"],
+        devices=devices, chunk_t=cfg["chunk_t"], out_stride=MP_STRIDE,
+        drain=drain)
+
+
+def mp_worker(port, nproc, rank, outdir):
+    """One process of phase 8b: joins the group (gloo, 127.0.0.1), runs its
+    half of the points on two blocks of the card, writes its shard and its
+    checkpoint, and joins the failed-count reduction."""
+    distributed.initialize(f"127.0.0.1:{port}", nproc, rank)
+    cfg = mp_case()
+    build.load()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = mp_run(cfg, [DEV] * MP_BLOCKS, "shard")
+    wall = time.perf_counter() - t0
+    lo, hi = res.point_range
+    assert (lo, hi) == distributed.host_point_range(cfg["npoints"])
+    writer.write_shard_npz(os.path.join(outdir, f"shard_{rank}.npz"),
+                           res.point_range, res.out_steps, res.fields,
+                           epochs=MP_EPOCH + 30 * res.out_steps)
+    writer.save_checkpoint(os.path.join(outdir, f"ckpt_{rank}.npz"),
+                           res.state, cfg["point_ids"][lo:hi],
+                           MP_EPOCH + 30 * MP_T)
+    count, ratio = sharding.failure_stats(res.state.failed)
+    with open(os.path.join(outdir, f"stats_{rank}.json"), "w") as f:
+        json.dump({"range": [lo, hi], "wall": wall, "count": count,
+                   "ratio": ratio, "local": int(res.state.failed.sum()),
+                   "rate": res.point_steps_per_s,
+                   "sharded": sk.LAUNCHES_SHARDED,
+                   "k2": sk.LAUNCHES_SLIM,
+                   "peak": torch.cuda.max_memory_allocated(DEV)}, f)
+    distributed.shutdown()
+    print(f"WORKER_OK {rank}", flush=True)
+
+
+def phase_two_processes(nproc=2):
+    """Phase 8b (see the module docstring)."""
+    cfg = mp_case()
+    ref = mp_run(cfg, [DEV], "gather")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, me, "--worker", str(port), str(nproc), str(i),
+             outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for i in range(nproc)]
+        outs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(timeout=300)
+                outs.append(out.decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for i, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"WORKER_OK {i}" not in out:
+                raise AssertionError(f"worker {i} failed (exit code "
+                                     f"{p.returncode}):\n{out[-4000:]}")
+        secs = time.perf_counter() - t0
+        stats = []
+        for i in range(nproc):
+            with open(os.path.join(outdir, f"stats_{i}.json")) as f:
+                stats.append(json.load(f))
+        per = cfg["npoints"] // nproc
+        assert [s["range"] for s in stats] == [
+            [i * per, (i + 1) * per] for i in range(nproc)], stats
+        n_chunks = -(-MP_T // cfg["chunk_t"])
+        for s in stats:
+            assert s["sharded"] == n_chunks, s
+            assert s["k2"] == n_chunks * MP_BLOCKS, s
+        # the failed-count reduction saw both ranks
+        n_failed = int(ref.state.failed.sum())
+        assert sum(s["local"] for s in stats) == n_failed, stats
+        assert all(s["count"] == n_failed for s in stats), stats
+        log(f"  [{card_line()}] {nproc} processes x {MP_BLOCKS} blocks on "
+            f"the card, {cfg['npoints']} points x {MP_T} steps: workers' "
+            f"wall {secs:.1f} s (start, set-up, run and writes), their "
+            f"run_production walls "
+            f"{[round(s['wall'], 2) for s in stats]} s, point-steps/s "
+            f"{[round(s['rate']) for s in stats]}, peak device "
+            f"memory {[round(s['peak'] / 2**30, 2) for s in stats]} GiB a "
+            f"process, failed points {[s['local'] for s in stats]} of "
+            f"{n_failed}")
+        steps, fields, epochs = writer.merge_shards(
+            [os.path.join(outdir, f"shard_{i}.npz") for i in range(nproc)])
+        assert np.array_equal(steps, ref.out_steps)
+        assert np.array_equal(epochs, MP_EPOCH + 30 * steps)
+        merged = production.ProductionResult(
+            state=ref.state, out_steps=steps, fields=fields,
+            point_steps_per_s=0.0, point_range=ref.point_range)
+        # the checkpoints, restored in turn onto a zero template
+        state = type(ref.state)(*(torch.zeros_like(x) for x in ref.state))
+        for i in range(nproc):
+            state = writer.restore_state(
+                os.path.join(outdir, f"ckpt_{i}.npz"), cfg["point_ids"],
+                state)
+        assert_same_result(
+            "merged shards and restored checkpoints of 2 processes vs the "
+            "one-process run", merged._replace(state=state), ref)
+    del cfg, ref
+    torch.cuda.empty_cache()
 
 
 def chunk_pieces(eng, t0, label):
@@ -1221,7 +1681,7 @@ def grid_full_setup(metrics, side=1024, T=8881, chunk_t=64):
 
 
 def grid_sample_raw(cfg7, overlay=None):
-    """``raw_fn`` of phase_sample_long for the grid paths: the sample's
+    """``raw_fn`` of SampleRuns.start for the grid paths: the sample's
     forcing from io/gridsource on its points alone (the host_at pipeline:
     bilinear / nearest-corner extraction, then the time interpolation,
     clamps and completion), float64; ``overlay`` (raw_st, st_idx): station
@@ -1253,16 +1713,16 @@ def phase_grid_full(cfg, metrics, label):
     chunk and no K1 / K2 launch; returns (result, K3 launches)."""
     T = cfg["T"]
     torch.cuda.reset_peak_memory_stats(DEV)
-    sk.LAUNCHES = sk.LAUNCHES_SLIM = sk.LAUNCHES_TM = 0
+    n_chunks = -(-T // cfg["chunk_t"])
+    reset_counts()
     t0 = time.perf_counter()
     res = production.run_production(
         cfg["model"], cfg["exp"], cfg["pts"], cfg["cal"], cfg["state0"],
         chunk_t=cfg["chunk_t"], metrics=metrics,
         progress=Progress(T, every_s=5.0))
+    launches = read_counts(n_chunks)
     wall = time.perf_counter() - t0
-    launches = (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM)
     peak = torch.cuda.max_memory_allocated(DEV)
-    n_chunks = -(-T // cfg["chunk_t"])
     assert launches == (0, 0, n_chunks), launches
     check_outputs(res, cfg)
     log(f"  [{card_line()}] run_production ({label}) wall {wall:.2f} s, "
@@ -1302,8 +1762,14 @@ def composite_sky_setup(cfg7, cfg):
 
 
 def main():
+    with SampleRuns() as samples:
+        run_phases(samples)
+
+
+def run_phases(samples):
     sel = set(sys.argv[1:])
-    known = {"3", "3b", "3c", "4", "4b", "4c", "5", "6", "7", "7b"}
+    known = {"3", "3b", "3c", "3d", "4", "4b", "4c", "5", "6", "7", "7b",
+             "8", "8b"}
     if sel - known:
         raise SystemExit(f"unknown phases {sorted(sel - known)}; "
                          f"phases: {sorted(known)}")
@@ -1330,7 +1796,7 @@ def main():
 
     metrics = RunMetrics(announce=True)      # phase lines on stderr
     cfg = cfg6 = cfg7 = None
-    if want("3") or want("3b") or want("5") or want("6") or want("7b"):
+    if any(want(ph) for ph in ("3", "3b", "3d", "5", "6", "7b", "8")):
         cfg = full_size_setup(metrics)
     if want("3"):
         log("== 3. K1 against its plain version")
@@ -1344,6 +1810,13 @@ def main():
         err_slim_small = phase_kernel_slim_small()
         err_slim_chunk, slim_times = phase_kernel_slim_chunk(cfg6)
         stamp()
+    if want("3d"):
+        log("== 3d. K4, the sharded launch, against its plain version and "
+            "against one launch")
+        err_k4_small = phase_kernel_sharded_small()
+        stamp()
+        k4 = phase_kernel_sharded_chunk(cfg)
+        stamp()
     if want("4"):
         log("== 4. main path, small, against Model.run on the card")
         phase_main_small()
@@ -1354,6 +1827,7 @@ def main():
         stamp()
 
     launched = [0, 0]
+    res5 = res7b = cfg7b = None
     if want("5"):
         log("== 5. main path at full size: 1048576 points x 8881 steps")
         # K2 (the default, slim expander) and K1 (slim=False, a second
@@ -1385,7 +1859,8 @@ def main():
         log(f"  K2 vs K1 main path, all output rows: max |diff| {diff:.3e}")
         del exps, runs["K1"]
         torch.cuda.empty_cache()
-        phase_sample_long(cfg, runs["K2"][0])
+        res5 = runs["K2"][0]
+        samples.start(cfg, res5)
         del runs
         stamp()
 
@@ -1393,13 +1868,13 @@ def main():
         log("== 6. coupled main path at full size: 1048576 points x 8881 "
             "steps")
         res6, launches6 = phase_coupled_full(cfg6, RunMetrics(announce=True))
-        phase_sample_long(cfg6, res6, coupled=True)
+        samples.start(cfg6, res6, coupled=True)
         launched = [a + b for a, b in zip(launched, launches6)]
         del res6
         stamp()
 
     k3_launches = 0
-    if want("3c") or want("7") or want("7b"):
+    if want("3c") or want("7") or want("7b") or want("8"):
         log("== 7. setup: the NWP-grid forecast at full size")
         cfg7 = grid_full_setup(metrics)
         stamp()
@@ -1413,8 +1888,8 @@ def main():
             "1048576 points x 8881 steps")
         res7, n7 = phase_grid_full(cfg7, RunMetrics(announce=True), "grid")
         k3_launches += n7
-        phase_sample_long(cfg7, res7, raw_fn=grid_sample_raw(cfg7),
-                          hold_f32=True)
+        samples.start(cfg7, res7, raw_fn=grid_sample_raw(cfg7),
+                      hold_f32=True)
         del res7
         torch.cuda.empty_cache()
         stamp()
@@ -1438,9 +1913,31 @@ def main():
         res7b, n7b = phase_grid_full(cfg7b, RunMetrics(announce=True),
                                      "grid + stations, sky view")
         k3_launches += n7b
-        phase_sample_long(cfg7b, res7b, raw_fn=grid_sample_raw(
+        samples.start(cfg7b, res7b, raw_fn=grid_sample_raw(
             cfg7b, overlay=cfg7b["overlay"]), hold_f32=True)
         stamp()
+    if want("8"):
+        log("== 8. the sharded main path at full size, against the "
+            "one-block runs")
+        phase_sharded_run(cfg, "station, K2", ref=res5)
+        del res5
+        stamp()
+        cfg7b = cfg7b or composite_sky_setup(cfg7, cfg)
+        phase_sharded_run(cfg7b, "grid + stations, sky view, K3", ref=res7b)
+        del res7b
+        phase_sharded_coupled_small()
+        stamp()
+    del cfg, cfg6, cfg7, cfg7b
+    torch.cuda.empty_cache()
+    if want("8b"):
+        log("== 8b. two processes on the card, per-process shards and "
+            "checkpoints")
+        phase_two_processes()
+        stamp()
+    log("== the 64-point samples of the full-size runs, re-run on the host "
+        "beside the phases above")
+    samples.finish()
+    stamp()
     if sel:
         log(f"phases {sorted(sel)} passed; the summary needs every phase")
         return
@@ -1455,14 +1952,21 @@ def main():
     k3 = {"name": "scan_kernel_tm", "launches": k3_launches,
           "max_abs_err": max(err_tm_small, tm["err"]), "ms": tm["ms"],
           "plain_ms": tm["plain_ms"], "bound": tm["bound"]}
+    # K4's time is its 4-block launch of the K2 chunk; its bound is K2's on
+    # that chunk (the blocks share one card's memory)
+    k4 = {"name": "scan_kernel_sharded", "launches": MAIN_PATH_K4[0],
+          "max_abs_err": max(err_k4_small, k4["err"]), "ms": k4["ms"],
+          "plain_ms": k4["plain_ms"], "bound": k4["bound"],
+          "replaces": "roadsurf_tpu/parallel/sharding.py:73"}
     kernels = []
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, k4):
         assert k["launches"] > 0, k
         bound_ms, bound_by = k.pop("bound")
         kernels.append(dict(
             name=k.pop("name"), route="cuda",
             source="roadsurf_tpu_torch/csrc/scan_kernel.cu",
-            replaces="roadsurf_tpu/ops/pallas_step.py:694", **k,
+            replaces=k.pop("replaces",
+                           "roadsurf_tpu/ops/pallas_step.py:694"), **k,
             bound_ms=bound_ms, bound_by=bound_by,
             # a per-point time loop with a data-dependent fixed point: no
             # one PyTorch call computes the same function
@@ -1475,4 +1979,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        mp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5])
+    else:
+        main()

@@ -605,6 +605,61 @@ int roadsurf_scan_slim(const ScanConsts* c, const float* tmp0,
                       cof_red, stream);
 }
 
+// K4, the sharded launch.  Replaces
+// roadsurf_tpu/parallel/sharding.py:pallas_scan_sharded (shard_map over the
+// points axis of a device mesh, the kernel launched on each device's block,
+// no collective).  It has no arithmetic of its own, so what bounds it is
+// what bounds its blocks: the bytes of K1-K3 over the memory rate of the
+// card a block lies on; several blocks on one card share that card.  The
+// design keeps the host out of the way: one call for all blocks, each
+// launch asynchronous on its block's stream, nothing synchronised.
+// The points are split into n contiguous blocks,
+// block b on device ordinal devices[b], and each block's chunk is one launch
+// of the kernel above on streams[b] (a stream of that device).  Per block:
+// the pointers of roadsurf_scan / roadsurf_scan_slim, its point count P[b]
+// and its tile width tp[b]; trf and aux are read when slim != 0 (trf[b] is
+// the copy of the time-only vector on that block's device).  The constants,
+// the chunk geometry and the decay arguments are the same for every block.
+// One host call, no synchronisation; the caller's device is restored.
+// Returns the first CUDA error (0 = ok) and, through failed_block, the block
+// it came from (-1 when it is not a block's: the device query or restore).
+int roadsurf_scan_sharded(const ScanConsts* c, int n, const int* devices,
+                          void* const* streams, const float* const* tmp0,
+                          const float* const* scal0,
+                          const float* const* forcing,
+                          const float* const* trf, const float* const* aux,
+                          float* const* tmp_out, float* const* scal_out,
+                          float* const* out, const int* P, const int* tp,
+                          int T, int nsteps, int off, int out_base, int slim,
+                          int cofs, int t_total, float cof_red,
+                          int* failed_block) {
+  *failed_block = -1;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  if (err != cudaSuccess) return (int)err;
+  int rc = 0;
+  for (int b = 0; b < n && rc == 0; ++b) {
+    err = cudaSetDevice(devices[b]);
+    if (err != cudaSuccess) {
+      rc = (int)err;
+    } else if (slim) {
+      rc = launch<true>(c, tmp0[b], scal0[b], forcing[b], trf[b], aux[b],
+                        tmp_out[b], scal_out[b], out[b], P[b], tp[b], T,
+                        nsteps, off, out_base, cofs, t_total, cof_red,
+                        streams[b]);
+    } else {
+      rc = launch<false>(c, tmp0[b], scal0[b], forcing[b], nullptr, nullptr,
+                         tmp_out[b], scal_out[b], out[b], P[b], tp[b], T,
+                         nsteps, off, out_base, 0, 0, 1.0f, streams[b]);
+    }
+    if (rc != 0) *failed_block = b;
+  }
+  err = cudaSetDevice(caller);
+  if (rc == 0 && err != cudaSuccess) rc = (int)err;
+  return rc;
+}
+
 // sizeof(ScanConsts), checked against the ctypes mirror before any launch
 int roadsurf_consts_size(void) { return (int)sizeof(ScanConsts); }
 

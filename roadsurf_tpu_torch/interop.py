@@ -83,6 +83,33 @@ def packed(tmp, scal, forcing, device="cuda"):
                  .contiguous() for x in (tmp, scal, forcing))
 
 
+def packed_blocks(tmp, scal, forcing, devices, slim_trf=None, aux_rows=None):
+    """The kernel's whole packed arrays (a JAX-side sharded launch's inputs,
+    through numpy) -> the per-block lists ``parallel.sharding.scan_sharded``
+    takes, block ``b`` on ``devices[b]``: (tmp0, scal0, forcing, slim_trf,
+    aux_rows), None staying None."""
+    from .parallel import sharding
+    f32 = lambda x: None if x is None else torch.tensor(
+        np.asarray(x, np.float32))
+    return sharding.shard_packed(f32(tmp), f32(scal), f32(forcing), devices,
+                                 slim_trf=f32(slim_trf),
+                                 aux_rows=f32(aux_rows))
+
+
+def production_result(res, device="cpu"):
+    """A JAX-side ``ProductionResult`` (whole, or one process's shard) ->
+    the port's: the state as tensors on ``device`` (the host unless named,
+    where the port's results live), steps and fields as numpy, the point
+    range as it is."""
+    from .production import ProductionResult
+    return ProductionResult(
+        state=state(res.state, device),
+        out_steps=np.asarray(res.out_steps),
+        fields={k: np.asarray(v) for k, v in res.fields.items()},
+        point_steps_per_s=float(res.point_steps_per_s),
+        point_range=tuple(int(v) for v in res.point_range))
+
+
 def to_numpy(obj, cls: Optional[Type[NamedTuple]] = None):
     """A tensor, or a NamedTuple of tensors -> numpy; with ``cls`` (e.g. the
     JAX package's State) the NamedTuple is rebuilt as ``cls`` by field

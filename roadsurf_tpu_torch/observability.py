@@ -1,7 +1,7 @@
 """Observability: phase timers and progress reporting.
 
-The counterpart of ``roadsurf_tpu/observability.py`` (``RunMetrics`` and
-``Progress``).  The reference's observability is stdout progress prints every
+The counterpart of ``roadsurf_tpu/observability.py`` (``RunMetrics``,
+``Progress``, ``failure_summary`` and ``detect_nan_points``).  The reference's observability is stdout progress prints every
 1000 points (examples/example1/src/roadrunner.cpp:396-397).  Here:
 structured phase timers around setup/build/stream/output and a progress
 callback for chunked runs.
@@ -13,6 +13,9 @@ import sys
 import time
 from dataclasses import dataclass, field
 from typing import Dict
+
+import numpy as np
+import torch
 
 
 @dataclass
@@ -75,3 +78,43 @@ class Progress:
                   f"({100.0 * self.done / self.total:.0f}%, eta {eta:.0f}s)",
                   file=self.stream, flush=True)
             self._last = now
+
+
+def failure_summary(failed, lats=None, lons=None, limit: int = 10,
+                    stream=sys.stderr, point_range=None):
+    """Batched analogue of the reference's per-point BAD-input prints
+    (src/InputOutput.f90:63-80): one summary + the first few failing points.
+    ``failed`` (a tensor or array) and ``lats``/``lons`` cover this process's
+    points; with ``point_range`` (a ``drain="shard"`` result's) the line
+    names the global range they are.  Returns the count."""
+    if isinstance(failed, torch.Tensor):
+        failed = failed.detach().cpu().numpy()
+    failed = np.asarray(failed)
+    n = int(failed.sum())
+    if n == 0:
+        return 0
+    idx = np.where(failed)[0]
+    msg = f"{n}/{failed.size} points failed"
+    if point_range is not None:
+        msg += f" in points [{point_range[0]}, {point_range[1]})"
+    if lats is not None and lons is not None:
+        locs = ", ".join(f"({lats[i]:.3f},{lons[i]:.3f})"
+                         for i in idx[:limit])
+        msg += f"; first: {locs}"
+    print(msg, file=stream)
+    return n
+
+
+def detect_nan_points(state):
+    """NaN-poisoning detection (SURVEY.md section 5: per-point validity mask +
+    NaN detection replaces the reference's sanitizer builds): returns an
+    updated state with NaN/Inf-carrying points marked failed, plus the mask.
+
+    The physics cannot produce NaN from valid inputs (all guards are selects),
+    so a NaN means corrupted input or hardware fault -- contained per point,
+    like every other failure."""
+    bad = ~torch.isfinite(state.tmp).all(dim=-1)
+    for name in ("tsurf_ave", "wat", "snow", "ice", "ice2", "dep",
+                 "q2melt", "blcond", "albedo"):
+        bad = bad | ~torch.isfinite(getattr(state, name))
+    return state._replace(failed=state.failed | bad), bad

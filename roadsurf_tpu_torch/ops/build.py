@@ -107,6 +107,9 @@ def load() -> ctypes.CDLL:
     lib.roadsurf_scan_slim.argtypes = [vp] * 9 + [ci] * 8 + [
         ctypes.c_float, vp]
     lib.roadsurf_scan_slim.restype = ci
+    lib.roadsurf_scan_sharded.argtypes = [vp, ci] + [vp] * 12 + [ci] * 7 + [
+        ctypes.c_float, vp]
+    lib.roadsurf_scan_sharded.restype = ci
     lib.roadsurf_consts_size.argtypes = []
     lib.roadsurf_consts_size.restype = ci
     lib.roadsurf_error_string.argtypes = [ci]

@@ -24,6 +24,14 @@ Three modes of the one kernel:
    (pallas_step.py:387-398, :619-629); state, aux rows and outputs stay
    point-major.
 
+K4, the sharded launch (``scan_cuda_sharded``; the counterpart of
+``roadsurf_tpu/parallel/sharding.py:pallas_scan_sharded``), has no
+arithmetic of its own: one host call launches the kernel above once for each
+contiguous block of points, block ``b`` on its device and its stream.  It is
+bound by what its blocks are: the bytes of K1-K3 over the memory rate of the
+card a block lies on.  ``parallel/sharding.py`` holds its wrapper
+``scan_sharded`` and its plain version.
+
 Layouts (unchanged from the JAX package, so both sides compare like with
 like): the profile is ``tmp [LPAD, P]`` (row 0 air, rows 1..L ground, row
 L+1 climatology, padded rows carried through); the per-point scalar state is
@@ -84,6 +92,10 @@ LANE = 128
 LAUNCHES = 0
 LAUNCHES_SLIM = 0
 LAUNCHES_TM = 0
+#: sharded launches by :func:`scan_cuda_sharded` (K4): one for each host call,
+#: whatever its number of blocks; each of its blocks also counts in its
+#: mode's counter above
+LAUNCHES_SHARDED = 0
 
 
 class ScanConsts(ctypes.Structure):
@@ -632,20 +644,15 @@ def _check(name, x, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
-              grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
-              out_offset=None, n_out: int = None, slim_trf=None,
-              aux_rows=None, aux_cofs: bool = False, t_total: int = None,
-              cof_red: float = None):
-    """Launch csrc/scan_kernel.cu on CUDA tensors; the arguments and results
-    of :func:`scan_reference` (K1, K2 with ``aux_rows``, K3 with a
-    tile-major forcing).  Runs on the current stream, does not synchronise,
-    and raises if the launch is refused."""
-    global LAUNCHES, LAUNCHES_SLIM, LAUNCHES_TM
-    from . import build
-
+def _checked_launch(tmp0, scal0, forcing, cfg, grid, out_stride, nsteps,
+                    out_offset, n_out, slim_trf, aux_rows, aux_cofs, t_total,
+                    cof_red):
+    """Check one launch's tensors and arguments (a whole run's, or one
+    block's of a sharded one); returns (lpad, P, T, tile width, nsteps,
+    offset, output rows, first output row index, slim)."""
     if tmp0.device.type != "cuda":
-        raise ValueError(f"scan_cuda needs CUDA tensors, got {tmp0.device}")
+        raise ValueError(f"the scan kernel needs CUDA tensors, got "
+                         f"{tmp0.device}")
     lpad, P = tmp0.shape
     slim = aux_rows is not None
     T, tp = _forcing_layout(forcing, P, slim)
@@ -673,7 +680,34 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     if slim:
         _check("slim_trf", slim_trf, tuple(slim_trf.shape), tmp0.device)
         _check("aux_rows", aux_rows, (N_AUX, P), tmp0.device)
+    return lpad, P, T, tp, nsteps, off, n_rows, out_base, slim
 
+
+def _count_launches(forcing, slim: bool, n: int = 1):
+    """Add ``n`` launches to the counter of the mode that ran."""
+    global LAUNCHES, LAUNCHES_SLIM, LAUNCHES_TM
+    if forcing.dim() == 4:
+        LAUNCHES_TM += n
+    elif slim:
+        LAUNCHES_SLIM += n
+    else:
+        LAUNCHES += n
+
+
+def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
+              grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
+              out_offset=None, n_out: int = None, slim_trf=None,
+              aux_rows=None, aux_cofs: bool = False, t_total: int = None,
+              cof_red: float = None):
+    """Launch csrc/scan_kernel.cu on CUDA tensors; the arguments and results
+    of :func:`scan_reference` (K1, K2 with ``aux_rows``, K3 with a
+    tile-major forcing).  Runs on the current stream, does not synchronise,
+    and raises if the launch is refused."""
+    from . import build
+
+    lpad, P, T, tp, nsteps, off, n_rows, out_base, slim = _checked_launch(
+        tmp0, scal0, forcing, cfg, grid, out_stride, nsteps, out_offset,
+        n_out, slim_trf, aux_rows, aux_cofs, t_total, cof_red)
     consts = make_consts(cfg, p, grid, lpad, int(out_stride), n_rows)
     tmp_f = torch.empty_like(tmp0)
     scal_f = torch.empty_like(scal0)
@@ -698,13 +732,88 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {rc} "
                            f"({build.error_string(rc)})")
-    if forcing.dim() == 4:
-        LAUNCHES_TM += 1
-    elif slim:
-        LAUNCHES_SLIM += 1
-    else:
-        LAUNCHES += 1
+    _count_launches(forcing, slim)
     return tmp_f, scal_f, out
+
+
+def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
+                      p: PhysicsParams, grid: LayerGrid, streams,
+                      out_stride: int = 1, nsteps: int = None,
+                      out_offset=None, n_out: int = None, slim_trf=None,
+                      aux_rows=None, aux_cofs: bool = False,
+                      t_total: int = None, cof_red: float = None):
+    """K4: one host call (``roadsurf_scan_sharded`` of csrc/scan_kernel.cu)
+    that launches the kernel once per block of points, block ``b`` on
+    ``streams[b]``, a ``torch.cuda.Stream`` of the device its tensors lie on.
+
+    ``tmp0``, ``scal0``, ``forcing`` and, in the slim mode, ``slim_trf`` and
+    ``aux_rows`` are sequences with one entry per block, each as
+    :func:`scan_cuda` takes it; the other arguments are the same for every
+    block.  The results of block ``b`` are allocated on ``streams[b]`` and
+    ordered after its launch there: the caller issues a block's other work
+    on the same stream, or orders it against that stream itself.  Does not
+    synchronise; raises if any launch is refused.  Returns a list of
+    (tmp, scal, out) per block."""
+    global LAUNCHES_SHARDED
+    from . import build
+
+    n = len(tmp0)
+    if n == 0 or not (len(scal0) == len(forcing) == len(streams) == n):
+        raise ValueError("one tmp0, scal0, forcing and stream per block")
+    slim = aux_rows is not None
+    if slim and not (slim_trf is not None
+                     and len(aux_rows) == len(slim_trf) == n):
+        raise ValueError("the slim mode needs one slim_trf and aux_rows per "
+                         "block")
+    geo = [_checked_launch(
+        tmp0[b], scal0[b], forcing[b], cfg, grid, out_stride, nsteps,
+        out_offset, n_out, slim_trf[b] if slim else None,
+        aux_rows[b] if slim else None, aux_cofs, t_total, cof_red)
+        for b in range(n)]
+    lpad, _, T, _, nsteps, off, n_rows, out_base, _ = geo[0]
+    for b, g in enumerate(geo):
+        if (g[0], g[2]) != (lpad, T) or forcing[b].dim() != forcing[0].dim():
+            raise ValueError(
+                f"block {b} differs from block 0 in profile rows, steps or "
+                f"forcing layout")
+        if streams[b].device != tmp0[b].device:
+            raise ValueError(f"block {b} on {tmp0[b].device}, its stream on "
+                             f"{streams[b].device}")
+    consts = make_consts(cfg, p, grid, lpad, int(out_stride), n_rows)
+    results = []
+    for b in range(n):
+        with torch.cuda.stream(streams[b]):
+            results.append((
+                torch.empty_like(tmp0[b]), torch.empty_like(scal0[b]),
+                torch.empty((n_rows, N_OUT_FIELDS, geo[b][1]),
+                            dtype=torch.float32, device=tmp0[b].device)))
+    ptrs = lambda xs: (ctypes.c_void_p * n)(*(x.data_ptr() for x in xs))
+    ints = lambda xs: (ctypes.c_int * n)(*xs)
+    null = (ctypes.c_void_p * n)()
+    failed_block = ctypes.c_int(-1)
+    lib = build.load()
+    with torch.cuda.device(tmp0[0].device):
+        rc = lib.roadsurf_scan_sharded(
+            ctypes.addressof(consts), n,
+            ints(t.device.index for t in tmp0),
+            (ctypes.c_void_p * n)(*(s.cuda_stream for s in streams)),
+            ptrs(tmp0), ptrs(scal0), ptrs(forcing),
+            ptrs(slim_trf) if slim else null,
+            ptrs(aux_rows) if slim else null,
+            ptrs(r[0] for r in results), ptrs(r[1] for r in results),
+            ptrs(r[2] for r in results), ints(g[1] for g in geo),
+            ints(g[3] for g in geo), T, nsteps, off, out_base, int(slim),
+            int(bool(aux_cofs)), int(t_total) if aux_cofs else 0,
+            float(cof_red) if aux_cofs else 1.0,
+            ctypes.byref(failed_block))
+    if rc != 0:
+        raise RuntimeError(
+            f"sharded scan kernel launch failed at block "
+            f"{failed_block.value} of {n}: CUDA error {rc} "
+            f"({build.error_string(rc)})")
+    LAUNCHES_SHARDED += 1
+    _count_launches(forcing[0], slim, n)
+    return results
 
 
 def scan(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,

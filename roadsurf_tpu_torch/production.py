@@ -1,10 +1,11 @@
 """Production-scale streamed execution: the operational nationwide run, on
-one GPU.
+one GPU or over the point blocks of several devices and processes.
 
-The counterpart of ``roadsurf_tpu/production.py`` on one device
-(``StationExpander``, ``GridExpander``, ``CompositeExpander``,
-``merge_windows``, ``last_valid_scan``, ``validation_counts``, ``_Engine``,
-``run_production``, ``run_production_coupled``).  The reference's
+The counterpart of ``roadsurf_tpu/production.py`` (``StationExpander``,
+``GridExpander``, ``CompositeExpander``, ``merge_windows``,
+``last_valid_scan``, ``validation_counts``, ``host_shard``, ``_Engine``,
+``run_production``, ``run_production_coupled``), with a list of devices in
+place of the mesh.  The reference's
 operational path is an async thread-pool runner over the full data plane
 (examples/example2/src/roadrunner.cpp:595-719).  Here:
 
@@ -29,21 +30,31 @@ operational path is an async thread-pool runner over the full data plane
    geometry (a point count that is no multiple of 128) takes the generic
    path, the per-point ``forcing.prepare_window`` + ``pack_forcing`` into
    K1's layout, per chunk;
- * each chunk is one launch of the hand-written CUDA whole-scan kernel
-   (``ops/scan_kernel.py``); the prognostic state stays on the device in the
-   kernel's packed layout between chunks;
+ * the points are cut into one equal contiguous block for each entry of
+   ``devices`` (``expander.block``: station-rank data replicated on every
+   device, point-rank data only on its block's); each chunk of every block
+   goes through ONE sharded launch of the hand-written CUDA whole-scan
+   kernel (K4, ``parallel/sharding.py`` -> ``ops/scan_kernel.py``), each
+   block on its own stream, with no exchange between blocks; the
+   prognostic state stays on its device in the kernel's packed layout
+   between chunks;
  * the kernel writes only the run-level output-stride rows of each chunk,
    which are drained to the host chunk by chunk;
  * the coupled run streams phases A and C through the kernel and runs the
    coupling window (phase B) with the iteration-major engine of
    ``coupling.py`` in plain torch on the device.
 
-``stream`` is a plain loop on the current CUDA stream that synchronises per
-chunk (the drain's device-to-host copy); the JAX engine's two-deep pipelined
-dispatch is not ported yet.
+``_Blocks.stream`` is a plain loop: per chunk the host issues every block's
+forcing on the block's stream, launches all blocks in one call, then drains
+each block's rows (the device-to-host copy synchronises that block's
+stream); the JAX engine's two-deep pipelined dispatch is not ported yet.
+Across processes (``parallel/distributed.py``) each process runs the blocks
+of its own point range and drains only them (``drain="shard"``); no tensor
+crosses between processes.
 """
 from __future__ import annotations
 
+import copy
 import time as timelib
 from typing import NamedTuple, Optional, Sequence
 
@@ -70,22 +81,49 @@ LANE = sk.LANE
 TILE_P = 1024
 
 
-def padded_points(n_points: int) -> int:
-    """Points padded to whole 128-point lanes (one device)."""
-    return -(-n_points // LANE) * LANE
+def padded_points(n_points: int, ndev: int = 1) -> int:
+    """Points padded so that they divide ``ndev`` blocks of whole 128-point
+    lanes (production.py:90-93)."""
+    mult = ndev * LANE
+    return -(-n_points // mult) * mult
 
 
-def tile_geometry(n_points: int):
-    """``(n_tiles, TP)`` of the kernel's tile-major layout on one device
-    (production.py:96-107): TP the largest multiple of LANE up to TILE_P
-    that divides the point count; None for a count that is no multiple of
-    LANE (the expander then has no tile layout)."""
-    if n_points <= 0 or n_points % LANE:
+def tile_geometry(n_points: int, ndev: int = 1):
+    """``(n_tiles, TP)`` of the kernel's tile-major layout over ``ndev``
+    equal point blocks (production.py:96-107): TP the largest multiple of
+    LANE up to TILE_P that divides a block's point count, so each block
+    holds whole tiles; None for a count that does not divide into blocks of
+    whole lanes (the expander then has no tile layout)."""
+    if n_points <= 0 or n_points % (ndev * LANE):
         return None
-    tp = min(TILE_P, n_points) // LANE * LANE
-    while n_points % tp:
+    p_loc = n_points // ndev
+    tp = min(TILE_P, p_loc) // LANE * LANE
+    while p_loc % tp:
         tp -= LANE
     return (n_points // tp, tp)
+
+
+def host_shard(blocks, axis: int):
+    """This process's columns of a sharded value along ``axis``
+    (production.py:63-87): ``blocks`` is [(tensor, (lo, hi))], the
+    process's blocks with their global point ranges; returns (local numpy,
+    (lo, hi)), the blocks joined in order on the host.  The reference
+    assembles output by disjoint-row writes into one shared object
+    (examples/example2/src/QueryDataTools.cpp:299-345); across processes
+    the equivalent is each process pulling ONLY its own columns and writing
+    them with a range manifest (io.writer.write_shard_npz /
+    merge_shards)."""
+    blocks = sorted(blocks, key=lambda b: b[1][0])
+    lo = cur = blocks[0][1][0]
+    parts = []
+    for x, (b_lo, b_hi) in blocks:
+        if b_lo != cur:
+            raise ValueError(
+                f"non-contiguous blocks along axis {axis}: expected start "
+                f"{cur}, got {b_lo}")
+        parts.append(x.detach().cpu().numpy())
+        cur = b_hi
+    return np.concatenate(parts, axis=axis), (lo, cur)
 
 
 def _to_tiles(x, tile_geom):
@@ -184,6 +222,7 @@ class StationExpander:
                                    device=self.device)
 
         self.prep_data = None
+        self._replicas = {}
         if prep_ctx is not None:
             self._build_prepared(prep_ctx, st_idx, ok)
 
@@ -263,6 +302,42 @@ class StationExpander:
         if self.prep_data is not None:
             d["prep"] = self.prep_data
         return d
+
+    def _replica(self, device) -> dict:
+        """The station-rank tensors (raw channels; prepared channels, their
+        RH and TRF) on ``device``: this expander's own where it is its
+        device, else one copy per device, shared by that device's
+        blocks."""
+        key = str(device)
+        if key not in self._replicas:
+            mv = lambda x: x.to(device)
+            rep = {"channels": RawForcing(*(mv(x) for x in self.channels))}
+            if self.prep_data is not None:
+                rep["prep"] = {k: mv(self.prep_data[k])
+                               for k in ("stf", "rhz", "trf")}
+            self._replicas[key] = rep
+        return self._replicas[key]
+
+    def block(self, lo: int, hi: int, device):
+        """The expander of the point block [lo, hi) on ``device`` (a block
+        of a sharded run): station-rank data replicated per device,
+        point-rank data (station index, mask) cut to the block; views of
+        this expander's tensors where the device is its own."""
+        device = torch.device(device)
+        b = copy.copy(self)
+        b.device, b.num_points = device, hi - lo
+        b.tile_geom = tile_geometry(hi - lo)
+        rep = self._replica(device)
+        cut = lambda x: x[lo:hi].to(device)
+        b.channels = rep["channels"]
+        b.ok, b.st_idx = cut(self.ok), cut(self.st_idx)
+        b._ok_host = self._ok_host[lo:hi]
+        b._ie_host = self._ie_host[lo:hi]
+        b.first_host = {n: v[lo:hi] for n, v in self.first_host.items()}
+        if self.prep_data is not None:
+            b.prep_data = dict(rep["prep"],
+                               sidx=cut(self.prep_data["sidx"]))
+        return b
 
     def host_at(self, sim_sel, names=("tair", "tdew", "rhz")) -> dict:
         """Host per-point values at selected sim steps (production.py:
@@ -408,6 +483,11 @@ class CompositeExpander:
     @property
     def device_data(self):
         return tuple(p.device_data for p in self.parts)
+
+    def block(self, lo: int, hi: int, device):
+        """The composite of every part's block [lo, hi) on ``device``."""
+        return CompositeExpander([p.block(lo, hi, device)
+                                  for p in self.parts])
 
     def window(self, t0: int, tc: int) -> RawForcing:
         return merge_windows([p.window(t0, tc) for p in self.parts])
@@ -727,6 +807,38 @@ class GridExpander:
             del ff
         return pv
 
+    def block(self, lo: int, hi: int, device):
+        """The expander of the point block [lo, hi) on ``device`` (a block
+        of a sharded run): the per-point raw-time series cut to the block
+        (a view of this expander's where the device is its own and the
+        block holds whole tiles of its layout, else a copy in the block's
+        own layout), the time machinery replicated."""
+        device = torch.device(device)
+        b = copy.copy(self)
+        b.device, b.num_points = device, hi - lo
+        b.tile_geom = geom = tile_geometry(hi - lo)
+        times, glats, glons, fields, plat, plon, sim = self._href
+        b._href = (times, glats, glons, fields, plat[lo:hi], plon[lo:hi],
+                   sim)
+        b._pv_cache = {}
+        b.first_host = {n: v[lo:hi] for n, v in self.first_host.items()}
+        K = self.K
+
+        def cut(x):
+            if self.tile_geom is not None:
+                tp = self.tile_geom[1]
+                if geom is not None and geom[1] == tp and lo % tp == 0:
+                    return x[lo // tp:hi // tp].to(device)
+                x = x.transpose(0, 1).reshape(K, self.num_points)
+            x = x[:, lo:hi].to(device)                           # [K, n]
+            if geom is None:
+                return x.contiguous()
+            return x.reshape(K, *geom).transpose(0, 1).contiguous()
+        b._data = {k: (v.to(device) if k != "pv"
+                       else {n: cut(x) for n, x in v.items()})
+                   for k, v in self._data.items()}
+        return b
+
     def _point_series(self, name) -> np.ndarray:
         """Spatially-extracted [P, K] float64 series on the host; the
         staples are cached (production.py:1105-1125)."""
@@ -903,17 +1015,30 @@ class GridExpander:
         return RawForcing(**out)
 
 
+def sky_route(pts: PointParams):
+    """(enable_sky, flat_horizons) of a run: whether any point's sky view
+    is active, and whether every horizon is zero (the lookup is then
+    skipped and the table never read)."""
+    sky = np.asarray(pts.sky_view)
+    return (bool(np.any((sky < 1.0) & (sky > -0.01))),
+            not np.asarray(pts.horizons).any())
+
+
 class ProductionResult(NamedTuple):
     state: State                 #: final prognostic state (unpadded, host)
     out_steps: np.ndarray        #: [n_out] global 0-based step indices
-    fields: dict                 #: name -> [n_out, P] numpy
-    point_steps_per_s: float     #: sustained streaming rate (real points)
+    fields: dict                 #: name -> [n_out, P_local] numpy
+    #: sustained streaming rate over the real points this result covers
+    point_steps_per_s: float
+    #: global [lo, hi) point range this result covers: the full run in one
+    #: process, this process's shard in a run of several (drain="shard")
+    point_range: tuple = (0, -1)
 
 
 class _Engine:
-    """Device placement + chunk functions + range streaming shared by the
-    uncoupled and coupled runs (production.py:1340-1930, the
-    single-device parts).
+    """Device placement and chunk functions of ONE point block on one
+    device (production.py:1340-1800, a device's share of the mesh); a run
+    is a list of these (``_Blocks``), one for each block of its devices.
 
     Routes, in order: the station fast path (``prep_data``, sky view off;
     K2, or K1 with ``slim=False``); the tile-major path for an expander with
@@ -929,7 +1054,13 @@ class _Engine:
                  pts: PointParams, cal: Calendar, state: State, *,
                  anchors=None, chunk_t: int = 64,
                  out_stride: Optional[int] = None,
-                 metrics: Optional[RunMetrics] = None):
+                 metrics: Optional[RunMetrics] = None,
+                 n_real: Optional[int] = None, sky=None):
+        """``pts``/``state``/``anchors``: [P_real], padded here to whole
+        lanes; or, with ``n_real`` (a block of a sharded run), already at
+        the expander's point count, of which the first ``n_real`` are real.
+        ``sky``: the run's (enable_sky, flat_horizons), which a block takes
+        from all points of the run, not from its own."""
         settings, params, cfg, grid = (model.settings, model.params,
                                        model.cfg, model.grid)
         self.expander = expander
@@ -945,14 +1076,16 @@ class _Engine:
             raise ValueError(
                 "per-point out_depth is not supported by the scan kernel; "
                 "use Model.run or set the global model.tsurfOutputDepth")
-        sky = np.asarray(pts.sky_view)
-        self.enable_sky = bool(np.any((sky < 1.0) & (sky > -0.01)))
         hor_np = np.asarray(pts.horizons)
         # all-zero horizons skip the lookup and never read the table
-        self.flat_horizons = not hor_np.any()
+        self.enable_sky, self.flat_horizons = sky or sky_route(pts)
 
-        self.n_real = int(np.asarray(pts.lat).shape[0])
-        self.P_pad = padded_points(self.n_real)
+        if n_real is None:
+            self.n_real = int(np.asarray(pts.lat).shape[0])
+            self.P_pad = padded_points(self.n_real)
+        else:
+            self.n_real = int(n_real)
+            self.P_pad = int(np.asarray(pts.lat).shape[0])
         if expander.num_points != self.P_pad:
             raise ValueError(f"expander built for {expander.num_points} "
                              f"points, need {self.P_pad}")
@@ -1074,7 +1207,8 @@ class _Engine:
         ok = np.asarray(expander._ok_host)[:self.n_real]
         sidx = np.where(ok, np.asarray(expander._ie_host)[:self.n_real], S)
         gat = lambda n: np.asarray(getattr(st_pts, n), np.float64)[sidx]
-        got = lambda n: np.asarray(getattr(pts, n), np.float64)
+        got = lambda n: np.asarray(getattr(pts, n),
+                                   np.float64)[:self.n_real]
 
         def fail(name, mask):
             bad = int(np.argmax(mask))
@@ -1177,137 +1311,307 @@ class _Engine:
                       cof_red=self.settings.coupling_effect_reduction)
         return forc, kw
 
-    def run_chunk(self, tmp, scal, t0: int, nsteps: int, cofs=None):
-        """One chunk: forcing -> one whole-scan kernel launch; returns
-        (tmp, scal, out rows [k_alloc, 6, P])."""
-        forc, kw = self.kernel_inputs(t0, cofs)
-        tmp2, scal2, out = sk.scan(
-            tmp, scal, forc, self.cfg, self.params, self.grid,
-            out_stride=self.os_, nsteps=nsteps, out_offset=t0,
-            n_out=self.k_alloc, **kw)
-        return tmp2, scal2, out[:, :6]
+    def scan_kwargs(self, t0: int, nsteps: int) -> dict:
+        """The chunk geometry of the launch at global step t0."""
+        return dict(out_stride=self.os_, nsteps=nsteps, out_offset=t0,
+                    n_out=self.k_alloc)
 
-    def _chunk_grid(self, t_lo: int, t_hi: int):
-        """[(t0, nsteps)] covering the steps [t_lo, t_hi)."""
-        return [(t0, min(self.chunk_t, t_hi - t0))
-                for t0 in range(t_lo, t_hi, self.chunk_t)]
 
-    def stream(self, tmp, scal, t_lo: int, t_hi: int, cofs=None,
+def _rows(x, lo: int, hi: int, n_real: int):
+    """Rows [lo, hi) of ``x`` (numpy or tensor) edge-padded past its
+    ``n_real`` rows: a view where the range holds no padding."""
+    if hi <= n_real:
+        return x[lo:hi]
+    idx = np.minimum(np.arange(lo, hi), n_real - 1)
+    if isinstance(x, torch.Tensor):
+        return x[torch.as_tensor(idx, device=x.device)]
+    return np.asarray(x)[idx]
+
+
+def _run_devices(devices, expander_device):
+    """The device list of a run: ``devices``, or for None every visible
+    CUDA device (an error where there is none), except that an expander the
+    caller built on the CPU runs there, as one block."""
+    from .parallel import sharding
+    if devices is None and torch.device(expander_device).type == "cpu":
+        devices = [expander_device]
+    return sharding.make_mesh(devices)
+
+
+class _Blocks:
+    """The point blocks of one run and its streamed loop (production.py:
+    1802-1930 over the mesh): one ``_Engine`` for each block of this
+    process's devices, every chunk of every block through ONE sharded
+    launch (K4, ``parallel.sharding.scan_sharded``), each block's work
+    issued on its own stream, each block's output rows drained to the
+    host.
+
+    The points are padded to ``padded_points(n_real, blocks of all
+    processes)`` and cut into equal contiguous blocks; process ``i`` of
+    ``n`` owns blocks ``[i * ndev, (i + 1) * ndev)`` for its ``ndev``
+    devices.  ``pts``, ``state`` and ``anchors`` cover ALL points on the
+    host in every process (the coupling window and the route are the whole
+    run's); device data exists only for this process's blocks.  Padded
+    points are marked failed and may fill whole blocks."""
+
+    def __init__(self, model: Model, expander, pts: PointParams,
+                 cal: Calendar, state: State, *, anchors=None, devices=None,
+                 chunk_t: int = 64, out_stride: Optional[int] = None,
+                 metrics: Optional[RunMetrics] = None,
+                 drain: str = "gather"):
+        from .parallel import distributed
+        if drain not in ("gather", "shard"):
+            raise ValueError(f"drain must be 'gather' or 'shard', got "
+                             f"{drain!r}")
+        nproc, pid = distributed.process_count(), distributed.process_index()
+        if nproc > 1 and drain != "shard":
+            raise ValueError(
+                "a run of several processes drains per process (no tensor "
+                "crosses between them): pass drain='shard'")
+        self.metrics = metrics = metrics or RunMetrics()
+        self.mesh = mesh = _run_devices(devices, expander.device)
+        self.model, self.T = model, model.settings.sim_len
+        self.chunk_t = chunk_t
+        ndev = len(mesh)
+        self.n_real = n_real = int(np.asarray(pts.lat).shape[0])
+        self.P_pad = padded_points(n_real, ndev * nproc)
+        if expander.num_points != self.P_pad:
+            raise ValueError(
+                f"expander built for {expander.num_points} points, need "
+                f"{self.P_pad} ({n_real} padded to {ndev * nproc} blocks "
+                f"of whole {LANE}-point lanes)")
+        per = self.P_pad // (ndev * nproc)
+        sky = sky_route(pts)
+        self.engines, self.ranges = [], []
+        for b in range(ndev):
+            lo = (pid * ndev + b) * per
+            cut = lambda x: _rows(x, lo, lo + per, n_real)
+            with mesh.scope(b):
+                eng = _Engine(
+                    model, expander.block(lo, lo + per, mesh.devices[b]),
+                    PointParams(*(cut(x) for x in pts)), cal,
+                    State(*(cut(x) for x in state)),
+                    anchors=(tuple(cut(np.asarray(a)) for a in anchors)
+                             if anchors is not None else None),
+                    chunk_t=chunk_t, out_stride=out_stride, metrics=metrics,
+                    n_real=max(0, min(lo + per, n_real) - lo), sky=sky)
+            self.engines.append(eng)
+            self.ranges.append((lo, lo + per))
+        self.os_ = self.engines[0].os_
+        # blocks issue on their own streams: order them after the set-up
+        for d in {d for d in mesh.devices if d.type == "cuda"}:
+            torch.cuda.synchronize(d)
+
+    def __len__(self):
+        return len(self.engines)
+
+    def scopes(self):
+        """(block index, engine) with the block's device and stream
+        current."""
+        for b, eng in enumerate(self.engines):
+            with self.mesh.scope(b):
+                yield b, eng
+
+    def carry0(self):
+        """The packed initial state [(tmp, scal)] of every block."""
+        return [(e.tmp0, e.scal0) for e in self.engines]
+
+    def synchronize(self):
+        self.mesh.synchronize()
+
+    def _pull(self, blocks, n_rows: int) -> list:
+        """Output rows [k, 6, P_b] of every block -> one [n_rows, 6, P_b]
+        numpy array for each block on the host: this process's columns
+        only (production.py:1858-1868; both drain modes pull the same in
+        one process, and a run of several processes has only ``shard``).
+        ``assemble`` joins them once, at the end of the run."""
+        # each copy is issued on, and waits for, its block's own stream
+        return [blocks[b][:n_rows].cpu().numpy() for b, _ in self.scopes()]
+
+    def stream(self, carry, t_lo: int, t_hi: int, cofs=None,
                progress: Optional[Progress] = None, collected=None):
         """Stream global forcing rows [t_lo, t_hi) through the kernel, chunk
-        by chunk, draining each chunk's output rows to the host
-        (production.py:1826-1856, without the two-deep pipelining).
-        ``cofs``: optional (sw_corr, lw_corr) [P] tensors enabling the
-        post-window coefficient decay.  Returns (tmp, scal, collected) with
-        collected = [(steps, [k, 6, P] numpy)], appended to ``collected``
-        when given."""
+        by chunk (production.py:1826-1856, without the two-deep
+        pipelining): each block's forcing is issued on its stream, all
+        blocks launch in one sharded call, then each block's output rows
+        are drained to the host.  ``carry``: [(tmp, scal)] per block;
+        ``cofs``: optional [(sw_corr, lw_corr)] per block, [P_b] tensors
+        enabling the post-window coefficient decay.  Returns (carry,
+        collected) with collected = [(steps, [one [k, 6, P_b] numpy for
+        each block])], appended to ``collected`` when given."""
+        from .parallel import sharding
         collected = collected if collected is not None else []
-        for t0, nsteps_c in self._chunk_grid(t_lo, t_hi):
+        model = self.model
+        for t0 in range(t_lo, t_hi, self.chunk_t):
+            nsteps_c = min(self.chunk_t, t_hi - t0)
             # the global-offset output cadence (production.py:1844-1846)
             first_hit = -(-t0 // self.os_) * self.os_
             steps = list(range(first_hit, t0 + nsteps_c, self.os_))
-            tmp, scal, rows = self.run_chunk(tmp, scal, t0, nsteps_c, cofs)
+            inputs = [eng.kernel_inputs(t0, cofs[b] if cofs else None)
+                      for b, eng in self.scopes()]
+            forc, kws = [i[0] for i in inputs], [i[1] for i in inputs]
+            kw = dict(kws[0])
+            for name in ("slim_trf", "aux_rows"):
+                if name in kw:
+                    kw[name] = [k[name] for k in kws]
+            res = sharding.scan_sharded(
+                [c[0] for c in carry], [c[1] for c in carry], forc,
+                model.cfg, model.params, model.grid, self.mesh, fence=False,
+                **self.engines[0].scan_kwargs(t0, nsteps_c), **kw)
+            carry = [(r[0], r[1]) for r in res]
             if steps:
-                collected.append((steps, rows[:len(steps)].cpu().numpy()))
-            elif self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                collected.append(
+                    (steps, self._pull([r[2][:, :6] for r in res],
+                                       len(steps))))
+            else:
+                self.synchronize()
+            # nothing of this chunk outlives it: the next chunk's forcing
+            # is built in the room this one's leaves
+            del inputs, forc, kws, kw, res
             if progress:
                 progress.update(nsteps_c)
-        return tmp, scal, collected
+        return carry, collected
 
     def run_uncoupled(self, progress: Optional[Progress] = None):
         """Stream every step [0, T) and assemble the result."""
         with self.metrics.phase("stream"):
             t_start = timelib.perf_counter()
-            tmp, scal, collected = self.stream(self.tmp0, self.scal0, 0,
-                                              self.T, progress=progress)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            carry, collected = self.stream(self.carry0(), 0, self.T,
+                                           progress=progress)
+            self.synchronize()
             wall = timelib.perf_counter() - t_start
-        return self.assemble(collected, tmp, scal, wall)
+        return self.assemble(collected, carry, wall)
 
-    def assemble(self, collected, tmp, scal, wall: float) -> ProductionResult:
+    def assemble(self, collected, carry, wall: float) -> ProductionResult:
         with self.metrics.phase("output"):
-            rate = self.n_real * self.T / wall
+            # a padding-only range (every point >= n_real) anchors its
+            # empty range at n_real, so the ranges of all processes still
+            # tile [0, n_real) exactly for merge_shards
+            lo = self.ranges[0][0]
+            n_loc = max(0, min(self.ranges[-1][1], self.n_real) - lo)
+            lo_eff = min(lo, self.n_real)
+
+            nlayers = self.model.grid.nlayers
+            leaves = []
+            for b, eng in self.scopes():
+                ust = sk.unpack_state(*carry[b], nlayers, eng.template)
+                leaves.append([x.cpu() for x in ust])
+            final = State(*(
+                torch.from_numpy(host_shard(
+                    list(zip(xs, self.ranges)), axis=0)[0][:n_loc])
+                for xs in zip(*leaves)))
+
+            rate = n_loc * self.T / wall
             self.metrics.count("point_steps_per_s", round(rate, 1))
-            self.metrics.count("points", self.n_real)
+            self.metrics.count("points", n_loc)
             self.metrics.count("steps", self.T)
+            self.metrics.count("blocks", len(self))
+            for d in sorted({d for d in self.mesh.devices
+                             if d.type == "cuda"}, key=str):
+                self.metrics.count(f"peak_device_bytes_{d}",
+                                   torch.cuda.max_memory_allocated(d))
 
-            ust = sk.unpack_state(tmp, scal, self.grid.nlayers,
-                                  self.template)
-            final = State(*(x[:self.n_real].cpu() for x in ust))
-
+            # every block's rows of every chunk go straight to their place
+            # among the steps in order: one copy of the output
             all_steps = np.concatenate(
                 [np.asarray(s, np.int64) for s, _ in collected]) \
                 if collected else np.zeros(0, np.int64)
-            stacked = (np.concatenate([a for _, a in collected], axis=0)
-                       if collected else
-                       np.zeros((0, 6, self.P_pad), np.float32))
-            order = np.argsort(all_steps)
-            all_steps = all_steps[order]
-            stacked = stacked[order][:, :, :self.n_real]
+            order = np.argsort(all_steps, kind="stable")
+            dest = np.empty_like(order)
+            dest[order] = np.arange(len(order))
+            stacked = np.empty((len(all_steps), 6, n_loc), np.float32)
+            row = 0
+            for steps, parts in collected:
+                rows = dest[row:row + len(steps)]
+                row += len(steps)
+                for (b_lo, b_hi), part in zip(self.ranges, parts):
+                    n_b = min(b_hi, self.n_real) - b_lo
+                    if n_b > 0:
+                        stacked[rows, :, b_lo - lo:b_lo - lo + n_b] = \
+                            part[:, :, :n_b]
             fields = {name: stacked[:, r]
                       for name, r in OUT_FIELD_ROWS.items()}
-        return ProductionResult(state=final, out_steps=all_steps,
-                                fields=fields, point_steps_per_s=rate)
+        return ProductionResult(state=final, out_steps=all_steps[order],
+                                fields=fields, point_steps_per_s=rate,
+                                point_range=(lo_eff, lo_eff + n_loc))
 
 
 def run_production(model: Model, expander,
                    pts: PointParams, cal: Calendar, state: State, *,
-                   anchors=None, chunk_t: int = 64,
+                   anchors=None, devices=None, chunk_t: int = 64,
                    out_stride: Optional[int] = None,
                    metrics: Optional[RunMetrics] = None,
-                   progress: Optional[Progress] = None) -> ProductionResult:
-    """Run the full (uncoupled) forecast through the streamed whole-scan
-    kernel (production.py:1933-1963).
+                   progress: Optional[Progress] = None,
+                   drain: str = "gather") -> ProductionResult:
+    """Run the full (uncoupled) forecast through the streamed, sharded
+    whole-scan kernel (production.py:1933-1963).
 
-    pts/state: [P_real] (padded internally to whole 128-point lanes; the
-    expander must already be built at the padded count).  anchors: the
-    per-point relaxation anchor triple (forcing.relax_anchors), required
-    when settings.use_relaxation.  Returns outputs at the global
-    ``out_stride`` cadence (default settings.output_stride).  The expander
-    is a StationExpander, GridExpander or CompositeExpander; the device is
-    its: CUDA runs the kernel, CPU its plain version.
+    pts/state: [P_real] on the host, ALL points of the run in every
+    process (padded internally to the blocks x 128-point lanes multiple,
+    ``padded_points(P_real, blocks)``; the expander must already be built
+    at the padded count).  anchors: the per-point relaxation anchor triple
+    (forcing.relax_anchors), required when settings.use_relaxation.
+    Returns outputs at the global ``out_stride`` cadence (default
+    settings.output_stride).  The expander is a StationExpander,
+    GridExpander or CompositeExpander.
+
+    ``devices`` (the JAX package's ``mesh``): one entry for each point
+    block of this process; a device named several times runs its blocks on
+    streams of their own.  None means every visible CUDA device; only an
+    expander built on the CPU runs there (one block).  CUDA runs the
+    kernel, CPU its plain version.  ``drain``: ``"gather"`` returns all
+    points (one process); ``"shard"`` this process's columns with their
+    ``point_range`` (the only mode in a run of several processes,
+    ``parallel.distributed``).
     """
-    eng = _Engine(model, expander, pts, cal, state, anchors=anchors,
-                  chunk_t=chunk_t, out_stride=out_stride, metrics=metrics)
-    return eng.run_uncoupled(progress)
+    run = _Blocks(model, expander, pts, cal, state, anchors=anchors,
+                  devices=devices, chunk_t=chunk_t, out_stride=out_stride,
+                  metrics=metrics, drain=drain)
+    return run.run_uncoupled(progress)
 
 
 def run_production_coupled(model: Model, expander,
                            pts: PointParams, cal: Calendar, state: State, *,
-                           anchors=None, chunk_t: int = 64,
+                           anchors=None, devices=None, chunk_t: int = 64,
                            out_stride: Optional[int] = None,
                            metrics: Optional[RunMetrics] = None,
                            progress: Optional[Progress] = None,
-                           wcache_bytes: float = 4e9) -> ProductionResult:
+                           wcache_bytes: float = 4e9,
+                           drain: str = "gather") -> ProductionResult:
     """Coupled production run: streamed kernel phases around the
     iteration-major coupling window (production.py:1966-2129).
 
-    Phase split (1-based steps; ws/we_b from the per-point coupling windows):
+    Phase split (1-based steps; ws/we_b from the coupling windows of ALL
+    points of the run, whatever the blocks and processes):
       A [1, ws-1]    streamed kernel, coefficients 1
-      B [ws, we_b]   unpack -> coupling.run_window_passes (first / re-runs /
-                     tail) in plain torch on the device -> repack
+      B [ws, we_b]   per block: unpack -> coupling.run_window_passes (first
+                     / re-runs / tail) in plain torch on its device ->
+                     repack
       C [we_b+1, T]  streamed kernel with the post-window coefficient decay
                      (in kernel on K2 and K3, cof_window channels on K1)
 
-    With no coupled window the run is the uncoupled stream.
-    ``wcache_bytes``: device-memory budget for caching the pass-invariant
-    phase-B prepared window forcing (prepared once, read by every pass);
-    0 prepares it anew in every pass (the same values either way).
-    Counters: coupling_window_steps, coupling_reruns, coupling_window_rows
-    (rows stepped over all passes), coupling_window_cached and the coupled /
-    succeeded / failed point counts; phases phase_a/phase_b/phase_c.
+    With no coupled window the run is the uncoupled stream.  ``devices``
+    and ``drain`` as in :func:`run_production`.
+    ``wcache_bytes``: memory budget PER DEVICE for caching the
+    pass-invariant phase-B prepared window forcing (prepared once, read by
+    every pass); 0 prepares it anew in every pass (the same values either
+    way).
+    Counters (this process's blocks): coupling_window_steps,
+    coupling_reruns (the most of any block), coupling_window_rows (rows
+    stepped over all passes and blocks), coupling_window_cached and the
+    coupled / succeeded / failed point counts; phases
+    phase_a/phase_b/phase_c.
     """
     from .coupling import run_window_passes, window_out_rows, window_span
 
-    eng = _Engine(model, expander, pts, cal, state, anchors=anchors,
-                  chunk_t=chunk_t, out_stride=out_stride, metrics=metrics)
-    settings = eng.settings
-    T, os_ = eng.T, eng.os_
+    run = _Blocks(model, expander, pts, cal, state, anchors=anchors,
+                  devices=devices, chunk_t=chunk_t, out_stride=out_stride,
+                  metrics=metrics, drain=drain)
+    settings = model.settings
+    T, os_ = run.T, run.os_
     coupled_np, span = window_span(settings, pts)
     if span is None:
-        return eng.run_uncoupled(progress)
+        return run.run_uncoupled(progress)
 
     ws, we_b = span
     W = we_b - ws + 1
@@ -1316,23 +1620,26 @@ def run_production_coupled(model: Model, expander,
     # The window forcing is pass-INVARIANT (only cofs/state change per
     # re-run pass; the reference snapshots its input radiation slices for
     # this reason, src/Coupling.f90:172-255): prepare it once for every
-    # pass unless the cache (~38 B/step-point) would exceed the budget
+    # pass unless the cache (~38 B/step-point) of a device's blocks would
+    # exceed the budget
     nv = -(-(W + 1) // wck)
-    cache_win = 38.0 * nv * wck * eng.P_pad <= float(wcache_bytes)
-    eng.metrics.note(
+    per_dev = max(sum(e.P_pad for e, d in zip(run.engines, run.mesh.devices)
+                      if d == dev) for dev in set(run.mesh.devices))
+    cache_win = 38.0 * nv * wck * per_dev <= float(wcache_bytes)
+    run.metrics.note(
         "coupling window forcing cached once (pass-invariant)" if cache_win
         else f"coupling window forcing prepared per pass (cache would "
-             f"need {38.0 * nv * wck * eng.P_pad / 1e9:.1f} GB)")
+             f"need {38.0 * nv * wck * per_dev / 1e9:.1f} GB a device)")
 
-    def provider(t0: int) -> Prepared:
-        if eng.fast:
-            # station-level prepared channels: one row gather per chunk
-            return expander.prepared_window(t0, wck)
-        # the expander's [wck, P] window and the per-point prep, sky view
-        # included
-        return eng.prepare(t0, wck)
+    def phase_b(eng, tmp, scal):
+        def provider(t0: int) -> Prepared:
+            if eng.fast:
+                # station-level prepared channels: one row gather per chunk
+                return eng.expander.prepared_window(t0, wck)
+            # the expander's [wck, P] window and the per-point prep, sky
+            # view included
+            return eng.prepare(t0, wck)
 
-    def phase_b(tmp, scal):
         st = sk.unpack_state(tmp, scal, eng.grid.nlayers, eng.template)
         t0s = [ws - 1 + wck * k for k in range(nv)]
         if cache_win:
@@ -1347,39 +1654,43 @@ def run_production_coupled(model: Model, expander,
                                 settings, eng.cfg, eng.grid, eng.params,
                                 out_stride=os_, wchunk=wck)
         tmp2, scal2 = sk.pack_state(res.state, lpad=tmp.shape[0])
-        return (tmp2, scal2, res.cv,
+        return ((tmp2, scal2), res.cv,
                 res.out.permute(0, 2, 1).to(torch.float32), res.reruns,
                 res.rows)
 
-    with eng.metrics.phase("stream"):
+    with run.metrics.phase("stream"):
         t_start = timelib.perf_counter()
-        with eng.metrics.phase("phase_a"):
-            tmp, scal, col = eng.stream(eng.tmp0, eng.scal0, 0, ws - 1,
-                                        progress=progress)
-        with eng.metrics.phase("phase_b"):
-            tmp, scal, cv, out_b, reruns, rows = phase_b(tmp, scal)
+        with run.metrics.phase("phase_a"):
+            carry, col = run.stream(run.carry0(), 0, ws - 1,
+                                    progress=progress)
+        with run.metrics.phase("phase_b"):
+            done = [phase_b(eng, *carry[b]) for b, eng in run.scopes()]
+            carry = [d[0] for d in done]
+            cvs = [d[1] for d in done]
             if len(rows_b):
                 col.append((list(rows_b),
-                            out_b[:len(rows_b)].cpu().numpy()))
+                            run._pull([d[2] for d in done], len(rows_b))))
             if progress:
                 progress.update(W)
-        with eng.metrics.phase("phase_c"):
-            tmp, scal, col = eng.stream(tmp, scal, we_b, T,
-                                        cofs=(cv.sw_corr, cv.lw_corr),
-                                        progress=progress, collected=col)
-            if eng.device.type == "cuda":
-                torch.cuda.synchronize(eng.device)
+        with run.metrics.phase("phase_c"):
+            carry, col = run.stream(
+                carry, we_b, T, cofs=[(cv.sw_corr, cv.lw_corr) for cv in cvs],
+                progress=progress, collected=col)
+            run.synchronize()
         wall = timelib.perf_counter() - t_start
-    real = torch.zeros(eng.P_pad, dtype=torch.bool, device=eng.device)
-    real[:eng.n_real] = True
-    cpl = torch.as_tensor(np.pad(coupled_np, (0, eng.P_pad - eng.n_real)),
-                          device=eng.device) & real
-    n_failed = int((cpl & cv.failed).sum())
-    eng.metrics.count("coupling_window_steps", W)
-    eng.metrics.count("coupling_reruns", int(reruns))
-    eng.metrics.count("coupling_window_rows", int(rows))
-    eng.metrics.count("coupling_window_cached", int(cache_win))
-    eng.metrics.count("coupling_points", int(cpl.sum()))
-    eng.metrics.count("coupling_failed", n_failed)
-    eng.metrics.count("coupling_succeeded", int(cpl.sum()) - n_failed)
-    return eng.assemble(col, tmp, scal, wall)
+    n_cpl = n_failed = 0
+    for b, eng in run.scopes():
+        lo, hi = run.ranges[b]
+        cpl = torch.as_tensor(
+            np.pad(coupled_np[lo:hi], (0, eng.P_pad - len(coupled_np[lo:hi]))),
+            device=eng.device)
+        n_cpl += int(cpl.sum())
+        n_failed += int((cpl & cvs[b].failed).sum())
+    run.metrics.count("coupling_window_steps", W)
+    run.metrics.count("coupling_reruns", max(d[3] for d in done))
+    run.metrics.count("coupling_window_rows", sum(d[4] for d in done))
+    run.metrics.count("coupling_window_cached", int(cache_win))
+    run.metrics.count("coupling_points", n_cpl)
+    run.metrics.count("coupling_failed", n_failed)
+    run.metrics.count("coupling_succeeded", n_cpl - n_failed)
+    return run.assemble(col, carry, wall)

@@ -34,7 +34,8 @@ def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"__init__.py", "model.py", "production.py", "interop.py",
             "coupling.py", "ops/scan_kernel.py", "ops/build.py",
-            "io/gridsource.py"} <= names
+            "io/gridsource.py", "io/writer.py", "parallel/sharding.py",
+            "parallel/distributed.py", "observability.py"} <= names
 
 
 @pytest.mark.parametrize("path", MODULES,
@@ -70,6 +71,54 @@ def test_entry_points_default_to_the_card(fn):
     if default is inspect.Parameter.empty:
         return                          # the caller must name one
     assert torch.device(default).type == "cuda", (fn, default)
+
+
+def _device_list_entry_points():
+    from roadsurf_tpu_torch import production
+    from roadsurf_tpu_torch.parallel import sharding
+    return [production.run_production, production.run_production_coupled,
+            sharding.scan_sharded, sharding.make_mesh]
+
+
+@pytest.mark.parametrize("fn", _device_list_entry_points(),
+                         ids=lambda f: f.__name__)
+def test_device_lists_default_to_the_visible_cards(fn):
+    """``devices`` defaults to None on every entry point that takes a
+    device list, and None means every visible CUDA device: where there is
+    none it is an error, never the CPU.  (Only an expander that the caller
+    built on the CPU runs there without a list.)"""
+    import inspect
+    from roadsurf_tpu_torch import production
+    from roadsurf_tpu_torch.parallel import sharding
+    assert inspect.signature(fn).parameters["devices"].default is None
+    if torch.cuda.is_available():
+        mesh = sharding.make_mesh(None)
+        assert len(mesh) == torch.cuda.device_count()
+        assert all(d.type == "cuda" for d in mesh.devices)
+        assert production._run_devices(None, "cuda").devices == mesh.devices
+        return
+    with pytest.raises(RuntimeError, match="every visible CUDA device"):
+        sharding.make_mesh(None)
+    with pytest.raises(RuntimeError, match="every visible CUDA device"):
+        production._run_devices(None, torch.device("cuda", 0))
+    with pytest.raises(RuntimeError, match="every visible CUDA device"):
+        sharding.scan_sharded([torch.zeros(24, 128)], [torch.zeros(16, 128)],
+                              [torch.zeros(4, 16, 128)], None, None, None)
+    # the caller's own CPU choice: one block there
+    assert production._run_devices(None, "cpu").devices == [
+        torch.device("cpu")]
+    assert [d.type for d in sharding.make_mesh(["cpu"] * 3).devices] == [
+        "cpu"] * 3
+
+
+def test_sharded_launch_refuses_cpu_blocks():
+    """The C++ sharded launch takes CUDA blocks or raises: nothing gives
+    way to the plain version."""
+    from roadsurf_tpu_torch.ops import scan_kernel as sk
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        sk.scan_cuda_sharded([torch.zeros(24, 128)], [torch.zeros(16, 128)],
+                             [torch.zeros(4, 16, 128)], None, None, None,
+                             [None])
 
 
 def test_matcher_is_exact():
