@@ -11,13 +11,18 @@ JSON summary.
     python3 chip_smoke.py            # every phase (one card)
     python3 chip_smoke.py 3c 4c      # only the named phases, no summary
     python3 chip_smoke.py 3d 8 8b    # the sharded launch and paths alone
+    python3 chip_smoke.py 3e --variant old=build/old/scan_kernel.cu
+                                     # another source of the kernel beside
+                                     # this one, both orders, in turns
 
 Phases (each fails the run on any error; nothing falls back to the CPU or to
 the plain version):
 
  1. toolchain and device: torch, CUDA, nvcc, the card's name and power limit;
  2. build csrc/scan_kernel.cu for sm_90a (ops/build.py), with ptxas's
-    register, stack-frame and spill counts for every instantiation;
+    register, stack-frame and spill counts and the SASS instruction counts
+    (cuobjdump: the body, the time loop, the boundary-layer loop) of every
+    instantiation;
  3. K1 against scan_reference on the card: 65,536 points x 128 steps (two
     scenarios, output stride 1 and 4, one chunk with a global offset and
     nsteps < T; the same chunk for each setting in VARIANTS, so every
@@ -40,7 +45,10 @@ the plain version):
     (chunk_t, out_stride) pairs; kernel tolerances, equal failed masks;
  5. the main path at full size: 2,048 stations -> 1,048,576 points, 8,881
     steps, hourly output, chunk 64, through K2 (the default) and through
-    K1 (slim=False); kernel launches counted over each run; a 64-point
+    K1 (slim=False); kernel launches counted over each run; the K2 run
+    (its block in station order) against a run whose caller passes the
+    points in station order (the block's sort then the identity), mapped
+    through that order, bit for bit; a 64-point
     sample re-run through Model.run over the whole horizon in float32 and
     float64, the kernel path held to twice the float32 run's error against
     float64;
@@ -83,13 +91,21 @@ the plain version):
     stream of its own (and, with more cards visible, one block a card):
     scan_sharded against scan_sharded_reference at the kernel tolerances
     with equal failed masks, and against one scan launch bit for bit; then
-    phase 5's 1,048,576 x 64 chunk (K2) at 1, 2, 4 and 8 blocks, bit for
-    bit against one launch and timed beside it;
+    phase 5's 1,048,576 x 64 chunk (K2) in station order at 1, 2, 4 and 8
+    blocks, bit for bit against one launch and timed beside it;
+ 3e. K2 and K1 on phase 5's 1,048,576 x 64 station chunk in the caller's
+    point order and in station order (a run's blocks sort their points by
+    station, so a warp's lanes share a station and leave the boundary-layer
+    loop together): the same kernel, the station-order results mapped back
+    equal bit for bit, the boundary-layer iterations of a lane and of a
+    warp (the divergence factor), both orders timed in turns, and the row
+    gathers in both orders;
  8. the sharded main path at full width and depth: phase 5's station cell
     and phase 7b's grid + stations with sky view, each through
     run_production(devices=[the card] * 4) (or the visible cards) against
     the one-block run, bit for bit over every output row and the final
-    state; phase 4b's coupled station case at 4 blocks against 1, bit for
+    state (the station one also against phase 5's station-order caller,
+    mapped); phase 4b's coupled station case at 4 blocks against 1, bit for
     bit; stream seconds, point-steps/s, launches and peak memory per device
     are printed;
  8b. two processes on the card: the script starts itself twice as a worker
@@ -101,10 +117,15 @@ the plain version):
     restores the checkpoints, and holds both to a one-process run bit for
     bit.  A worker that fails fails the run.
 
+``--variant LABEL=PATH`` (repeatable) builds another source of the kernel
+(an earlier copy, or an edited one, put under the gitignored build/) into a
+library of its own; phase 3e prints its ptxas and SASS counts, holds it to
+this build bit for bit and times it in the same turns.
+
 Every run_production launch goes through K4 (one sharded launch a chunk,
 whatever the number of blocks), so K4's launches are counted over every
-main-path run.  Phases run in the order 1, 2, 3, 3b, 3d, 4, 4b, 5, 6, 7
-(with 3c before its run), 4c, 7b, 8, 8b.  The 64-point sample re-runs of
+main-path run.  Phases run in the order 1, 2, 3, 3e, 3b, 3d, 4, 4b, 5, 6,
+7 (with 3c before its run), 4c, 7b, 8, 8b.  The 64-point sample re-runs of
 phases 5, 6, 7 and 7b are plain torch on the host: each starts in worker
 processes when its full-size run ends, runs beside the phases that follow,
 and is checked at the end.  The last three lines of standard output are the kernel
@@ -113,8 +134,11 @@ summary (JSON), the card's name and power limit, and the device line
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -144,6 +168,7 @@ from roadsurf_tpu_torch.ops import scan_kernel as sk  # noqa: E402
 from roadsurf_tpu_torch import production  # noqa: E402
 from roadsurf_tpu_torch.io import writer  # noqa: E402
 from roadsurf_tpu_torch.parallel import distributed, sharding  # noqa: E402
+from roadsurf_tpu_torch.tools import sass  # noqa: E402
 from roadsurf_tpu_torch.forcing import relax_anchors  # noqa: E402
 from roadsurf_tpu_torch.state import PointParams, default_point_params  # noqa: E402
 
@@ -295,11 +320,21 @@ def scan_bound(args, kw, stats, nlayers):
              + stats["bl_iters"] * OPS_BL_ITER)
     t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
     t_ops = 1e3 * n_ops / PEAK_F32_OPS_S
-    per_ps = stats["bl_iters"] / stats["point_steps"]
     log(f"  bound: {n_bytes / 1e9:.3f} GB -> {t_bytes:.3f} ms at 3.35 TB/s; "
-        f"{n_ops / 1e9:.2f} G f32 ops ({per_ps:.2f} boundary-layer "
-        f"iterations a point-step) -> {t_ops:.3f} ms at 67 TFLOP/s")
+        f"{n_ops / 1e9:.2f} G f32 ops ({iterations(stats)}) -> "
+        f"{t_ops:.3f} ms at 67 TFLOP/s")
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def iterations(stats):
+    """The boundary-layer iterations of scan_reference's ``stats``: a lane's
+    and a warp's (the slowest of its 32 lanes) per point-step, and their
+    ratio, the divergence factor."""
+    lane = stats["bl_iters"] / stats["point_steps"]
+    warp = stats["bl_warp_iters"] / stats["point_steps"]
+    return (f"boundary-layer iterations a point-step: {lane:.3f} a lane, "
+            f"{warp:.3f} issued by its warp, divergence factor "
+            f"{warp / lane:.3f}")
 
 
 def packed_inputs(model, npoints, sim_len, scenario, seed):
@@ -516,7 +551,7 @@ def phase_kernel_chunk(cfg):
     want = sk.scan_reference(*args, stats=stats, **kw)
     torch.cuda.synchronize()
     err = compare_scan("1M chunk", got, want, model.settings.nlayers)
-    bound = scan_bound(args, kw, stats, model.settings.nlayers)
+    scan_bound(args, kw, stats, model.settings.nlayers)
     ms = cuda_ms(lambda: sk.scan_cuda(*args, **kw), reps=10)
     plain_ms = cuda_ms(lambda: sk.scan_reference(*args, **kw), reps=2)
     rate = cfg["npoints"] * cfg["chunk_t"] / (ms * 1e-3)
@@ -531,7 +566,7 @@ def phase_kernel_chunk(cfg):
         f"kernel {ms:.3f} ms, drain of one output row {drain_ms:.3f} ms")
     del forc, got, want, eng
     torch.cuda.empty_cache()
-    return err, ms, plain_ms, bound
+    return err, plain_ms
 
 
 def phase_kernel_slim_chunk(cfg6):
@@ -565,7 +600,7 @@ def phase_kernel_slim_chunk(cfg6):
         torch.cuda.synchronize()
         errs.append(compare_scan(f"1M {label} chunk", got, want,
                                  model.settings.nlayers))
-        bound = scan_bound(args, kw, stats, model.settings.nlayers)
+        scan_bound(args, kw, stats, model.settings.nlayers)
         ms = cuda_ms(lambda: sk.scan_cuda(*args, **kw), reps=10)
         plain_ms = cuda_ms(lambda: sk.scan_reference(*args, **kw), reps=2)
         gather_ms = cuda_ms(lambda: eng.kernel_inputs(t0, c), reps=5)
@@ -574,7 +609,7 @@ def phase_kernel_slim_chunk(cfg6):
             f"{label}: max |err| {errs[-1]:.3e}; kernel {ms:.3f} ms "
             f"({rate:.4g} point-steps/s), plain {plain_ms:.1f} ms, slim "
             f"forcing gather {gather_ms:.3f} ms")
-        res[label] = (ms, plain_ms, bound)
+        res[label] = (ms, plain_ms)
         if c is not None:
             k1 = sk.scan_cuda(eng.tmp0, eng.scal0, eng.chunk_forcing(t0, c),
                               model.cfg, model.params, model.grid,
@@ -587,6 +622,191 @@ def phase_kernel_slim_chunk(cfg6):
     del eng
     torch.cuda.empty_cache()
     return max(errs), res
+
+
+# ---------------------------------------------------------------------------
+# the kernel's builds and the station order (phases 2 and 3e)
+# ---------------------------------------------------------------------------
+
+def kernel_label(mangled):
+    """``scan_kernel<LM, DEPTH, SLIM>`` of a mangled instantiation name."""
+    m = re.search(r"scan_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    if not m:
+        return mangled
+    tf = lambda b: "true" if b == "1" else "false"
+    return f"scan_kernel<{m.group(1)}, {tf(m.group(2))}, {tf(m.group(3))}>"
+
+
+def log_build(label, info):
+    """ptxas's registers, stack and spills and the SASS instruction counts
+    of every instantiation in one built library: the whole body, the time
+    loop (the longest loop) and the boundary-layer loop (the innermost loop
+    that holds a MUFU.RSQ: its sqrtf; logf compiles to no MUFU), with the
+    MUFU / FCHK / CALL / BRA counts."""
+    counts = sass.library_sass(info["path"])
+    usage = {k: rest for k, *rest in build.ptxas_usage(info["log"])}
+    for kname in sorted(set(usage) | set(counts)):
+        regs, frame, st, ld = usage.get(kname, (None,) * 4)
+        line = (f"  [{label}] {kernel_label(kname)}: {regs} registers, stack "
+                f"frame {frame} B, spill stores {st} B, spill loads {ld} B")
+        k = counts.get(kname)
+        if k:
+            loops = k["loops"]
+            bl = next((lp for lp in loops
+                       if lp["opcodes"].get("MUFU.RSQ")), None)
+            line += (f"; SASS {k['instructions']} instructions "
+                     f"{json.dumps(k['opcodes'])}")
+            if loops:
+                line += f", time loop {loops[-1]['instructions']}"
+            if bl:
+                line += (f", boundary-layer loop {bl['instructions']} "
+                         f"{json.dumps(bl['opcodes'])}")
+        log(line)
+
+
+def parse_variants(argv):
+    """``--variant LABEL=PATH`` options (another source of the kernel, e.g.
+    an earlier copy, built into a library of its own); returns (the other
+    arguments, [(label, sources)])."""
+    rest, variants = [], []
+    it = iter(argv)
+    for a in it:
+        if a != "--variant":
+            rest.append(a)
+            continue
+        label, _, path = next(it).partition("=")
+        variants.append((label, (path,)))
+    return rest, variants
+
+
+@contextlib.contextmanager
+def kernel_library(lib):
+    """``sk.scan_cuda`` launches ``lib`` (another build of the kernel)
+    inside the block."""
+    saved = build.load
+    build.load = lambda *a, **k: lib
+    try:
+        yield
+    finally:
+        build.load = saved
+
+
+def station_order(st_idx, n_stations):
+    """(perm, inv) on the card: the stable sort of the points by station
+    (out-of-radius points last) that one block of a run places them in,
+    and its inverse."""
+    key = np.where(st_idx >= 0, st_idx, n_stations)
+    perm = torch.as_tensor(np.argsort(key, kind="stable"), device=DEV)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(len(perm), device=DEV)
+    return perm, inv
+
+
+def phase_station_order(cfg, variants=()):
+    """Phase 3e: K2 and K1 on phase 5's 1,048,576 x 64 station chunk
+    (offset 448) in the caller's point order and in station order (tmp0,
+    scal0, the forcing and the aux rows permuted with index_select; the
+    kernel is the same): the station-order results mapped back equal the
+    caller-order ones bit for bit; the boundary-layer iterations of a lane
+    and of a warp in each order (scan_reference's stats); the kernel and
+    the forcing gathers timed in turns (caller, station, station, caller).
+    Each of ``variants`` (label, sources) is built into a library
+    of its own, its ptxas and SASS counts printed, and its results held to
+    this build's bit for bit in both orders and timed in the same turns.
+    Returns {"K1" / "K2": (station-order ms, caller-order ms, bound)}."""
+    model, ct = cfg["model"], cfg["chunk_t"]
+    exp = cfg["exp"]
+    eng = production._Engine(model, exp, cfg["pts"], cfg["cal"],
+                             cfg["state0"], chunk_t=ct)
+    assert eng.slim and getattr(exp, "point_perm", None) is None
+    perm, inv = station_order(cfg["st_idx"], cfg["raw_st"].tair.shape[0])
+    t0 = 7 * ct
+    rest = (model.cfg, model.params, model.grid)
+    geo = eng.scan_kwargs(t0, ct)
+    to_st = lambda x, d: x.index_select(d, perm)
+    back = lambda r: (r[0].index_select(1, inv), r[1].index_select(1, inv),
+                      r[2].index_select(2, inv))
+    forc2, kw2 = eng.kernel_inputs(t0)
+    cases = {"K2": (forc2, kw2), "K1": (eng.chunk_forcing(t0), {})}
+    calls = {}
+    for mode, (forc, kw) in cases.items():
+        kw_s = dict(kw)
+        if "aux_rows" in kw:
+            kw_s["aux_rows"] = to_st(kw["aux_rows"], 1)
+        calls[mode] = {
+            "caller": ((eng.tmp0, eng.scal0, forc), kw),
+            "station": ((to_st(eng.tmp0, 1), to_st(eng.scal0, 1),
+                         to_st(forc, 2)), kw_s)}
+    del forc2, cases
+
+    def launch(mode, order):
+        args, kw = calls[mode][order]
+        return sk.scan_cuda(*args, *rest, **geo, **kw)
+
+    libs = [("this build", build.load())]
+    for label, sources in variants:
+        info = build.build(sources)
+        log_build(label, info)
+        libs.append((label, build.load(sources)))
+    out = {}
+    for mode in calls:
+        want = launch(mode, "caller")
+        for label, lib in libs:
+            with kernel_library(lib):
+                got_c, got_s = launch(mode, "caller"), launch(mode, "station")
+            torch.cuda.synchronize()
+            assert_bitwise(f"{mode} 1M station chunk, {label}, caller order, "
+                           f"vs this build", got_c, want)
+            assert_bitwise(f"{mode} 1M station chunk, {label}, station order "
+                           f"mapped back, vs caller order", back(got_s), want)
+            del got_c, got_s
+        del want
+    stats = {}
+    for order in ("caller", "station"):
+        args, kw = calls["K2"][order]
+        stats[order] = {}
+        sk.scan_reference(*args, *rest, stats=stats[order], **geo, **kw)
+        log(f"  [{card_line()}] K2 station chunk, {order} order: "
+            f"{iterations(stats[order])}")
+    assert stats["caller"]["bl_iters"] == stats["station"]["bl_iters"]
+    turns = [(label, lib, order) for label, lib in libs
+             for order in ("caller", "station")]
+    for mode in calls:
+        ms = {(label, order): [] for label, _, order in turns}
+        for seq in (turns, turns[::-1]):
+            for label, lib, order in seq:
+                with kernel_library(lib):
+                    ms[(label, order)].append(cuda_ms(
+                        lambda: launch(mode, order), reps=10))
+        args, kw = calls[mode]["station"]
+        bound = scan_bound(args, dict(geo, **kw), stats["station"],
+                           model.settings.nlayers)
+        log(f"  [{card_line()}] {mode} per 1M x 64 station chunk (ms, two "
+            f"readings in turns): " + json.dumps(
+                {f"{label}, {order}": [round(v, 4) for v in vals]
+                 for (label, order), vals in ms.items()}))
+        mean = lambda key: sum(ms[key]) / len(ms[key])
+        out[mode] = (mean(("this build", "station")),
+                     mean(("this build", "caller")), bound)
+    # the per-chunk row gathers in both orders (neighbouring lanes read one
+    # station's row in station order)
+    exp_s = copy.copy(exp)
+    exp_s.prep_data = dict(exp.prep_data, sidx=to_st(exp.prep_data["sidx"],
+                                                     0))
+    gathers = {}
+    for order, e, obs in (("caller", exp, eng.obs_dev),
+                          ("station", exp_s, to_st(eng.obs_dev, 0)),
+                          ("station", exp_s, to_st(eng.obs_dev, 0)),
+                          ("caller", exp, eng.obs_dev)):
+        gathers.setdefault(f"slim, {order}", []).append(round(cuda_ms(
+            lambda: e.slim_window(t0, ct), reps=5), 4))
+        gathers.setdefault(f"packed, {order}", []).append(round(cuda_ms(
+            lambda: e.packed_window(t0, ct, 1.0, 1.0, obs), reps=5), 4))
+    log(f"  [{card_line()}] station row gathers per 1M x 64 chunk (ms, in "
+        f"turns): " + json.dumps(gathers))
+    del calls, eng, exp_s
+    torch.cuda.empty_cache()
+    return out
 
 
 def _small_station_case(S=64, P=8192, T=97, seed=11):
@@ -737,6 +957,38 @@ def phase_coupled_small(P=8192):
             f"{c['coupling_reruns']}, coupled {c['coupling_points']}, "
             f"succeeded {c['coupling_succeeded']}, failed "
             f"{c['coupling_failed']}")
+
+
+def station_sorted_setup(cfg):
+    """Phase 5's configuration with its points passed in station order:
+    the caller of the reference run, whose blocks' sort is the identity
+    (every block keeps the caller's order).  Returns (the configuration,
+    the order as a numpy permutation of phase 5's points)."""
+    S = cfg["raw_st"].tair.shape[0]
+    order = station_order(cfg["st_idx"], S)[0].cpu().numpy()
+    idx = torch.as_tensor(order)
+    exp = production.StationExpander(cfg["raw_st"], cfg["st_idx"][order],
+                                     DEV, chunk_t=cfg["chunk_t"],
+                                     prep_ctx=cfg["ctx"])
+    sort = lambda e: production.station_sorted(e.block(0, cfg["npoints"],
+                                                       DEV))
+    assert sort(exp).point_perm is None
+    assert sort(cfg["exp"]).point_perm is not None
+    state0 = type(cfg["state0"])(*(x[idx.to(x.device)]
+                                   for x in cfg["state0"]))
+    pts = PointParams(*(np.asarray(x)[order] for x in cfg["pts"]))
+    return dict(cfg, exp=exp, pts=pts, state0=state0,
+                st_idx=cfg["st_idx"][order]), order
+
+
+def mapped(res, order):
+    """A production result with its points taken in ``order`` (the
+    numpy permutation of station_sorted_setup): the result the caller of
+    that order would see."""
+    idx = torch.as_tensor(order)
+    return res._replace(
+        fields={k: v[:, order] for k, v in res.fields.items()},
+        state=type(res.state)(*(x[idx] for x in res.state)))
 
 
 def phase_main_full(cfg, metrics, exp):
@@ -1073,15 +1325,17 @@ def phase_kernel_sharded_small(npoints=65536, T=128):
 
 
 def phase_kernel_sharded_chunk(cfg):
-    """The 1,048,576 x 64 main-path chunk of phase 5 (K2, offset 448)
-    through K4 at 1, 2, 4 and 8 blocks on the card (and over the visible
-    cards), each against one launch bit for bit and timed with CUDA events
-    beside it (one launch, the block counts, one launch); at 4 blocks
-    against the plain version, which is timed too."""
+    """The 1,048,576 x 64 main-path chunk of phase 5 (K2, offset 448) in
+    station order, as a block of the main path places it, through K4 at 1,
+    2, 4 and 8 blocks on the card (and over the visible cards), each
+    against one launch bit for bit and timed with CUDA events beside it
+    (one launch, the block counts, one launch); at 4 blocks against the
+    plain version, which is timed too."""
     model = cfg["model"]
-    eng = production._Engine(model, cfg["exp"], cfg["pts"], cfg["cal"],
+    blk = production.station_sorted(cfg["exp"].block(0, cfg["npoints"], DEV))
+    eng = production._Engine(model, blk, cfg["pts"], cfg["cal"],
                              cfg["state0"], chunk_t=cfg["chunk_t"])
-    assert eng.slim
+    assert eng.slim and eng.perm is not None
     t0 = 7 * cfg["chunk_t"]
     forc, skw = eng.kernel_inputs(t0)
     packed = (eng.tmp0, eng.scal0, forc)
@@ -1122,8 +1376,8 @@ def phase_kernel_sharded_chunk(cfg):
         torch.cuda.empty_cache()
     one_ms.append(cuda_ms(lambda: sk.scan_cuda(*packed, *rest, **geo,
                                                **skw), reps=10))
-    log(f"  [{card_line()}] K4 per 1M x 64 chunk (K2, offset {t0}) by "
-        f"blocks (ms): " + json.dumps({k: round(v, 4)
+    log(f"  [{card_line()}] K4 per 1M x 64 chunk (K2, offset {t0}, station "
+        f"order) by blocks (ms): " + json.dumps({k: round(v, 4)
                                        for k, v in times.items()})
         + f"; one launch {one_ms[0]:.4f} / {one_ms[1]:.4f} ms; plain (4 "
         f"blocks) {plain_ms:.1f} ms; K4 vs plain max |err| {err:.3e}")
@@ -1192,6 +1446,7 @@ def phase_sharded_run(cfg, label, ref=None, **kw):
     log(f"  [{card_line()}] phases (s): " + json.dumps(
         {k: round(v, 3) for k, v in metrics.phases.items()}))
     assert_same_result(f"{label}, {len(devices)} blocks vs 1", res, ref)
+    return res
 
 
 def phase_sharded_coupled_small(P=8192):
@@ -1767,9 +2022,10 @@ def main():
 
 
 def run_phases(samples):
-    sel = set(sys.argv[1:])
-    known = {"3", "3b", "3c", "3d", "4", "4b", "4c", "5", "6", "7", "7b",
-             "8", "8b"}
+    args, variants = parse_variants(sys.argv[1:])
+    sel = set(args)
+    known = {"3", "3b", "3c", "3d", "3e", "4", "4b", "4c", "5", "6", "7",
+             "7b", "8", "8b"}
     if sel - known:
         raise SystemExit(f"unknown phases {sorted(sel - known)}; "
                          f"phases: {sorted(known)}")
@@ -1788,20 +2044,23 @@ def run_phases(samples):
     info = build.build()
     log(f"  {info['path']}: {'built' if info['built'] else 'reused'} in "
         f"{info['seconds']:.2f} s")
-    for kname, regs, frame, st, ld in build.ptxas_usage(info["log"]):
-        log(f"  {kname}: {regs} registers, stack frame {frame} B, spill "
-            f"stores {st} B, spill loads {ld} B")
+    log_build("this build", info)
     build.load()
     stamp = lambda: log(f"  ({time.perf_counter() - T0:.0f} s since start)")
 
     metrics = RunMetrics(announce=True)      # phase lines on stderr
     cfg = cfg6 = cfg7 = None
-    if any(want(ph) for ph in ("3", "3b", "3d", "5", "6", "7b", "8")):
+    if any(want(ph) for ph in ("3", "3b", "3d", "3e", "5", "6", "7b", "8")):
         cfg = full_size_setup(metrics)
     if want("3"):
         log("== 3. K1 against its plain version")
         err_small = phase_kernel_small()
-        err_chunk, ms, plain_ms, bound1 = phase_kernel_chunk(cfg)
+        err_chunk, plain_ms = phase_kernel_chunk(cfg)
+        stamp()
+    if want("3e"):
+        log("== 3e. K2 and K1 on the station chunk in caller and in station "
+            "order")
+        st_order = phase_station_order(cfg, variants)
         stamp()
     if want("3b") or want("6"):
         cfg6 = coupled_full_setup(cfg, metrics)
@@ -1827,7 +2086,7 @@ def run_phases(samples):
         stamp()
 
     launched = [0, 0]
-    res5 = res7b = cfg7b = None
+    res5 = res7b = cfg7b = res_sorted = None
     if want("5"):
         log("== 5. main path at full size: 1048576 points x 8881 steps")
         # K2 (the default, slim expander) and K1 (slim=False, a second
@@ -1862,6 +2121,21 @@ def run_phases(samples):
         res5 = runs["K2"][0]
         samples.start(cfg, res5)
         del runs
+        # the blocks ran their points in station order: against a caller
+        # that passes them in that order (the sort then the identity)
+        cfg_sorted, order5 = station_sorted_setup(cfg)
+        m = RunMetrics(announce=True)
+        res_sorted, launches, _, _ = phase_main_full(cfg_sorted, m,
+                                                     cfg_sorted["exp"])
+        launched = [a + b for a, b in zip(launched, launches)]
+        log(f"  [{card}] run_production (K2, the caller's points in station "
+            f"order) stream {m.phases['stream']:.2f} s, "
+            f"{res_sorted.point_steps_per_s:.6g} point-steps/s")
+        assert_same_result("station-order blocks of the random-order caller "
+                           "vs the station-order caller, mapped",
+                           mapped(res5, order5), res_sorted)
+        del cfg_sorted
+        torch.cuda.empty_cache()
         stamp()
 
     if want("6"):
@@ -1919,8 +2193,12 @@ def run_phases(samples):
     if want("8"):
         log("== 8. the sharded main path at full size, against the "
             "one-block runs")
-        phase_sharded_run(cfg, "station, K2", ref=res5)
-        del res5
+        res8 = phase_sharded_run(cfg, "station, K2", ref=res5)
+        if res_sorted is not None:
+            assert_same_result("4 blocks in station order vs the "
+                               "station-order caller, mapped",
+                               mapped(res8, order5), res_sorted)
+        del res5, res8, res_sorted
         stamp()
         cfg7b = cfg7b or composite_sky_setup(cfg7, cfg)
         phase_sharded_run(cfg7b, "grid + stations, sky view, K3", ref=res7b)
@@ -1942,13 +2220,15 @@ def run_phases(samples):
         log(f"phases {sorted(sel)} passed; the summary needs every phase")
         return
 
+    # K1's and K2's times are phase 3e's, on phase 5's station chunk in
+    # station order, the order the main path's blocks run it in
     k1 = {"name": "scan_kernel", "launches": launched[0],
-          "max_abs_err": max(err_small, err_chunk), "ms": ms,
-          "plain_ms": plain_ms, "bound": bound1}
+          "max_abs_err": max(err_small, err_chunk), "ms": st_order["K1"][0],
+          "plain_ms": plain_ms, "bound": st_order["K1"][2]}
     k2 = {"name": "scan_kernel_slim", "launches": launched[1],
           "max_abs_err": max(err_slim_small, err_slim_chunk),
-          "ms": slim_times["slim"][0], "plain_ms": slim_times["slim"][1],
-          "bound": slim_times["slim"][2]}
+          "ms": st_order["K2"][0], "plain_ms": slim_times["slim"][1],
+          "bound": st_order["K2"][2]}
     k3 = {"name": "scan_kernel_tm", "launches": k3_launches,
           "max_abs_err": max(err_tm_small, tm["err"]), "ms": tm["ms"],
           "plain_ms": tm["plain_ms"], "bound": tm["bound"]}

@@ -20,15 +20,20 @@
 // very-cold flag); a commit masked by the failure flag; and an output row
 // where the GLOBAL step (off + t) is a multiple of out_stride.
 //
-// What bounds it on this card.  A step reads 64 B of forcing per point
-// (16 floats, coalesced: forcing is point-minor within a step; 44 B in the
-// slim mode) and writes
-// nothing but a rare output row, while each thread runs a serial chain of
-// dependent divides, logs, square roots and exps: the boundary-layer fixed
-// point alone is 5-40 iterations of one IEEE divide, one log and one sqrt,
-// and the stencil adds one divide per layer.  So the kernel is expected to
-// be bound by arithmetic latency and issue, not by memory bandwidth
-// (64 B / point-step against several hundred instructions).
+// What bounds it on this card: instruction issue, and on station data the
+// divergence of the boundary-layer loop; not bytes.  A 1M x 64 K2 chunk
+// moves 3.26 GB (0.97 ms at 3.35 TB/s) and needs 45 G float32 operations
+// (0.68 ms at 67 TFLOP/s), yet a select-form body on the caller-order
+// chunk takes 6.1 ms (0.5 TB/s; NVIDIA H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase 3e).  Each thread runs a serial chain, a time loop
+// of about 1,600 SASS instructions: 30 IEEE divides a step (MUFU.RCP +
+// refinement + FCHK + a slow-path call each, 16 of them in the stencil),
+// a software logf and a sqrtf in every boundary-layer iteration.  A warp
+// issues that chain once for 32 points and runs the fixed point (5-40
+// iterations) until its slowest lane is done: with the points in the
+// caller's order (random stations) a warp issues 13.85 iterations a
+// point-step where a lane needs 5.79 (divergence 2.39); the grid chunk,
+// whose raster order keeps neighbours in a warp, takes 4.2 ms.
 //
 // What the design does about it.  One thread per point in a 1-D grid of
 // 128-thread blocks (a ragged edge is masked with p < P, so no padding):
@@ -38,10 +43,29 @@
 // with every loop over layers unrolled at compile-time indices (a template
 // on the register capacity LM, dispatched on nlayers) so the profile is not
 // indexed at run time; the runtime output-depth node is picked with an
-// unrolled bit-masked OR for the same reason.  Each thread leaves the boundary-layer loop on
-// its own at convergence, which equals the TPU kernel's masked freeze.  The
-// TPU's double-buffered forcing DMA and its inner time chunk are dropped:
-// the point-minor layout already coalesces the reads.
+// unrolled bit-masked OR for the same reason.  Each thread leaves the
+// boundary-layer loop on its own at convergence, which equals the TPU
+// kernel's masked freeze.
+//   Warp-coherent points: the production engine sorts each block of a
+// station run by station (production.py, station_sorted), so a
+// warp's lanes mostly share a station's forcing and leave the loop
+// together (5.83 warp iterations a point-step for 5.79 a lane).
+//   No work a lane does not use: the stable and unstable sides of the
+// boundary-layer psi are a branch, not a select, so a warp whose lanes are
+// all stable skips the unstable side's sqrtf and logf; the output cadence
+// is a counter set once, not an integer modulo and divide each step (CUDA
+// has no divide instruction); the forcing pointer steps by a constant; the
+// three 1/x forms are the correctly rounded reciprocal __frcp_rn, the bits
+// of the IEEE divide without its quotient refinement and range check.
+// Every floating-point operation of every lane is the one it was, so the
+// results are bit for bit those of the select form in any point order.
+//   Registers: about 64 at <16> (8 blocks of 128 threads an SM, half the
+// warp slots); a minimum of 10 or 12 blocks in __launch_bounds__ caps them
+// at 48 or 40 and spills, so the bound names no minimum (PERF.md,
+// Findings).  The TPU's double-buffered forcing DMA and its inner time
+// chunk are dropped: the point-minor layout already coalesces the reads,
+// and a step's loads are hidden behind the other warps' thousands of
+// cycles of arithmetic.
 //
 // The slim mode (K2) is the template flag SLIM: the channel stride and
 // positions change, TRF is one __ldg broadcast per step from the time-only
@@ -66,8 +90,9 @@
 // written with __fmul_rn/__fsub_rn/__fdiv_rn/__fadd_rn and precise expf so
 // that each product rounds on its own, as torch's forcing.cof_window does
 // (K2 with cofs must equal K1 fed cof_window's channels bit for bit).
-// There are no matrix products, so TF32 never arises.  min/max propagate NaN like torch.minimum/maximum.  Flat offsets
-// are 64-bit: T * 16 * P passes 2^31 at 128 steps x 1M points.
+// There are no matrix products, so TF32 never arises.  min/max propagate
+// NaN like torch.minimum/maximum.  Flat offsets are 64-bit: T * 16 * P
+// passes 2^31 at 128 steps x 1M points.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -215,12 +240,24 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
   const float dt = c.dt;
   const float tph = c.tph;
   const float s2i = (float)(0.25 / 0.45);
+  // the output cadence as a counter: the first step t whose global step
+  // off + t is a multiple of out_stride, and its row; each hit moves both
+  // on (no integer divide in the loop; unsigned, so the step past the last
+  // hit cannot overflow)
+  const int64_t first = ((int64_t)off + c.out_stride - 1) / c.out_stride;
+  unsigned t_hit = (unsigned)(first * c.out_stride - off);
+  int row_hit = (int)first - out_base;
+  const int64_t f_step = (int64_t)K::N * FS;
 
-  for (int t = 0; t < nsteps; ++t) {
-    const float* f = fpt + ((int64_t)t * K::N) * FS;
+  const float* f = fpt;
+  for (int t = 0; t < nsteps; ++t, f += f_step) {
     const int tg = off + t;
-    const bool hit = (tg % c.out_stride) == 0;
-    const int row = tg / c.out_stride - out_base;
+    const bool hit = (unsigned)t == t_hit;
+    const int row = row_hit;
+    if (hit) {
+      t_hit += (unsigned)c.out_stride;
+      ++row_hit;
+    }
     const bool failed_prev = failed_f > 0.5f;
 
     if (failed_prev) {
@@ -258,8 +295,8 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     const float air_vcap = __ldg(f + K::AIRVCAP * FS);
     const float tak = tair + 273.15f;
     const float dt_ts = tsurf - tair;
-    const float inv_kvz = 1.0f / (c.vk * vz);
-    const float inv_avt = 1.0f / (air_vcap * tak);
+    const float inv_kvz = __frcp_rn(c.vk * vz);
+    const float inv_avt = __frcp_rn(air_vcap * tak);
     float bl = blc, psim = 0.0f, psih = 0.0f;
     for (int j = 0; j < c.bl_iters; ++j) {
       const float ustar_inv = (c.log_ustar + psim) * inv_kvz;
@@ -267,16 +304,18 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       float stab = c.stab_c * bl_new * dt_ts * inv_avt * ustar_inv *
                    ustar_inv * ustar_inv;
       stab = nmin(stab, 1.0f);
-      const float psih_s = 4.7f * stab;
-      const float psih_u =
-          -2.0f * logf((1.0f + sqrtf(nmax(1.0f - 16.0f * stab, 0.0f))) / 2.0f);
-      const bool stable = stab > 0.0f;
-      const float psih_n = stable ? psih_s : psih_u;
-      const float psim_n = stable ? psih_n : 0.6f * psih_n;
+      // a branch, not a select: the unstable side's sqrt and log run only
+      // where a lane takes it (a NaN stab is not stable, as the select had)
+      if (stab > 0.0f) {
+        psih = 4.7f * stab;
+        psim = psih;
+      } else {
+        psih = -2.0f *
+               logf((1.0f + sqrtf(nmax(1.0f - 16.0f * stab, 0.0f))) / 2.0f);
+        psim = 0.6f * psih;
+      }
       const bool newly = (fabsf(bl_new - bl) < 1e-3f) && (j + 1 >= 5);
       bl = bl_new;
-      psim = psim_n;
-      psih = psih_n;
       if (newly) break;
     }
     const float raero = nmin((c.log_mom + psim) * (c.log_heat + psih) *
@@ -347,7 +386,10 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
         const float chwt = roo * cw;
         const float vsh = (j <= 2 ? c.dry1 : c.dry2) + c.wcont[j - 1] * chwt;
         if (j == 1) hs1 = vsh * c.dyc[0] / dt;
-        const float cap_dz = -1.0f / (c.dyc[j - 1] * vsh);
+        // -1/x as the negated correctly rounded reciprocal: the same bits
+        // as the IEEE divide, without its quotient refinement and range
+        // check
+        const float cap_dz = -__frcp_rn(c.dyc[j - 1] * vsh);
         const float gflux = c.cond_dz[j - 1] * (tmp[j + 1] - tj);
         tmp[j] = tj + dt * cap_dz * (gflux - g_prev);
         g_prev = gflux;

@@ -7,6 +7,9 @@ sources and the flags, so an edited source or flag builds anew and an
 unchanged one is reused.  A missing ``nvcc`` or a failed build raises; there
 is no fallback.  ``nvcc -Xptxas -v`` output (registers, spills) is kept in
 the ``.log`` beside the library.
+
+``build`` and ``load`` also take another source list: a measurement builds an
+earlier copy of the kernel into a library of its own beside the package's.
 """
 from __future__ import annotations
 
@@ -42,26 +45,26 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
-def library_path() -> Path:
+def library_path(sources=SOURCES) -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in map(Path, sources):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"libroadsurf_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict:
+def build(sources=SOURCES) -> dict:
     """Compile the sources unless the hashed library exists.  Returns
     ``{"path", "seconds", "built", "log"}`` (``seconds`` 0 when reused)."""
-    lib = library_path()
+    lib = library_path(sources)
     log = lib.with_suffix(".log")
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "built": False,
                 "log": log.read_text() if log.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -93,13 +96,13 @@ def ptxas_usage(log: str) -> list:
     return usage
 
 
-def load() -> ctypes.CDLL:
+def load(sources=SOURCES) -> ctypes.CDLL:
     """Build if needed and load the kernel library (once per process)."""
-    path = library_path()
+    path = library_path(sources)
     lib = _LIBS.get(path)
     if lib is not None:
         return lib
-    build()
+    build(sources)
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.roadsurf_scan.argtypes = [vp] * 7 + [ci] * 6 + [vp]

@@ -236,6 +236,15 @@ def _bl_fixed_point(blcond, tsurf, tair, vz, air_vcap, p: PhysicsParams,
     return bl, psim, psih, inv_kvz, iters
 
 
+def _warp_iters(lane_iters):
+    """The iterations the kernel's warps issue for ``lane_iters`` [P] (one
+    step's count per point): 32 times the largest of each 32 consecutive
+    points, summed (a ragged last warp padded with idle lanes)."""
+    pad = -lane_iters.shape[0] % 32
+    w = torch.nn.functional.pad(lane_iters, (0, pad)).reshape(-1, 32)
+    return 32 * w.amax(dim=1).sum()
+
+
 def _surf_ave(tmp, cfg: StepConfig):
     if cfg.use_depth:
         i = cfg.depth_idx
@@ -496,8 +505,12 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     ``t_total - 1``; ``cof_red`` is settings.coupling_effect_reduction).
 
     ``stats`` (optional dict): accumulates ``point_steps``, the steps run
-    by points not yet failed, and ``bl_iters``, the boundary-layer
-    iterations those steps take: the work the kernel does on these inputs.
+    by points not yet failed, ``bl_iters``, the boundary-layer iterations
+    those steps take (the work the kernel does on these inputs), and
+    ``bl_warp_iters``, the iterations a warp issues for them: for each
+    group of 32 consecutive points (one warp of the kernel) 32 times its
+    largest count, summed over steps, since a warp runs the loop until its
+    slowest lane is done (a failed point counts 0).
 
     Returns (tmp [LPAD, P], scal [NROWS, P], out [n_out, N_OUT_FIELDS, P]).
     """
@@ -555,10 +568,11 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
         bl, psim, psih, inv_kvz, iters = _bl_fixed_point(
             sc[R_BLCOND], tsurf, tair, vz, air_vcap, p, cfg.bl_max_iter)
         if stats is not None:
-            stats["point_steps"] = (stats.get("point_steps", 0)
-                                    + int(active.sum()))
-            stats["bl_iters"] = (stats.get("bl_iters", 0)
-                                 + int(iters[active].sum()))
+            lane = torch.where(active, iters, 0.0).to(torch.int64)
+            for key, n in (("point_steps", active.sum()),
+                           ("bl_iters", lane.sum()),
+                           ("bl_warp_iters", _warp_iters(lane))):
+                stats[key] = stats.get(key, 0) + int(n)
         raero = torch.clamp((p.log_mom + psim) * (p.log_heat + psih)
                             * (inv_kvz / p.vk_const), max=30.0)
         tak = tair + 273.15

@@ -32,7 +32,9 @@ operational path is an async thread-pool runner over the full data plane
    K1's layout, per chunk;
  * the points are cut into one equal contiguous block for each entry of
    ``devices`` (``expander.block``: station-rank data replicated on every
-   device, point-rank data only on its block's); each chunk of every block
+   device, point-rank data only on its block's; a station block sorted by
+   station by ``station_sorted``, so a warp of the kernel runs points that converge together,
+   its outputs returned in the caller's order); each chunk of every block
    goes through ONE sharded launch of the hand-written CUDA whole-scan
    kernel (K4, ``parallel/sharding.py`` -> ``ops/scan_kernel.py``), each
    block on its own stream, with no exchange between blocks; the
@@ -178,8 +180,10 @@ class StationExpander:
     row gather as ``window``; the engine runs the per-point prep in that
     layout and the kernel's tile-major mode K3 whenever it does not take
     the fast path (sky view on, or no ``prep_ctx``), and a
-    CompositeExpander can overlay it on a grid in that layout.  The port
-    sorts no points.
+    CompositeExpander can overlay it on a grid in that layout.
+
+    Station order: ``block`` cuts in the caller's order; a run places each
+    block through ``station_sorted``, which sorts its points by station.
     """
 
     def __init__(self, raw_st: RawForcing, st_idx, device, chunk_t: int,
@@ -420,6 +424,43 @@ class StationExpander:
             trf_fric=pd["trf"][t0:t0 + tc])
 
 
+def station_sorted(block):
+    """``block`` (an expander's ``block``) in the order a run places it.
+
+    A StationExpander block comes back with its points sorted by station
+    with a stable sort, out-of-radius points last (production.py:289-346,
+    the JAX package's ``point_perm``): the 32 points of a warp of the
+    kernel then mostly share a station and run the boundary-layer fixed
+    point for the same count of iterations, where in the caller's order a
+    warp runs it until the slowest of 32 random stations is done.  The sort
+    never crosses the block, so its range, shards and checkpoints keep
+    their points.  ``point_perm`` [P] (on the block's device) lists the
+    caller's points in that order and ``point_inv`` is its inverse, both
+    None where the caller's order is already sorted; the station index and
+    mask follow the order, the host arrays stay in the caller's.  The
+    engine places every per-point array in that order and returns outputs
+    and state in the caller's.  Grid and composite blocks keep the caller's
+    order and come back as they are."""
+    if not isinstance(block, StationExpander):
+        return block
+    b = copy.copy(block)
+    S = np.asarray(b._raw_host.tair).shape[0]
+    order = np.argsort(np.where(b._ok_host, b._ie_host, S), kind="stable")
+    b.point_perm = b.point_inv = None
+    if np.array_equal(order, np.arange(len(order))):
+        return b
+    perm = torch.as_tensor(order, device=b.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(len(order), device=b.device)
+    b.point_perm, b.point_inv = perm, inv
+    b.ok, b.st_idx = (b.ok.index_select(0, perm),
+                      b.st_idx.index_select(0, perm))
+    if b.prep_data is not None:
+        b.prep_data = dict(b.prep_data, sidx=b.prep_data["sidx"]
+                           .index_select(0, perm))
+    return b
+
+
 def merge_windows(windows: Sequence[RawForcing]) -> RawForcing:
     """Source-overlay merge of windows of one layout, in config order:
     later sources overwrite earlier values where valid (production.py:
@@ -445,8 +486,9 @@ class CompositeExpander:
 
     The tile layout composes when all parts share one ``tile_geom``;
     otherwise the composite has none and the engine runs the generic
-    path.  Parts that carry a point permutation are refused:
-    the port sorts no points."""
+    path.  The composite keeps the caller's point order, which its grid
+    parts are laid out in: parts that carry a point permutation (a block
+    through ``station_sorted``) are refused."""
 
     def __init__(self, parts: Sequence):
         if not parts:
@@ -1043,7 +1085,13 @@ class _Engine:
     Routes, in order: the station fast path (``prep_data``, sky view off;
     K2, or K1 with ``slim=False``); the tile-major path for an expander with
     a ``tile_geom`` (per-point prep in the tile layout, sky view included;
-    K3 slim); else the generic path (per-point prep in [Tc, P]; K1)."""
+    K3 slim); else the generic path (per-point prep in [Tc, P]; K1).
+
+    Point order: an expander with a ``point_perm`` (a station block) holds
+    its points in station order, and the engine places every per-point
+    array (params, anchors, packed state) in that order, as
+    production.py:1384-1407 does; ``to_caller`` maps a per-point tensor
+    back.  Without one, the engine's order is the caller's."""
 
     #: True sends every run off the fast path down the generic route (the
     #: reference the tile-major route is held to in the tests and on the
@@ -1064,6 +1112,8 @@ class _Engine:
         settings, params, cfg, grid = (model.settings, model.params,
                                        model.cfg, model.grid)
         self.expander = expander
+        self.perm = getattr(expander, "point_perm", None)
+        self.inv = getattr(expander, "point_inv", None)
         self.settings, self.params, self.cfg, self.grid = (settings, params,
                                                            cfg, grid)
         self.T = settings.sim_len
@@ -1096,7 +1146,8 @@ class _Engine:
 
             def put_pts(x, dt):
                 x = _pad_tail(np.asarray(x), self.P_pad, axis=0)
-                return torch.tensor(x.astype(dt), device=dev)
+                return self.to_engine(torch.tensor(x.astype(dt),
+                                                   device=dev), 0)
 
             # the [P, 360] horizon table (1.5 GB at 1M points) only when
             # sky view reads it; else a 1-wide placeholder
@@ -1147,8 +1198,10 @@ class _Engine:
                     return x
                 return torch.cat([x, x[-1:].expand(n, *x.shape[1:])])
             st = State(*(padleaf(x) for x in state))
-            self.tmp0, self.scal0 = sk.pack_state(st)
-            self.scal0[sk.R_FAILED, self.n_real:] = 1.0
+            tmp0, scal0 = sk.pack_state(st)
+            scal0[sk.R_FAILED, self.n_real:] = 1.0
+            self.tmp0, self.scal0 = (self.to_engine(tmp0, 1),
+                                     self.to_engine(scal0, 1))
             self.template = state
 
         # station-level prepared channels bypass per-point forcing prep;
@@ -1196,6 +1249,16 @@ class _Engine:
             from .ops import build
             with self.metrics.phase("build"):
                 build.load()
+
+    def to_engine(self, x, dim: int):
+        """A per-point tensor (points on ``dim``) from the caller's order
+        into the engine's."""
+        return x if self.perm is None else x.index_select(dim, self.perm)
+
+    def to_caller(self, x, dim: int):
+        """A per-point tensor (points on ``dim``) from the engine's order
+        back into the caller's."""
+        return x if self.inv is None else x.index_select(dim, self.inv)
 
     def _check_fast_contract(self, expander, pts):
         """The station-level fast path is only valid when every per-point
@@ -1388,7 +1451,8 @@ class _Blocks:
             cut = lambda x: _rows(x, lo, lo + per, n_real)
             with mesh.scope(b):
                 eng = _Engine(
-                    model, expander.block(lo, lo + per, mesh.devices[b]),
+                    model, station_sorted(
+                        expander.block(lo, lo + per, mesh.devices[b])),
                     PointParams(*(cut(x) for x in pts)), cal,
                     State(*(cut(x) for x in state)),
                     anchors=(tuple(cut(np.asarray(a)) for a in anchors)
@@ -1424,9 +1488,11 @@ class _Blocks:
         numpy array for each block on the host: this process's columns
         only (production.py:1858-1868; both drain modes pull the same in
         one process, and a run of several processes has only ``shard``).
-        ``assemble`` joins them once, at the end of the run."""
+        ``assemble`` joins them once, at the end of the run.  A block in
+        station order is put back into the caller's on its device first."""
         # each copy is issued on, and waits for, its block's own stream
-        return [blocks[b][:n_rows].cpu().numpy() for b, _ in self.scopes()]
+        return [eng.to_caller(blocks[b][:n_rows], 2).cpu().numpy()
+                for b, eng in self.scopes()]
 
     def stream(self, carry, t_lo: int, t_hi: int, cofs=None,
                progress: Optional[Progress] = None, collected=None):
@@ -1494,7 +1560,8 @@ class _Blocks:
             nlayers = self.model.grid.nlayers
             leaves = []
             for b, eng in self.scopes():
-                ust = sk.unpack_state(*carry[b], nlayers, eng.template)
+                tmp, scal = (eng.to_caller(x, 1) for x in carry[b])
+                ust = sk.unpack_state(tmp, scal, nlayers, eng.template)
                 leaves.append([x.cpu() for x in ust])
             final = State(*(
                 torch.from_numpy(host_shard(
@@ -1685,7 +1752,7 @@ def run_production_coupled(model: Model, expander,
             np.pad(coupled_np[lo:hi], (0, eng.P_pad - len(coupled_np[lo:hi]))),
             device=eng.device)
         n_cpl += int(cpl.sum())
-        n_failed += int((cpl & cvs[b].failed).sum())
+        n_failed += int((cpl & eng.to_caller(cvs[b].failed, 0)).sum())
     run.metrics.count("coupling_window_steps", W)
     run.metrics.count("coupling_reruns", max(d[3] for d in done))
     run.metrics.count("coupling_window_rows", sum(d[4] for d in done))

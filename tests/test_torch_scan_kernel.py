@@ -18,6 +18,7 @@ from roadsurf_tpu_torch import interop
 from roadsurf_tpu_torch import model as tmodel
 from roadsurf_tpu_torch.ops import build
 from roadsurf_tpu_torch.ops import scan_kernel as sk
+from roadsurf_tpu_torch.tools import sass
 
 torch.set_num_threads(1)
 
@@ -190,6 +191,97 @@ def test_ptxas_usage_parses_log():
     assert build.ptxas_usage(log) == [
         ("_Z4kernILi16ELb1EEv", 64, 8, 4, 8),
         ("_Z4kernILi16ELb0EEv", 60, 0, 0, 0)]
+
+
+SASS_LISTING = """
+\tcode for sm_90a
+\t\tFunction : _Z11scan_kernelILi16ELb0ELb1EEv10ScanConsts
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;       /* 0x0000000000007919 */
+.L_x_3:
+        /*0020*/                   MUFU.RCP R3, R2 ;
+        /*0030*/                   FCHK P0, R4, R2 ;
+        /*0040*/               @P0 CALL.REL.NOINC `(__internal_0_$__cuda_sm3x_div_rn_noftz_f32_slowpath) ;
+.L_x_4:
+        /*0050*/                   MUFU.LG2 R5, R5 ;
+        /*0060*/                   MUFU.RSQ R6, R7 ;
+        /*0070*/              @!P1 BRA `(.L_x_4) ;
+        /*0080*/                   NOP ;
+        /*0090*/               @P2 BRA 0x20 ;
+        /*00a0*/                   EXIT ;
+.L_x_9:
+        /*00b0*/                   BRA `(.L_x_9);
+\t\tFunction : _Z4tinyv
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_stats_parses_listing():
+    """Instructions, the watched opcode families and the loops (backward
+    branches, by label or by address) of a cuobjdump -sass listing; NOPs
+    and a branch to itself are left out."""
+    got = sass.sass_stats(SASS_LISTING)
+    assert set(got) == {"_Z11scan_kernelILi16ELb0ELb1EEv10ScanConsts",
+                        "_Z4tinyv"}
+    k = got["_Z11scan_kernelILi16ELb0ELb1EEv10ScanConsts"]
+    assert k["instructions"] == 11
+    assert k["opcodes"] == {"BRA": 3, "CALL": 1, "FCHK": 1, "MUFU": 3,
+                            "MUFU.LG2": 1, "MUFU.RCP": 1, "MUFU.RSQ": 1}
+    inner, outer = k["loops"]
+    assert (inner["start"], inner["end"], inner["instructions"]) == (
+        0x50, 0x70, 3)
+    assert inner["opcodes"] == {"BRA": 1, "MUFU": 2, "MUFU.LG2": 1,
+                                "MUFU.RSQ": 1}
+    assert (outer["start"], outer["end"], outer["instructions"]) == (
+        0x20, 0x90, 7)
+    assert got["_Z4tinyv"] == {"instructions": 1, "opcodes": {},
+                               "loops": []}
+
+
+def test_warp_iterations_of_lane_counts():
+    """A warp issues its slowest lane's iterations for all 32 lanes; a
+    ragged last warp's idle lanes cost the same slots."""
+    lane = torch.full((70,), 5, dtype=torch.int64)
+    lane[7] = 12                      # warp 0: 32 x 12
+    lane[32:64] = 7                   # warp 1: 32 x 7
+    lane[64:] = torch.tensor([5, 5, 9, 0, 5, 5])   # warp 2: 32 x 9
+    assert int(sk._warp_iters(lane)) == 32 * (12 + 7 + 9)
+    assert int(sk._warp_iters(torch.zeros(0, dtype=torch.int64))) == 0
+
+
+def test_reference_counts_warp_iterations():
+    """``stats`` of scan_reference on copies of one point: 64 copies keep
+    every warp coherent (warp iterations = lane iterations); 40 copies fill
+    one warp and 8 of 32 lanes of another (the warps issue 64 / 40 of the
+    lane iterations); a point failed from the start runs no step and
+    issues nothing, but its warp still runs the loop for its other lanes."""
+    (tmp0, scal0, forc), _, geo, tm = _tm_case("k1", False, npoints=128,
+                                               nsteps=24)
+    rest = (tm.cfg, tm.params, tm.grid)
+
+    def stats_of(n, failed=()):
+        idx = torch.zeros(n, dtype=torch.int64)
+        sc = scal0[:, idx].clone()
+        sc[sk.R_FAILED, list(failed)] = 1.0
+        st = {}
+        sk.scan_reference(tmp0[:, idx], sc, forc[:, :, idx], *rest,
+                          stats=st, **geo)
+        return st
+
+    one = stats_of(1)
+    assert one["point_steps"] == 24
+    assert one["bl_warp_iters"] == 32 * one["bl_iters"]
+    s64 = stats_of(64)
+    assert s64["bl_iters"] == 64 * one["bl_iters"]
+    assert s64["bl_warp_iters"] == s64["bl_iters"]
+    s40 = stats_of(40)
+    assert s40["bl_warp_iters"] == 64 * one["bl_iters"]
+    s_failed = stats_of(64, failed=(3,))
+    assert s_failed["point_steps"] == 63 * 24
+    assert s_failed["bl_iters"] == 63 * one["bl_iters"]
+    assert s_failed["bl_warp_iters"] == 64 * one["bl_iters"]
 
 
 @pytest.mark.cuda
