@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: builds the
-hand-written scan kernel (K1, point-major; K2, slim; K3, tile-major: modes
-of one source) and its sharded launch (K4) from this checkout, holds each
+hand-written scan kernel (K1, point-major; K2, slim; K3, tile-major; K3
+fused, tile-major with the forcing prepared in the kernel from the raw
+series: modes of one source) and its sharded launch (K4) from this
+checkout, holds each
 against its plain torch version, drives the station-fed production forecast
 end to end at 1,048,576 points x 8,881 steps (the operational 74-hour run
 at dt 30 s), uncoupled and observation-coupled, and the NWP-grid and
@@ -64,15 +66,27 @@ the plain version):
     steps, both channel sets, with and without the decay, on an offset
     chunk with nsteps < T that holds the run's last step; then one
     1,048,576 x 64 chunk of phase 7's grid forecast at each tile width,
-    timed beside K2 on the same values;
- 4c. the tile-major production path (K3) small on the card: 8,192 points,
-    97 steps, (chunk_t, out_stride) = (32, 6) and (16, 7), for a grid, a
-    grid+station composite and a station expander with sky view, uncoupled
+    timed beside K2 on the same values.  K3 fused against the unfused route
+    (the eager prep into K3) and its plain version (the eager prep into
+    scan_reference), at the kernel tolerances with equal failed masks,
+    each case reported bitwise or not: 65,536 points, a 128-step chunk at
+    offset 40 with 100 steps and the run's last step, phase 7's grid with
+    relaxation, phase 7b's composite (the offset chunk's series as its
+    stations) with sky view, coupling and the decay, without and with
+    relaxation, the stations alone with sky view at night and by day;
+    then one 1,048,576 x 64 chunk of phase 7's grid, timed beside the
+    unfused route's prep and K3 with K3 fused's bound;
+ 4c. the tile-major production path small on the card: 8,192 points, 97
+    steps, (chunk_t, out_stride) = (32, 6) and (16, 7), for a grid, a
+    grid+station composite and a station expander with sky view (each
+    through K3 fused) and a grid under two station networks with sky view
+    (a composite K3 fused does not take: K3 on the eager prep), uncoupled
     and coupled (the coupling window and obs from last_valid_scan of the
-    merged obs), each against Model.run / Model.run_coupled fed host_at's
-    merged forcing and against the same engine forced onto the generic K1
-    route;
- 7. the NWP-grid forecast at full size through K3: the JAX package's grid
+    merged obs), each through its own route and the generic K1 route,
+    against Model.run / Model.run_coupled fed host_at's merged forcing and
+    against each other; K3's launches count here;
+ 7. the NWP-grid forecast at full size through K3 fused (no prepare_window
+    call): the JAX package's grid
     configuration (tools/gen_production.py --grid-source: a 300 x 400 grid
     of 75 hourly samples over 59.6-70.1 N, 20.5-31.6 E, its field formulas
     at seed 7) at 1,048,576 points on a 1024 x 1024 raster, 8,881 steps,
@@ -83,7 +97,9 @@ the plain version):
     obs, wind, direct shortwave and net longwave (the grid carries neither
     radiation component, and sky view reads both), with sky view 0.6 and
     U(0, 25) degree horizons on every third point, at the same size and
-    under the same bounds.
+    under the same bounds, after its 1,048,576 x 64 chunk is held and timed
+    as phase 7's in 3c; the float32 sample's tsurf error against float64
+    is printed (the sun's time terms from the float64 Julian day).
 
  3d. K4 against its plain version and against one launch: the offset chunk
     of phases 3b/3c (65,536 points x 128 steps) for K1, K2 with the decay
@@ -201,6 +217,20 @@ OPS_STEP = 141
 OPS_LAYER = 26
 OPS_BL_ITER = 25
 OPS_DECAY = 10
+# K3 fused's prep, counted from csrc/scan_kernel.cu:fused_prep the same way:
+# float32 operations of every point-step (the wind floor, the sw_dir clamp,
+# prec_step, the Koistinen interpretation, forcing_thermo), of each grid
+# channel a point-step (grid_value), of each grid channel and segment a
+# point per chunk (grid_segments), of a point-step whose sky view is active
+# (the sun's per-point part and modify_radiation); float64 operations of a
+# point-step with relaxation on (the decay, the three relaxed fields, the
+# Koistinen interpretation), over the card's float64 rate
+OPS_PREP = 29
+OPS_GRID_CH = 3
+OPS_SEGMENT = 7
+OPS_SKY = 45
+OPS_RELAX_F64 = 19
+PEAK_F64_OPS_S = 34e12
 T0 = time.perf_counter()
 
 
@@ -215,19 +245,38 @@ MAIN_PATH_K4 = [0]
 def reset_counts():
     """Every launch count to 0, just before a main-path run."""
     sk.LAUNCHES = sk.LAUNCHES_SLIM = sk.LAUNCHES_TM = 0
-    sk.LAUNCHES_SHARDED = 0
+    sk.LAUNCHES_TM_FUSED = sk.LAUNCHES_SHARDED = 0
 
 
 def read_counts(n_chunks=None):
-    """(K1, K2, K3) launches since reset_counts, just after a main-path
-    run; the run's sharded launches (one a chunk, whatever its blocks) go
-    to MAIN_PATH_K4."""
+    """(K1, K2, K3, K3 fused) launches since reset_counts, just after a
+    main-path run; the run's sharded launches (one a chunk, whatever its
+    blocks) go to MAIN_PATH_K4."""
     if n_chunks is not None:
         assert sk.LAUNCHES_SHARDED == n_chunks, (sk.LAUNCHES_SHARDED,
                                                  n_chunks)
     assert sk.LAUNCHES_SHARDED > 0
     MAIN_PATH_K4[0] += sk.LAUNCHES_SHARDED
-    return sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM
+    return (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM,
+            sk.LAUNCHES_TM_FUSED)
+
+
+class PrepCalls:
+    """Counts forcing.prepare_window's calls from the production engine
+    while in the block (the fused route makes none)."""
+
+    def __enter__(self):
+        self.n = 0
+        self._orig = production.prepare_window
+
+        def counted(*a, **k):
+            self.n += 1
+            return self._orig(*a, **k)
+        production.prepare_window = counted
+        return self
+
+    def __exit__(self, *exc):
+        production.prepare_window = self._orig
 
 
 def card_line() -> str:
@@ -629,12 +678,16 @@ def phase_kernel_slim_chunk(cfg6):
 # ---------------------------------------------------------------------------
 
 def kernel_label(mangled):
-    """``scan_kernel<LM, DEPTH, SLIM>`` of a mangled instantiation name."""
-    m = re.search(r"scan_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    """``scan_kernel<LM, DEPTH, SLIM, FUSED>`` of a mangled instantiation
+    name (three arguments for a source from before K3 fused)."""
+    m = re.search(r"scan_kernelILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?",
+                  mangled)
     if not m:
         return mangled
     tf = lambda b: "true" if b == "1" else "false"
-    return f"scan_kernel<{m.group(1)}, {tf(m.group(2))}, {tf(m.group(3))}>"
+    return ("scan_kernel<" + ", ".join(
+        [m.group(1)] + [tf(g) for g in m.groups()[1:] if g is not None])
+        + ">")
 
 
 def log_build(label, info):
@@ -1064,7 +1117,7 @@ class SampleRuns:
         self.pool.shutdown(wait=True, cancel_futures=True)
 
     def start(self, cfg, res, n=64, coupled=False, raw_fn=None,
-              hold_f32=False):
+              hold_f32=False, label=""):
         """A sample of ``n`` points of the run ``res`` re-run through
         Model.run (Model.run_coupled when ``coupled``) over the whole
         horizon, in float32 and in float64.  ``raw_fn(idx)`` gives the
@@ -1089,6 +1142,7 @@ class SampleRuns:
                 for dt in (np.float32, np.float64)]
         self.pending.append(dict(
             jobs=jobs, n=n, T=cfg["T"], coupled=coupled, hold_f32=hold_f32,
+            label=label,
             t0=time.perf_counter(), failed=res.state.failed[idx].numpy(),
             got={name: res.fields[name][:, idx].copy()
                  for name in production.OUT_FIELD_ROWS}))
@@ -1134,7 +1188,8 @@ class SampleRuns:
             fmt = lambda e: json.dumps({k: float(f"{v:.3e}")
                                         for k, v in e.items()})
             what = "Model.run_coupled" if s["coupled"] else "Model.run"
-            log(f"  {s['n']}-point sample over {s['T']} steps (ready "
+            log(f"  {s['label'] + ': ' if s['label'] else ''}"
+                f"{s['n']}-point sample over {s['T']} steps (ready "
                 f"{secs:.0f} s after its run), max |err| against float64 "
                 f"{what}: kernel path {fmt(err)}; float32 {what} "
                 f"{fmt(err32)}; kernel path against float32 {what} "
@@ -1427,10 +1482,14 @@ def phase_sharded_run(cfg, label, ref=None, **kw):
     metrics = RunMetrics(announce=True)
     reset_counts()
     t0 = time.perf_counter()
-    res = production.run_production(*args, devices=devices,
-                                    chunk_t=cfg["chunk_t"], metrics=metrics,
-                                    progress=Progress(T, every_s=5.0), **kw)
+    with PrepCalls() as calls:
+        res = production.run_production(*args, devices=devices,
+                                        chunk_t=cfg["chunk_t"],
+                                        metrics=metrics,
+                                        progress=Progress(T, every_s=5.0),
+                                        **kw)
     launches = read_counts(n_chunks)
+    assert calls.n == 0, calls.n
     wall = time.perf_counter() - t0
     assert sum(launches) == n_chunks * len(devices), launches
     check_outputs(res, cfg)
@@ -1441,7 +1500,8 @@ def phase_sharded_run(cfg, label, ref=None, **kw):
         f"on {len(set(devices))} card(s)) wall {wall:.2f} s, stream "
         f"{metrics.phases['stream']:.2f} s = {res.point_steps_per_s:.6g} "
         f"point-steps/s, kernel launches K1 {launches[0]} K2 {launches[1]} "
-        f"K3 {launches[2]}, sharded launches {n_chunks}, peak device memory "
+        f"K3 {launches[2]} K3 fused {launches[3]}, sharded launches "
+        f"{n_chunks}, prepare_window calls {calls.n}, peak device memory "
         f"(GiB) {json.dumps(peaks)}")
     log(f"  [{card_line()}] phases (s): " + json.dumps(
         {k: round(v, 3) for k, v in metrics.phases.items()}))
@@ -1606,14 +1666,16 @@ def phase_two_processes(nproc=2):
 
 
 def chunk_pieces(eng, t0, label):
-    """The three layers of one stream chunk at ``t0``, timed alone with
-    CUDA events: the forcing (raw window, prep and stack), the kernel, and
-    the drain of one output row."""
-    forc, kw = eng.kernel_inputs(t0)
+    """The three layers of one chunk at ``t0`` on the unfused tile-major
+    route, timed alone with CUDA events: the forcing (raw window, prep and
+    stack), the kernel (K3), and the drain of one output row."""
+    src, kw = eng.kernel_inputs(t0)
+    forc = sk.pack_forcing_slim_tm(src.prepared())[0]
     geo = dict(out_stride=eng.os_, nsteps=eng.chunk_t, out_offset=t0,
                n_out=eng.k_alloc)
     rest = (eng.cfg, eng.params, eng.grid)
-    prep_ms = cuda_ms(lambda: eng.kernel_inputs(t0), reps=3)
+    prep_ms = cuda_ms(lambda: sk.pack_forcing_slim_tm(src.prepared()),
+                      reps=3)
     kern_ms = cuda_ms(lambda: sk.scan_cuda(eng.tmp0, eng.scal0, forc, *rest,
                                            **geo, **kw), reps=5)
     row = sk.scan_cuda(eng.tmp0, eng.scal0, forc, *rest, **geo, **kw)[2]
@@ -1624,6 +1686,257 @@ def chunk_pieces(eng, t0, label):
     return forc, kw, geo, (prep_ms, kern_ms, drain_ms)
 
 
+def fused_bound(eng, src, geo, stats):
+    """(bound_ms, bound_by) of one K3 fused call: the larger of the bytes it
+    must read and write once over the card's HBM rate and its operations
+    over the float32 and float64 rates.  Bytes: the grid part's window
+    rows (KW raw rows of each channel it carries) and [T_pad] time
+    machinery of the chunk, the station part's chunk of each channel it
+    reads, its station index and mask, the per-point parameters the prep
+    reads (the horizon table only at the entries this chunk's sky-active
+    point-steps need), the sun terms, hour and TRF of the chunk, and the
+    state, profile, aux rows and outputs as ``scan_bound``.  Operations:
+    the body's (``stats`` from the plain version) and the prep's (OPS_*)."""
+    a = src.kernel_args()
+    P = eng.P_pad
+    nsteps, off, stride = geo["nsteps"], geo["out_offset"], geo["out_stride"]
+    L = eng.grid.nlayers
+    rows = len(range(-(-off // stride) * stride, off + nsteps, stride))
+    n_g = sum(1 for n, x in a["g"].items() if n != "prec_phase")
+    g_all = len(a["g"])
+    n_s = len(a["s"])
+    sky = np.asarray(eng.pts_dev.sky_view.cpu())
+    sky_share = (float(np.mean((sky < 1.0) & (sky > -0.01)))
+                 if eng.enable_sky else 0.0)
+    n_bytes = 4 * P * (2 * (L + 3 + sk.R_FAILED + 1) + rows * 6 + 4)
+    n_bytes += 4 * P * g_all * a.get("KW", 0) + 4 * nsteps * 7
+    if n_s:
+        S = eng.fused_parts[1].channels.tair.shape[0]
+        n_bytes += 4 * S * nsteps * n_s + 9 * P
+    n_bytes += 4 * P * (4 + (2 if eng.enable_sky else 0)
+                        + (6 if a["relax"] else 0))
+    n_bytes += 4 * nsteps * (2 + (4 if eng.enable_sky else 0))
+    if eng.enable_sky and not eng.flat_horizons:
+        n_bytes += 4 * stats["point_steps"] * sky_share
+    ops = (stats["point_steps"] * (OPS_STEP + OPS_LAYER * L + OPS_PREP
+                                   + OPS_GRID_CH * n_g
+                                   + OPS_SKY * sky_share)
+           + stats["bl_iters"] * OPS_BL_ITER
+           + P * n_g * a.get("span", 0) * OPS_SEGMENT)
+    ops64 = stats["point_steps"] * OPS_RELAX_F64 if a["relax"] else 0
+    t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
+    t_ops = 1e3 * (ops / PEAK_F32_OPS_S + ops64 / PEAK_F64_OPS_S)
+    log(f"  K3 fused bound: {n_bytes / 1e9:.3f} GB -> {t_bytes:.3f} ms at "
+        f"3.35 TB/s; {ops / 1e9:.2f} G f32 + {ops64 / 1e9:.2f} G f64 ops "
+        f"({iterations(stats)}) -> {t_ops:.3f} ms at 67 / 34 TFLOP/s")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scan_diff(got, want, nlayers):
+    """(largest |difference| over the profile and the six output fields,
+    elements outside the kernel tolerances, bitwise equal, failed masks
+    equal) of two scan results; raises nothing."""
+    pairs = [(got[0][:nlayers + 2], want[0][:nlayers + 2], TOL_T),
+             (got[2][:, 0], want[2][:, 0], TOL_T),
+             (got[2][:, 1:6], want[2][:, 1:6], TOL_S)]
+    err, bad = 0.0, 0
+    for g, w, tol in pairs:
+        g, w = g.double(), w.double()
+        d = (g - w).abs()
+        nan = torch.isnan(g) & torch.isnan(w)
+        bad += int((~nan & ~(d <= tol["atol"] + tol["rtol"] * w.abs()))
+                   .sum())
+        fin = torch.isfinite(d)
+        if bool(fin.any()):
+            err = max(err, float(d[fin].max()))
+    same = all(g.dtype == w.dtype and bool(torch.equal(
+        g.view(torch.int32), w.view(torch.int32))) for g, w in zip(got, want))
+    return err, bad, same, torch.equal(got[1][sk.R_FAILED],
+                                       want[1][sk.R_FAILED])
+
+
+def fused_vs_routes(label, eng, src, kw, geo, stats=None):
+    """K3 fused on ``src`` against the unfused route (the eager prep into
+    K3) and its plain version (the same eager prep into scan_reference, on
+    the card), each at the kernel tolerances with equal failed masks;
+    whether each is bitwise, and the unfused route against the plain
+    version beside them.  Returns (max |err| against the plain version,
+    the fused results)."""
+    args = (eng.tmp0, eng.scal0)
+    rest = (eng.cfg, eng.params, eng.grid)
+    L = eng.grid.nlayers
+    got = sk.scan_cuda_fused(*args, src, *rest, **geo, **kw)
+    forc = sk.pack_forcing_slim_tm(src.prepared())[0]
+    unf = sk.scan_cuda(*args, forc, *rest, **geo, **kw)
+    want = sk.scan_reference(*args, forc, *rest, stats=stats, **geo, **kw)
+    torch.cuda.synchronize()
+    del forc
+    d = {"fused vs plain": scan_diff(got, want, L),
+         "fused vs unfused": scan_diff(got, unf, L),
+         "unfused vs plain": scan_diff(unf, want, L)}
+    log(f"  {label}: " + "; ".join(
+        f"{k} max |err| {v[0]:.3e}, {v[1]} outside the tolerances, bitwise "
+        f"{v[2]}, failed masks equal {v[3]}" for k, v in d.items()))
+    for k, v in d.items():
+        assert v[1] == 0 and v[3], (label, k, v)
+    return d["fused vs plain"][0], got
+
+
+def fused_small_case(config, side=256, T=140, chunk_t=128, relax=None,
+                     coupled=None, start_h=10):
+    """An engine of K3 fused at ``side`` x ``side`` points with a 128-step
+    chunk: ``grid``, phase 7's grid on a raster over its box;
+    ``composite``, that grid under the offset chunk's series (the
+    synthetic winter_mix forcing of phases 3b-3d, seed 21, one series a
+    point, every 83rd point without) as station obs, wind and radiation
+    components, as in phase 7b, with sky view, horizons, relaxation and
+    coupling; ``station``, those series alone with sky view.  The run
+    starts at ``start_h`` UTC, 30 s steps, the series on its clock: at 10
+    the sun is up and their shortwave on, at 0 it is night.  Returns
+    (engine, cofs or None)."""
+    P = side * side
+    times, glats, glons, fields = grid_fields_gen_production()
+    lat1, lon1, lat2, lon2 = BBOX
+    glat, glon = np.meshgrid(np.linspace(lat1, lat2, side),
+                             np.linspace(lon1, lon2, side), indexing="ij")
+    plat, plon = glat.ravel(), glon.ravel()
+    sim = times[0] + 3600 * start_h + 30 * np.arange(T, dtype=np.int64)
+    cal = Calendar.from_epochs(sim)
+    relax = config == "composite" if relax is None else relax
+    coupled = config == "composite" if coupled is None else coupled
+    settings = ModelSettings(sim_len=T, dt=30.0, use_relaxation=relax,
+                             use_coupling=coupled)
+    model = Model(settings, device=DEV)
+    raw_st, _ = synthetic_raw(P, T, dt=30.0, seed=21,
+                              start_epoch=int(sim[0]),
+                              scenario="winter_mix", dtype=np.float32)
+    rng = np.random.default_rng(23)
+    st_idx = np.arange(P)
+    st_idx[::83] = -1
+    grid = lambda: production.GridExpander(times, glats, glons, fields,
+                                           plat, plon, sim, DEV,
+                                           chunk_t=chunk_t)
+    if config == "grid":
+        exp = grid()
+    elif config == "composite":
+        exp = production.CompositeExpander([grid(), production.StationExpander(
+            _only(raw_st, {"tsurf_obs", "vz", "sw_dir", "lw_net"}), st_idx,
+            DEV, chunk_t=chunk_t)])
+    else:
+        exp = production.StationExpander(raw_st, st_idx, DEV,
+                                          chunk_t=chunk_t)
+    pts = default_point_params(P)._replace(lat=plat, lon=plon)
+    anchors = cofs = None
+    if config != "grid":
+        hor = np.zeros((P, 360), np.float32)
+        hor[::3] = rng.uniform(0, 25, (len(hor[::3]), 360))
+        pts = pts._replace(sky_view=np.where(np.arange(P) % 3 == 0, 0.6,
+                                             1.0), horizons=hor)
+    if relax:
+        # phase 4's relaxation (tests/test_production.py:20-57): the anchor
+        # at step 25, the targets 0.4 K, 0.1 m/s and -2 % off it
+        vals = exp.host_at(np.arange(T), RawForcing._fields)
+        pts = pts._replace(init_len=np.full(P, 25, np.int32))
+        anchors = relax_anchors(RawForcing(**vals), pts)
+        pts = pts._replace(tair_relax=anchors[0] + 0.4,
+                           vz_relax=anchors[1] + 0.1,
+                           rh_relax=anchors[2] - 2.0)
+    if coupled:
+        cend = rng.integers(20, T, P)
+        cend[::9] = -99
+        cend[1::9] = T - 1
+        pts = pts._replace(
+            coupling_start=np.maximum(cend - 30, 1).astype(np.int32),
+            coupling_end=cend.astype(np.int32),
+            coupling_tsurf=rng.uniform(-3.0, 1.0, P))
+        cofs = tuple(torch.tensor(rng.uniform(-0.4, 0.6, P),
+                                  dtype=torch.float32, device=DEV)
+                     for _ in range(2))
+    first = RawForcing(**{n: np.asarray(exp.first_host[n])[:, None]
+                          for n in RawForcing._fields})
+    state0 = model.init(first, cal, dtype=torch.float32, pts=pts)
+    eng = production._Engine(model, exp, pts, cal, state0, anchors=anchors,
+                             chunk_t=chunk_t)
+    assert eng.fused, config
+    return eng, cofs
+
+
+def phase_kernel_fused_small():
+    """K3 fused on 65,536 points (``fused_small_case``), the 128-step chunk
+    at global offset 40 with 100 steps (nsteps < the chunk, the run's
+    lastValues step 139 in it), output stride 4, against the unfused route
+    and its plain version: the grid with relaxation; the composite with sky
+    view, coupling and the coefficient decay, without and with relaxation;
+    the station source with sky view at night and by day (the sun's branch
+    with shortwave, where snow melts out: a storage run-out event that
+    rounding decides, so only a body that rounds as the plain version does
+    holds there)."""
+    max_err = 0.0
+    off, nsteps, stride = 40, 100, 4
+    geo = dict(out_stride=stride, nsteps=nsteps, out_offset=off,
+               n_out=len(range(-(-off // stride) * stride, off + nsteps,
+                               stride)))
+    for config, relax, coupled, start_h in (
+            ("grid", True, False, 10),
+            ("composite", False, True, 10),
+            ("composite", True, True, 10),
+            ("station", False, False, 0),
+            ("station", False, False, 10)):
+        eng, cofs = fused_small_case(config, relax=relax, coupled=coupled,
+                                     start_h=start_h)
+        src, kw = eng.kernel_inputs(off, cofs)
+        label = (f"{config}{', sky view' if eng.enable_sky else ''}"
+                 f"{', relaxation' if relax else ''}"
+                 f"{', coupling, decay' if cofs else ''}, from {start_h:02d}"
+                 f":00 UTC, {eng.P_pad} x 128 (offset {off}, {nsteps} "
+                 f"steps, SPAN {src.kernel_args().get('span', '-')})")
+        err, _ = fused_vs_routes(label, eng, src, kw, geo)
+        max_err = max(max_err, err)
+        del eng, src
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_fused_chunk(cfg, label):
+    """One 1,048,576 x 64 chunk (offset 448) of a full-size tile-major
+    configuration: K3 fused against its plain version and the unfused
+    route, and timed beside that route's pieces (the eager prep with its
+    stack, and K3 on the result) with the fused bound."""
+    eng = production._Engine(cfg["model"], cfg["exp"], cfg["pts"],
+                             cfg["cal"], cfg["state0"],
+                             chunk_t=cfg["chunk_t"])
+    assert eng.fused, f"{label}: the engine is not on K3 fused"
+    t0 = 7 * cfg["chunk_t"]
+    src, kw = eng.kernel_inputs(t0)
+    geo = eng.scan_kwargs(t0, eng.chunk_t)
+    stats = {}
+    err, _ = fused_vs_routes(f"1M x 64 {label} chunk", eng, src, kw, geo,
+                             stats)
+    bound = fused_bound(eng, src, geo, stats)
+    args = (eng.tmp0, eng.scal0)
+    rest = (eng.cfg, eng.params, eng.grid)
+    fused = lambda: sk.scan_cuda_fused(*args, src, *rest, **geo, **kw)
+    prep = lambda: sk.pack_forcing_slim_tm(src.prepared())[0]
+    forc = prep()
+    k3 = lambda: sk.scan_cuda(*args, forc, *rest, **geo, **kw)
+    ms = {"fused": [], "prep": [], "K3": []}
+    for turn in ("fused", "prep", "K3", "K3", "prep", "fused"):
+        fn = {"fused": fused, "prep": prep, "K3": k3}[turn]
+        ms[turn].append(cuda_ms(fn, reps=3 if turn == "prep" else 10))
+    plain_ms = cuda_ms(lambda: sk.scan_fused_reference(
+        *args, src, *rest, **geo, **kw), reps=1)
+    log(f"  [{card_line()}] {label} chunk (1M x 64, offset {t0}): K3 fused "
+        f"{ms['fused'][0]:.4f} / {ms['fused'][1]:.4f} ms; unfused route: "
+        f"eager prep + stack {ms['prep'][0]:.3f} / {ms['prep'][1]:.3f} ms, "
+        f"K3 {ms['K3'][0]:.4f} / {ms['K3'][1]:.4f} ms; plain version "
+        f"(eager prep + scan_reference) {plain_ms:.1f} ms; bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    del forc, eng, src
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=min(ms["fused"]), plain_ms=plain_ms,
+                bound=bound, unfused_ms=min(ms["prep"]) + min(ms["K3"]))
+
+
 def phase_kernel_tm_chunk(cfg7):
     """One 1,048,576 x 64 chunk of phase 7's grid forecast (offset 448):
     K3 against its plain version, and at each tile width against K2 on the
@@ -1632,7 +1945,7 @@ def phase_kernel_tm_chunk(cfg7):
     eng = production._Engine(cfg7["model"], cfg7["exp"], cfg7["pts"],
                              cfg7["cal"], cfg7["state0"],
                              chunk_t=cfg7["chunk_t"])
-    assert eng.tile_major, "phase 7's engine is not on the tile-major path"
+    assert eng.fused, "phase 7's engine is not on the tile-major path"
     t0 = 7 * cfg7["chunk_t"]
     forc, kw, geo, _ = chunk_pieces(eng, t0, "grid")
     tp0 = forc.shape[3]
@@ -1685,7 +1998,7 @@ def _host_raw(exp, T):
         for n in RawForcing._fields))
 
 
-def _tm_small_case(P=8192, T=97, seed=3):
+def _tm_small_case(P=8192, T=97, seed=3, dt=120):
     """Inputs of phase 4c (tests/test_production_fused_generic.py:35-75,
     :163-174, :279-299 at 8,192 points): a 3 x 4 grid of 10 hourly samples
     whose road-surface obs end at 02:00; 7 stations (every 83rd point out
@@ -1693,7 +2006,7 @@ def _tm_small_case(P=8192, T=97, seed=3):
     horizons on every third point."""
     t0 = utc("2019-12-02 00:00")
     times = t0 + 3600 * np.arange(10, dtype=np.int64)
-    sim = t0 + 120 * np.arange(T, dtype=np.int64)
+    sim = t0 + dt * np.arange(T, dtype=np.int64)
     rng = np.random.default_rng(seed)
     shp = (10, 3, 4)
     hr = np.arange(10)[:, None, None]
@@ -1726,10 +2039,12 @@ def _tm_small_case(P=8192, T=97, seed=3):
     sky = np.where(np.arange(P) % 3 == 0, 0.6, 1.0)
     hor = np.zeros((P, 360))
     hor[::3] = rng.uniform(0, 25, (len(hor[::3]), 360))
+    st_idx2 = rng.integers(0, S, size=P)
+    st_idx2[::5] = -1
     return dict(times=times, sim=sim, fields=fields, plat=plat, plon=plon,
                 lats=np.linspace(60.0, 61.0, 3),
                 lons=np.linspace(24.0, 25.5, 4), st_idx=st_idx,
-                raw_st=raw_st, sky=sky, hor=hor, P=P, T=T)
+                st_idx2=st_idx2, raw_st=raw_st, sky=sky, hor=hor, P=P, T=T)
 
 
 def _only(raw, keep):
@@ -1753,11 +2068,27 @@ def _tm_small_expander(c, config, chunk_t):
                                           chunk_t=chunk_t)
     if config == "grid":
         return grid(c["fields"])
-    if config == "composite":
+    if config in ("composite", "composite_2st"):
         fields = {k: v for k, v in c["fields"].items() if k != "tsurf_obs"}
-        return production.CompositeExpander(
-            [grid(fields), station(_only(c["raw_st"], {"tsurf_obs", "vz"}))])
+        parts = [grid(fields), station(_only(c["raw_st"],
+                                             {"tsurf_obs", "vz"}))]
+        if config == "composite_2st":
+            # a second station network, radiation only, on its own sites
+            parts.append(production.StationExpander(
+                _only(c["raw_st"], {"sw", "sw_dir", "lw_net"}),
+                c["st_idx2"], DEV, chunk_t=chunk_t))
+        return production.CompositeExpander(parts)
     return station(c["raw_st"])
+
+
+#: K3 launches (the unfused tile-major route) of phase 4c's production runs
+TM_SMALL_K3 = [0]
+#: phase 4c's configurations and the kernel each engine's own route
+#: launches (read_counts' index): K3 fused for a grid, a station source or a
+#: composite of one of each; K3 on the eager tile-layout prep for a
+#: composite K3 fused does not take (here two station networks over a grid)
+TM_SMALL_ROUTES = {"grid": 3, "composite": 3, "station_sky": 3,
+                   "composite_2st": 2}
 
 
 def phase_tm_small():
@@ -1766,12 +2097,14 @@ def phase_tm_small():
     P, T = c["P"], c["T"]
     cal = Calendar.from_epochs(c["sim"])
     max_err = 0.0
-    for config in ("grid", "composite", "station_sky"):
+    for config, own in TM_SMALL_ROUTES.items():
         base = default_point_params(P)._replace(lat=c["plat"],
                                                 lon=c["plon"])
-        if config == "station_sky":
+        if config in ("station_sky", "composite_2st"):
             base = base._replace(sky_view=c["sky"], horizons=c["hor"])
         probe = _tm_small_expander(c, config, 32)
+        assert ((production.fused_parts(probe) is None)
+                == (own == 2)), config
         raw_host = _host_raw(probe, T)
         first = RawForcing(**{n: np.asarray(probe.first_host[n])[:, None]
                               for n in RawForcing._fields})
@@ -1805,51 +2138,58 @@ def phase_tm_small():
                 ref = out_ref[torch.as_tensor(want)] if coupled else out_ref
                 res = {}
                 exp = _tm_small_expander(c, config, chunk_t)
-                for tile in (True, False):
-                    sk.LAUNCHES = sk.LAUNCHES_SLIM = sk.LAUNCHES_TM = 0
+                # the engine's own route, and the generic K1 route (the
+                # engine's switch)
+                for route in ("own", "K1"):
+                    reset_counts()
                     metrics = RunMetrics()
-                    # the generic route by the engine's switch
-                    production._Engine.force_generic = not tile
+                    production._Engine.force_generic = route == "K1"
                     try:
-                        r = run(model, exp, pts, cal, state0,
-                                chunk_t=chunk_t, out_stride=stride,
-                                metrics=metrics)
+                        with PrepCalls() as calls:
+                            r = run(model, exp, pts, cal, state0,
+                                    chunk_t=chunk_t, out_stride=stride,
+                                    metrics=metrics)
                     finally:
                         production._Engine.force_generic = False
-                    launched = (sk.LAUNCHES, sk.LAUNCHES_SLIM,
-                                sk.LAUNCHES_TM)
-                    assert (launched[2] > 0 and launched[:2] == (0, 0)
-                            if tile else launched[0] > 0
-                            and launched[1:] == (0, 0)), launched
+                    launched = read_counts()
+                    k = own if route == "own" else 0
+                    assert launched[k] > 0 and sum(launched) == launched[k], (
+                        config, route, launched)
+                    TM_SMALL_K3[0] += launched[2]
+                    # K3 fused prepares nothing outside the kernel but
+                    # phase B's window (prepare, [Tc, P])
+                    if k == 3 and not coupled:
+                        assert calls.n == 0, calls.n
+                    name = {0: "K1", 2: "K3", 3: "K3 fused"}[k]
                     assert np.array_equal(r.out_steps, want), r.out_steps
                     label = (f"{config} {'coupled ' if coupled else ''}"
-                             f"{'K3' if tile else 'K1'} ({chunk_t}, "
-                             f"{stride})")
+                             f"{name} ({chunk_t}, {stride})")
                     err = compare_fields(label, r, ref, final_ref, want)
                     max_err = max(max_err, err)
-                    res[tile] = r
+                    res[route] = r
                     cpl = metrics.counters
                     log(f"  {label}: vs Model.run"
                         f"{'_coupled' if coupled else ''} max |err| "
-                        f"{err:.3e}; launches K1/K2/K3 {launched}"
+                        f"{err:.3e}; launches K1/K2/K3/K3 fused {launched}, "
+                        f"prepare_window calls {calls.n}"
                         + (f"; coupled {cpl.get('coupling_points')}, "
                            f"reruns {cpl.get('coupling_reruns')}"
                            if coupled else ""))
-                errs = [check_close(f"{config} K3 vs K1 {name}",
-                                    torch.from_numpy(res[True].fields[name]),
-                                    torch.from_numpy(res[False].fields[name]),
-                                    TOL_T if k == 0 else TOL_S)
-                        for k, name in enumerate(production.OUT_FIELD_ROWS)]
-                if not torch.equal(res[True].state.failed,
-                                   res[False].state.failed):
-                    raise AssertionError(f"{config}: K3 and K1 routes' "
+                a, b = res["own"], res["K1"]
+                errs = [check_close(
+                    f"{config} own route vs K1 {name}",
+                    torch.from_numpy(a.fields[name]),
+                    torch.from_numpy(b.fields[name]),
+                    TOL_T if k == 0 else TOL_S)
+                    for k, name in enumerate(production.OUT_FIELD_ROWS)]
+                if not torch.equal(a.state.failed, b.state.failed):
+                    raise AssertionError(f"{config}: its route and K1's "
                                          f"failed masks differ")
-                same = all(np.array_equal(res[True].fields[n],
-                                          res[False].fields[n])
+                same = all(np.array_equal(a.fields[n], b.fields[n])
                            for n in production.OUT_FIELD_ROWS)
                 log(f"  {config}{' coupled' if coupled else ''} "
-                    f"({chunk_t}, {stride}): K3 route vs generic K1 route "
-                    f"max |diff| {max(errs):.3e}"
+                    f"({chunk_t}, {stride}): its route vs the K1 route max "
+                    f"|diff| {max(errs):.3e}"
                     + (" (equal bit for bit)" if same else ""))
     return max_err
 
@@ -1971,24 +2311,28 @@ def phase_grid_full(cfg, metrics, label):
     n_chunks = -(-T // cfg["chunk_t"])
     reset_counts()
     t0 = time.perf_counter()
-    res = production.run_production(
-        cfg["model"], cfg["exp"], cfg["pts"], cfg["cal"], cfg["state0"],
-        chunk_t=cfg["chunk_t"], metrics=metrics,
-        progress=Progress(T, every_s=5.0))
+    with PrepCalls() as calls:
+        res = production.run_production(
+            cfg["model"], cfg["exp"], cfg["pts"], cfg["cal"], cfg["state0"],
+            chunk_t=cfg["chunk_t"], metrics=metrics,
+            progress=Progress(T, every_s=5.0))
     launches = read_counts(n_chunks)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(DEV)
-    assert launches == (0, 0, n_chunks), launches
+    assert launches == (0, 0, 0, n_chunks), launches
+    assert calls.n == 0, calls.n
     check_outputs(res, cfg)
     log(f"  [{card_line()}] run_production ({label}) wall {wall:.2f} s, "
         f"stream {metrics.phases['stream']:.2f} s = "
         f"{res.point_steps_per_s:.6g} point-steps/s, peak device memory "
         f"{peak / 2**30:.2f} GiB, failed share "
         f"{float(res.state.failed.float().mean()):.6f}, kernel launches "
-        f"K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}")
+        f"K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K3 fused "
+        f"{launches[3]}, prepare_window calls {calls.n} "
+        f"({calls.n / n_chunks:g} a chunk)")
     log(f"  [{card_line()}] phases (s): " + json.dumps(
         {k: round(v, 3) for k, v in metrics.phases.items()}))
-    return res, launches[2]
+    return res, launches[3]
 
 
 def composite_sky_setup(cfg7, cfg):
@@ -2157,13 +2501,18 @@ def run_phases(samples):
         err_tm_small = phase_kernel_tm_small()
         tm = phase_kernel_tm_chunk(cfg7)
         stamp()
+        log("== 3c. K3 fused against its plain version and the unfused "
+            "route")
+        err_fused_small = phase_kernel_fused_small()
+        fz7 = phase_fused_chunk(cfg7, "NWP grid")
+        stamp()
     if want("7"):
         log("== 7. the NWP-grid forecast at full size through K3: "
             "1048576 points x 8881 steps")
         res7, n7 = phase_grid_full(cfg7, RunMetrics(announce=True), "grid")
         k3_launches += n7
         samples.start(cfg7, res7, raw_fn=grid_sample_raw(cfg7),
-                      hold_f32=True)
+                      hold_f32=True, label="7, NWP grid")
         del res7
         torch.cuda.empty_cache()
         stamp()
@@ -2177,18 +2526,13 @@ def run_phases(samples):
         log("== 7b. grid + station obs with sky view at full size through "
             "K3: 1048576 points x 8881 steps")
         cfg7b = composite_sky_setup(cfg7, cfg)
-        eng = production._Engine(cfg7b["model"], cfg7b["exp"], cfg7b["pts"],
-                                 cfg7b["cal"], cfg7b["state0"],
-                                 chunk_t=cfg7b["chunk_t"])
-        assert eng.tile_major and eng.enable_sky and not eng.flat_horizons
-        chunk_pieces(eng, 7 * cfg7b["chunk_t"], "grid + stations, sky view")
-        del eng
-        torch.cuda.empty_cache()
+        fz7b = phase_fused_chunk(cfg7b, "grid + stations, sky view")
         res7b, n7b = phase_grid_full(cfg7b, RunMetrics(announce=True),
                                      "grid + stations, sky view")
         k3_launches += n7b
         samples.start(cfg7b, res7b, raw_fn=grid_sample_raw(
-            cfg7b, overlay=cfg7b["overlay"]), hold_f32=True)
+            cfg7b, overlay=cfg7b["overlay"]), hold_f32=True,
+            label="7b, grid + stations, sky view")
         stamp()
     if want("8"):
         log("== 8. the sharded main path at full size, against the "
@@ -2229,9 +2573,15 @@ def run_phases(samples):
           "max_abs_err": max(err_slim_small, err_slim_chunk),
           "ms": st_order["K2"][0], "plain_ms": slim_times["slim"][1],
           "bound": st_order["K2"][2]}
-    k3 = {"name": "scan_kernel_tm", "launches": k3_launches,
+    # K3 on the eager prep runs where K3 fused does not take the expander;
+    # its launches are phase 4c's runs on that route
+    k3 = {"name": "scan_kernel_tm", "launches": TM_SMALL_K3[0],
           "max_abs_err": max(err_tm_small, tm["err"]), "ms": tm["ms"],
           "plain_ms": tm["plain_ms"], "bound": tm["bound"]}
+    k3f = {"name": "scan_kernel_tm_fused", "launches": k3_launches,
+           "max_abs_err": max(err_fused_small, fz7["err"], fz7b["err"]),
+           "ms": fz7["ms"], "plain_ms": fz7["plain_ms"],
+           "bound": fz7["bound"]}
     # K4's time is its 4-block launch of the K2 chunk; its bound is K2's on
     # that chunk (the blocks share one card's memory)
     k4 = {"name": "scan_kernel_sharded", "launches": MAIN_PATH_K4[0],
@@ -2239,7 +2589,7 @@ def run_phases(samples):
           "plain_ms": k4["plain_ms"], "bound": k4["bound"],
           "replaces": "roadsurf_tpu/parallel/sharding.py:73"}
     kernels = []
-    for k in (k1, k2, k3, k4):
+    for k in (k1, k2, k3, k3f, k4):
         assert k["launches"] > 0, k
         bound_ms, bound_by = k.pop("bound")
         kernels.append(dict(

@@ -7,8 +7,10 @@
 // radiation-coefficient decay; pallas_step.py:362-374, :467-509); and K3,
 // tile-major (forcing [n_tiles, T, 16 or 11, TP], each tile's steps one
 // contiguous slab; pallas_step.py:387-398, :619-629), under either channel
-// set.  Plain version with the same semantics:
-// roadsurf_tpu_torch/ops/scan_kernel.py:scan_reference.
+// set, and in its redesigned form K3 fused, which reads no prepared
+// forcing at all (below).  Plain version with the same semantics:
+// roadsurf_tpu_torch/ops/scan_kernel.py:scan_reference (and, for K3
+// fused, scan_fused_reference).
 //
 // What it computes, per road point, for every step t < nsteps of a chunk
 // (pallas_step.py:411-568): the CheckValues failure flag; obs forcing of
@@ -84,15 +86,53 @@
 // warp's 32 points lie in one tile (tp is a multiple of BLOCK), so a step's
 // read of a channel stays one coalesced 128-byte line per warp.
 //
+// K3 fused (template flag FUSED, entries roadsurf_scan_fused and the fused
+// form of roadsurf_scan_sharded) replaces the same TPU mode together with
+// the XLA-side forcing prep the TPU needed before it
+// (roadsurf_tpu/production.py's window_tm, forcing.prepare_window and the
+// slim stack).  On the card that prep was the bottleneck, not the body: per
+// 1M x 64 chunk of the NWP grid the eager torch prep took 54-59 ms and
+// wrote a 2.95 GB [n_tiles, T, 11, TP] tensor that K3 read back in 3.8 ms.
+// Every rule of the prep is elementwise per point and step, so here each
+// thread builds its step's 11 channels in registers right before the step
+// uses them: the grid part's gap-capped interpolation from the raw series
+// rows (the segment lines of the chunk computed once a chunk into dynamic
+// shared memory, 2 floats a segment a channel a thread, SPAN <= SPAN_MAX),
+// the station part's value by a gather at the point's station, the
+// source-order merge, CheckValues, the wind floors, sky view (the sun's
+// per-point part from time terms formed in float64 on the host, the
+// horizon at the nearest degree, ModRadiation), relaxation in float64,
+// the precipitation type, the obs forcing and coupling flags, and
+// forcing_thermo.  What bounds it: operations (the body's plus the prep's,
+// about 0.7 ms a 1M x 64 chunk); it reads about 0.55-0.65 GB a chunk, the
+// raw rows, state and parameters, instead of 3.26 GB plus the 2.95 GB the
+// prep wrote.  Each prep operation is written with __f*_rn intrinsics
+// where torch rounds it on its own, a torch division by a Python scalar
+// as its multiply by the reciprocal, precise expf/logf/sinf/cosf/acosf: on
+// the card K3 fused equals K3 on the eager prep bit for bit
+// (chip_smoke.py phase 3c).
+//
 // Numerics: float32 only, IEEE divide and sqrt, no fast math, no flush to
-// zero (built with -prec-div=true -prec-sqrt=true -ftz=false); FMA
-// contraction is allowed, except in the coefficient decay, which is
-// written with __fmul_rn/__fsub_rn/__fdiv_rn/__fadd_rn and precise expf so
-// that each product rounds on its own, as torch's forcing.cof_window does
-// (K2 with cofs must equal K1 fed cof_window's channels bit for bit).
-// There are no matrix products, so TF32 never arises.  min/max propagate
-// NaN like torch.minimum/maximum.  Flat offsets are 64-bit: T * 16 * P
-// passes 2^31 at 128 steps x 1M points.
+// zero, no contraction (built with -prec-div=true -prec-sqrt=true
+// -ftz=false -fmad=false): each product and sum rounds on its own, in the
+// plain version's order, and a division by a constant is a multiply by its
+// correctly rounded reciprocal, as torch divides by a Python scalar on the
+// card.  So every mode equals scan_reference on the card bit for bit
+// (chip_smoke.py phases 3, 3b, 3c).  That matters beyond the last bit: the
+// storage machine is discontinuous in rounding (Storage.f90).  Where a
+// step's melt heat Q2Melt was computed from the snow itself, snow - mm is
+// a rounding remainder; a positive one is worn into ice, which melts with
+// the same mm, and the water takes the melt twice (a 0.054 mm jump, then
+// kelvins of tsurf by day; tests/test_torch_scan_kernel.py,
+// test_storage_runout_rounding_decides_the_melt).  A body with FMA
+// contraction and true divisions parted from the plain version that way in
+// 16,275 output elements of a 65,536-point day chunk, by up to 2.37 K.  The
+// coefficient decay is written with __fmul_rn/__fsub_rn/__fdiv_rn/
+// __fadd_rn and precise expf, as torch's forcing.cof_window rounds it (K2
+// with cofs equals K1 fed cof_window's channels bit for bit).  There are
+// no matrix products, so TF32 never arises.  min/max propagate NaN like
+// torch.minimum/maximum.  Flat offsets are 64-bit: T * 16 * P passes 2^31
+// at 128 steps x 1M points.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,6 +198,436 @@ __device__ __forceinline__ float esat1(float t) {
   return 0.61078f * expf(a * t / (t + b));
 }
 
+// ---- the fused tile-major mode (K3 fused) -------------------------------
+// RawForcing fields (forcing.py), the order of FuseArgs' pointer arrays
+enum { F_TAIR = 0, F_TDEW, F_VZ, F_RHZ, F_PREC, F_SW, F_LW, F_SWDIR, F_LWNET,
+       F_TSOBS, F_PPHASE, NRAW };
+#define SPAN_MAX 16
+#define MISSING_F (-9999.9f)
+
+// Mirror of FuseArgs in ops/scan_kernel.py (pointers, then ints, then
+// floats and the double; checked by size before any launch).  One block's
+// raw inputs of one chunk: the grid part's series rows and time machinery
+// (GridExpander), the station part's series and index (StationExpander),
+// the per-point parameters of the prep and the time-only vectors, all
+// indexed by the GLOBAL step where they are time-only.
+struct FuseArgs {
+  const float* g[NRAW];        // grid rows [n_tiles, K, tp]; null: absent
+  const float* trw;            // [K] raw times (s from the first sim step)
+  const float* trel;           // [T_pad] sim step times (same origin)
+  const int* pos;              // [T_pad] raw position of each step
+  const int* pick;             // [T_pad] prec_phase's nearest raw row
+  const unsigned char* tex;    // [T_pad] the step falls on a raw time
+  const unsigned char* havep;  // [T_pad] a nearest row within the gap cap
+  const float* s[NRAW];        // station series [S, T_pad] (prec_phase as
+                               // int32); null: no station part
+  const long long* sidx;       // [P] station of each point
+  const unsigned char* sok;    // [P] the point has a station in radius
+  const float* lat;            // per-point parameters [P]
+  const float* lon;
+  const float* sky;
+  const float* hor;            // [P, hor_w] horizon angles
+  const int* init_len;
+  const int* cstart;
+  const int* cend;
+  const float* tr_relax;
+  const float* vz_relax;
+  const float* rh_relax;
+  const float* ctsurf;
+  const float* anc_t;          // relaxation anchors [P] (null: no relaxation)
+  const float* anc_v;
+  const float* anc_r;
+  const int* hour;             // [T_pad] UTC hour
+  const float* sun;            // [4, T_pad] sin_decl, cos_decl, stg, ra
+  int has_grid, has_station, grid_last, K, KW, span, k0, lo, complete,
+      s_tpad, hor_w, t_total, relax, coupling, force_tsurf, sky_on, flat_hor,
+      sun_stride;
+  float max_gap, calm_ngt, calm_day, night_on, night_off, min_prec, p_snow,
+      p_rain, miss_i, alb_sur, dt_f;
+  double dt, p_snow_d, p_rain_d;
+};
+
+// One step's slim channels, prepared in registers.
+struct StepIn {
+  float tair, vz, eair, rain, snow, sw, lw, obs, valid, incpl, airvcap;
+};
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return nmin(nmax(x, lo), hi);
+}
+__device__ __forceinline__ double nmaxd(double a, double b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ double nmind(double a, double b) {
+  return (a < b || a != a) ? a : b;
+}
+// a torch float32 division by a Python scalar on the card: a multiply by
+// the float reciprocal of the scalar (BinaryDivTrueKernel.cu)
+__device__ __forceinline__ float div_s(float x, float b) {
+  return __fmul_rn(x, __frcp_rn(b));
+}
+
+// Magnus over water at t >= 0, else ice (moisture.esat_air_convention)
+__device__ __forceinline__ float esat_air(float t) {
+  const float a = t >= 0.0f ? 17.269f : 21.875f;
+  const float b = t >= 0.0f ? 237.3f : 265.5f;
+  return __fmul_rn(0.61078f, expf(__fdiv_rn(__fmul_rn(a, t), __fadd_rn(t, b))));
+}
+
+// moisture.tdew_from_rh, each operation rounded as torch rounds it
+__device__ __forceinline__ float tdew_from_rh(float t2m, float rh) {
+  const float a = t2m >= 0.0f ? 17.269f : 21.875f;
+  const float b = t2m >= 0.0f ? 237.3f : 265.5f;
+  const float sat = __fmul_rn(
+      0.61078f, expf(__fdiv_rn(__fmul_rn(a, t2m), __fadd_rn(t2m, b))));
+  const float epr = __fmul_rn(__fmul_rn(0.01f, rh), sat);
+  const float xx = logf(div_s(epr, 0.61078f));
+  return __fdiv_rn(__fmul_rn(b, xx), __fsub_rn(a, xx));
+}
+
+// moisture.rh_from_tdew
+__device__ __forceinline__ float rh_from_tdew(float t2m, float td) {
+  return nmin(__fmul_rn(__fdiv_rn(esat_air(td), esat_air(t2m)), 100.0f),
+              100.0f);
+}
+
+// The grid part's value of a continuous channel at step tg: its segment's
+// line, or the exact-time valid sample (GridExpander.evaluate).  col: the
+// point's column of the channel's rows (row r at col[r * tp]); seg: the
+// thread's (alpha, beta) of each segment, BLOCK apart.
+__device__ __forceinline__ float grid_value(const FuseArgs& a,
+                                            const float* col, int64_t tp,
+                                            const float* seg, int tg,
+                                            float tr0) {
+  const int st = clampi(__ldg(a.pos + tg) - a.k0, 0, a.span - 1);
+  const float al = seg[(2 * st) * BLOCK];
+  const float be = seg[(2 * st + 1) * BLOCK];
+  float res = __fadd_rn(al, __fmul_rn(__fsub_rn(__ldg(a.trel + tg), tr0), be));
+  const int kg = a.k0 + st;
+  if (__ldg(a.tex + tg) && kg < a.K) {
+    const float x = __ldg(col + (int64_t)(a.lo + clampi(kg - a.lo, 0, a.KW - 1)) * tp);
+    if (x > -9000.0f) res = x;
+  }
+  return res;
+}
+
+// The segment stage of one point (GridExpander.segments): for each
+// continuous channel the grid carries and each segment s, the line
+// through the last valid sample at or before row klm1 and the next valid
+// one at or after row kl, within the gap cap; stored in seg.
+__device__ void grid_segments(const FuseArgs& a, int64_t colbase, int64_t tp,
+                              float* seg, float tr0) {
+  const float NEG = -3e38f, POS = 3e38f;
+  int ci = 0;
+  for (int c = 0; c < F_PPHASE; ++c) {
+    const float* g = a.g[c];
+    if (g == nullptr) continue;
+    const float* col = g + colbase;
+    for (int s = 0; s < a.span; ++s) {
+      const int kg = a.k0 + s;
+      const int kl = clampi(kg - a.lo, 0, a.KW - 1);
+      const int klm1 = clampi(kg - a.lo - 1, 0, a.KW - 1);
+      float t1 = NEG, v1 = 0.0f, t2 = POS, v2 = 0.0f;
+      for (int k = klm1; k >= 0; --k) {
+        const float v = __ldg(col + (int64_t)(a.lo + k) * tp);
+        if (v > -9000.0f) {
+          t1 = __ldg(a.trw + a.lo + k);
+          v1 = v;
+          break;
+        }
+      }
+      for (int k = kl; k < a.KW; ++k) {
+        const float v = __ldg(col + (int64_t)(a.lo + k) * tp);
+        if (v > -9000.0f) {
+          t2 = __ldg(a.trw + a.lo + k);
+          v2 = v;
+          break;
+        }
+      }
+      const float gap = __fsub_rn(t2, t1);
+      const bool have = (t1 > NEG * 0.5f) && (t2 < POS * 0.5f) &&
+                        (gap <= a.max_gap) && (0 < kg) && (kg < a.K);
+      const float invg = gap > 0.0f ? __frcp_rn(gap) : 0.0f;
+      const float b = have ? __fmul_rn(__fsub_rn(v2, v1), invg) : 0.0f;
+      seg[(2 * (ci * a.span + s)) * BLOCK] =
+          have ? __fadd_rn(v1, __fmul_rn(__fsub_rn(tr0, t1), b)) : MISSING_F;
+      seg[(2 * (ci * a.span + s) + 1) * BLOCK] = b;
+    }
+    ++ci;
+  }
+}
+
+// Per-point terms of the sun position (physics/sun.py:sun_at_points) that
+// do not change with the step.
+struct SunPoint {
+  float sin_lat, cos_lat, lonr;
+};
+
+// The prep of one step of one point, in registers: the raw values of the
+// grid and station parts merged in source order (merge_windows), then
+// forcing.prepare_window's rules and forcing_thermo, each operation
+// rounded as torch rounds it on the card.  Relaxation promotes to float64
+// as prepare_window does.
+__device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
+                                             int64_t colbase, int64_t tp,
+                                             const float* seg, float tr0,
+                                             int tg, const SunPoint& sp) {
+  // ---- raw values (GridExpander._raw_window, StationExpander.window_tm)
+  float raw[F_PPHASE];
+  int pphase = -9999;
+  const bool st_ok = a.has_station && __ldg(a.sok + p);
+  const int64_t srow = st_ok ? (int64_t)__ldg(a.sidx + p) * a.s_tpad + tg : 0;
+  float gv[F_PPHASE];
+  int gpp = -9999;
+  if (a.has_grid) {
+    int ci = 0;
+#pragma unroll
+    for (int c = 0; c < F_PPHASE; ++c) {
+      gv[c] = MISSING_F;
+      if (a.g[c] != nullptr) {
+        gv[c] = grid_value(a, a.g[c] + colbase, tp,
+                           seg + 2 * ci * a.span * BLOCK, tg, tr0);
+        ++ci;
+      }
+    }
+    gv[F_RHZ] = gv[F_RHZ] > -9000.0f ? clampf(gv[F_RHZ], 0.0f, 100.0f)
+                                     : gv[F_RHZ];
+    gv[F_PREC] = gv[F_PREC] > 100.0f ? MISSING_F : gv[F_PREC];
+    if (a.g[F_PPHASE] != nullptr) {
+      const float* col = a.g[F_PPHASE] + colbase;
+      const int pc = __ldg(a.pos + tg);
+      const float vex =
+          __ldg(col + (int64_t)(a.lo + clampi(pc - a.lo, 0, a.KW - 1)) * tp);
+      float res;
+      if (__ldg(a.tex + tg) && vex > -9000.0f) {
+        res = vex;
+      } else if (__ldg(a.havep + tg)) {
+        res = __ldg(col + (int64_t)(a.lo + clampi(__ldg(a.pick + tg) - a.lo,
+                                                   0, a.KW - 1)) * tp);
+      } else {
+        res = MISSING_F;
+      }
+      gpp = res > -9000.0f ? (int)res : -9999;
+    }
+    if (a.complete) {
+      // Tdew <-> RH completion (QueryDataSource.cpp:817-828)
+      const float t_ = gv[F_TAIR], td = gv[F_TDEW], rh = gv[F_RHZ];
+      const bool t_ok = t_ > -9000.0f;
+      if (td <= -9000.0f && rh > -9000.0f && t_ok)
+        gv[F_TDEW] = tdew_from_rh(t_, rh);
+      if (rh <= -9000.0f && td > -9000.0f && t_ok)
+        gv[F_RHZ] = rh_from_tdew(t_, td);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < F_PPHASE; ++c) {
+    const float thr = c == F_LWNET ? -1000.0f : -100.0f;
+    const float sv = (a.s[c] != nullptr && st_ok) ? __ldg(a.s[c] + srow)
+                                                  : MISSING_F;
+    if (!a.has_grid) raw[c] = sv;
+    else if (!a.has_station) raw[c] = gv[c];
+    else if (a.grid_last) raw[c] = gv[c] > thr ? gv[c] : sv;
+    else raw[c] = sv > thr ? sv : gv[c];
+  }
+  {
+    const int spp =
+        (a.s[F_PPHASE] != nullptr && st_ok)
+            ? __ldg(reinterpret_cast<const int*>(a.s[F_PPHASE]) + srow)
+            : -9999;
+    if (!a.has_grid) pphase = spp;
+    else if (!a.has_station) pphase = gpp;
+    else if (a.grid_last) pphase = (float)gpp > -100.0f ? gpp : spp;
+    else pphase = (float)spp > -100.0f ? spp : gpp;
+  }
+
+  // ---- forcing.prepare_window, one point and step
+  const bool last = tg == a.t_total - 1;
+  const float skyv = __ldg(a.sky + p);
+  const bool sky_act = (skyv < 1.0f) && (skyv > -0.01f);
+  const float tair = raw[F_TAIR], tdew = raw[F_TDEW], rhz = raw[F_RHZ];
+  const float prec = raw[F_PREC], sw0 = raw[F_SW], lw0 = raw[F_LW];
+  bool ok = tair >= -90.0f && tair <= 100.0f && tdew >= -90.0f &&
+            tdew <= 100.0f && rhz >= -0.1f && rhz <= 120.0f &&
+            raw[F_VZ] >= -1.0f && raw[F_VZ] <= 100.0f && sw0 >= -0.1f &&
+            sw0 <= 4000.0f && lw0 >= -0.1f && lw0 <= 1000.0f &&
+            prec >= -0.1f && prec <= 500.0f;
+  const bool sky_ok = raw[F_SWDIR] >= -0.1f && raw[F_SWDIR] <= 4000.0f &&
+                      raw[F_LWNET] >= -1000.0f && raw[F_LWNET] <= 1000.0f;
+  ok = ok && (sky_ok || !sky_act);
+  const bool valid = ok || last;
+  float vz = tg == 0 ? nmax(raw[F_VZ], 0.4f) : raw[F_VZ];
+  const float sw_dir = last ? raw[F_SWDIR] : nmin(raw[F_SWDIR], sw0);
+
+  // sky view (physics/sun.py:sun_at_points, physics/radiation.py)
+  float sw = sw0, lw = lw0;
+  if (a.sky_on && sky_act) {
+    const float pi_f = (float)3.14159265358979323846;
+    const float two_pi = (float)(2.0 * 3.14159265358979323846);
+    const float* sun = a.sun + tg;
+    const float sd = __ldg(sun), cd = __ldg(sun + a.sun_stride);
+    const float stg = __ldg(sun + 2 * a.sun_stride);
+    const float ra = __ldg(sun + 3 * a.sun_stride);
+    const float ha0 = __fsub_rn(__fadd_rn(stg, sp.lonr), ra);
+    const float cosah = cosf(ha0);
+    const float cos_elev = clampf(
+        __fadd_rn(__fmul_rn(sd, sp.sin_lat),
+                  __fmul_rn(__fmul_rn(cd, sp.cos_lat), cosah)),
+        -1.0f, 1.0f);
+    const float chi = acosf(cos_elev);
+    float elev = __fsub_rn(90.0f, div_s(__fmul_rn(chi, 180.0f), pi_f));
+    float ha = ha0 < 0.0f ? __fadd_rn(ha0, two_pi) : ha0;
+    ha = ha > two_pi ? __fsub_rn(ha, two_pi) : ha;
+    const float cosele =
+        cosf(__fsub_rn((float)(3.14159265358979323846 / 2.0), chi));
+    const bool small = fabsf(cosele) < 1e-4f;
+    const float precos = clampf(
+        __fdiv_rn(__fsub_rn(__fmul_rn(sd, sp.cos_lat),
+                            __fmul_rn(__fmul_rn(cd, sp.sin_lat), cosah)),
+                  small ? 1.0f : cosele),
+        -1.0f, 1.0f);
+    float azim = acosf(precos);
+    azim = ha < pi_f ? __fsub_rn(two_pi, azim) : azim;
+    float azim_deg = small ? MISSING_F : div_s(__fmul_rn(azim, 180.0f), pi_f);
+    const bool up = elev > 0.0f;
+    elev = up ? elev : MISSING_F;
+    azim_deg = up ? azim_deg : MISSING_F;
+    // modify_radiation (ModRadiation.f90:7-73)
+    const float dif_sw = __fsub_rn(sw0, sw_dir);
+    const float lw_sur = __fsub_rn(raw[F_LWNET], lw0);
+    float horizon = 0.0f;
+    if (!a.flat_hor) {
+      long long ix = (long long)rintf(azim_deg) % 360;
+      if (ix < 0) ix += 360;
+      horizon = __ldg(a.hor + (int64_t)p * a.hor_w + clampi((int)ix, 0, 359));
+    }
+    const float shadow = horizon > elev ? 0.0f : 1.0f;
+    const bool sun_up = elev > 0.0f;
+    const float sw_dir_m = sun_up ? __fmul_rn(sw_dir, shadow) : sw_dir;
+    const float sw_ref = __fadd_rn(__fmul_rn(a.alb_sur, sw_dir_m),
+                                   __fmul_rn(a.alb_sur, dif_sw));
+    const float one_m = __fsub_rn(1.0f, skyv);
+    const float dif_m = __fadd_rn(__fmul_rn(skyv, dif_sw),
+                                  __fmul_rn(one_m, sw_ref));
+    sw = sun_up ? __fadd_rn(dif_m, sw_dir_m) : sw0;
+    lw = __fadd_rn(__fmul_rn(skyv, lw0), __fmul_rn(one_m, -lw_sur));
+  }
+
+  // day/night wind floor (SetDayDependendVariables)
+  const float hr = (float)__ldg(a.hour + tg);
+  const bool night = (hr >= a.night_on) || (hr <= a.night_off);
+  const float calm = night ? a.calm_ngt : a.calm_day;
+  const float prec_step = __fmul_rn(div_s(prec, 3600.0f), a.dt_f);
+
+  // relaxation (Relaxation.f90:10-47), the wind floor and the
+  // precipitation type (calc_prec_type's Koistinen interpretation); with
+  // relaxation on, tair, vz and rhz are float64 from the decay on, as in
+  // prepare_window, until the final cast
+  float tair_o, vz_o, rhz_o;
+  bool snowy, rainy;
+  if (a.relax) {
+    double td_ = (double)tair, vd = (double)vz, rd = (double)rhz;
+    const float trl = __ldg(a.tr_relax + p), vrl = __ldg(a.vz_relax + p),
+                rrl = __ldg(a.rh_relax + p);
+    const bool relax_on = trl >= -100.0f && trl <= 100.0f && vrl >= 0.0f &&
+                          vrl <= 100.0f && rrl >= 0.0f && rrl <= 110.0f;
+    const int t0r = __ldg(a.init_len + p) - 1;
+    if (tg >= t0r + 1 && !last && relax_on) {
+      const double decay = exp(__dmul_rn(
+          -__dmul_rn(a.dt, (double)(tg - t0r)), 1.0 / (4.0 * 3600.0)));
+      td_ = __dsub_rn(
+          td_, __dmul_rn((double)__fsub_rn(trl, __ldg(a.anc_t + p)), decay));
+      vd = __dsub_rn(
+          vd, __dmul_rn((double)__fsub_rn(vrl, __ldg(a.anc_v + p)), decay));
+      rd = nmind(__dsub_rn(rd, __dmul_rn((double)__fsub_rn(
+                                             rrl, __ldg(a.anc_r + p)),
+                                         decay)),
+                 100.0);
+    }
+    vd = nmaxd(vd, (double)calm);
+    const double pexp =
+        __dsub_rn(__dsub_rn(22.0, __dmul_rn(2.7, td_)), __dmul_rn(0.2, rd));
+    const double prain = __drcp_rn(__dadd_rn(exp(pexp), 1.0));
+    snowy = prain < a.p_snow_d;
+    rainy = prain > a.p_rain_d;
+    tair_o = (float)td_;
+    vz_o = (float)vd;
+    rhz_o = (float)rd;
+  } else {
+    vz = nmax(vz, calm);
+    const float pexp = __fsub_rn(__fsub_rn(22.0f, __fmul_rn(2.7f, tair)),
+                                 __fmul_rn(0.2f, rhz));
+    const float prain = __frcp_rn(__fadd_rn(expf(pexp), 1.0f));
+    snowy = prain < a.p_snow;
+    rainy = prain > a.p_rain;
+    tair_o = tair;
+    vz_o = vz;
+    rhz_o = rhz;
+  }
+  // calc_prec_type (Cond.f90:143-249): the phase code where it is known
+  const float half = __fmul_rn(prec_step, 0.5f);
+  const bool use_phase = ((float)pphase > a.miss_i) && pphase >= 0 &&
+                         pphase <= 6;
+  float rain, snow;
+  if (use_phase) {
+    const bool rain_c = pphase == 0 || pphase == 1 || pphase == 4 ||
+                        pphase == 5;
+    const bool sleet_c = pphase == 2;
+    const bool snow_c = pphase == 3 || pphase == 6;
+    rain = rain_c ? prec_step : (sleet_c ? half : 0.0f);
+    snow = snow_c ? prec_step : (sleet_c ? half : 0.0f);
+  } else {
+    rain = snowy ? 0.0f : (rainy ? prec_step : half);
+    snow = snowy ? prec_step : (rainy ? 0.0f : half);
+  }
+  if (!(prec_step > a.min_prec)) {
+    rain = 0.0f;
+    snow = 0.0f;
+  }
+
+  // obs forcing of tsurf and the coupling-phase flag (InputOutput.f90:
+  // 116-148)
+  const int cst = __ldg(a.cstart + p), cen = __ldg(a.cend + p);
+  const bool force_phase = (tg + 1) <= __ldg(a.init_len + p) || a.force_tsurf;
+  const bool coupling_on =
+      cen >= 1 && __ldg(a.ctsurf + p) > -100.0f && a.coupling;
+  const bool before_window = !coupling_on || (tg + 1) < cst;
+  const float obs_raw = raw[F_TSOBS];
+  const bool forced = force_phase && obs_raw > -100.0f && before_window &&
+                      !last;
+  const int te = (tg == a.t_total - 1 && a.t_total >= 2) ? tg - 1 : tg;
+  const bool in_cpl = coupling_on && (te + 1) >= cst && (te + 1) <= cen;
+
+  // forcing_thermo (ops/scan_kernel.py): eair and rho_air * cp_air
+  const float tak = __fadd_rn(tair_o, 273.15f);
+  const float air_dens =
+      __fmul_rn(__frcp_rn(__fmul_rn(287.05f, tak)), 100000.0f);
+  const float d250 = __fsub_rn(tak, 250.0f);
+  const float air_hcap =
+      __fadd_rn(div_s(__fmul_rn(d250, d250), 3364.0f), 1005.0f);
+  const float ea = tair_o < 0.0f ? 21.875f : 17.269f;
+  const float eb = tair_o < 0.0f ? 265.5f : 237.3f;
+  const float esat_a = __fmul_rn(
+      0.61078f,
+      expf(__fdiv_rn(__fmul_rn(ea, tair_o), __fadd_rn(tair_o, eb))));
+
+  StepIn in;
+  in.tair = tair_o;
+  in.vz = vz_o;
+  in.eair = __fmul_rn(nmin(__fmul_rn(0.01f, rhz_o), 1.0f), esat_a);
+  in.rain = rain;
+  in.snow = snow;
+  in.sw = sw;
+  in.lw = lw;
+  in.obs = forced ? obs_raw : MISSING_F;
+  in.valid = valid ? 1.0f : 0.0f;
+  in.incpl = in_cpl ? 1.0f : 0.0f;
+  in.airvcap = __fmul_rn(air_hcap, air_dens);
+  return in;
+}
+
 // TsurfAve (pallas_step.py:211-215): (T1+T2)/2, or the interpolation at
 // the configured output depth.  The runtime node index is resolved by an
 // unrolled OR of bit patterns under all-ones/all-zero masks: a select chain
@@ -188,10 +658,13 @@ __device__ __forceinline__ float surf_ave(const float (&tmp)[LM + 3],
 // DEPTH: a global output depth is configured (StepConfig.use_depth); the
 // plain (T1+T2)/2 instantiation needs fewer registers.
 // SLIM: K2 (trf [>= off + nsteps], aux [4, P], cofs, t_total, cof_red are
-// read only there).
-template <int LM, bool DEPTH, bool SLIM>
+// read only there).  FUSED (with SLIM): K3 fused, the step's channels
+// prepared in registers from the raw inputs of `fa` (forcing is not read);
+// the segment lines live in dynamic shared memory, BLOCK floats apart.
+template <int LM, bool DEPTH, bool SLIM, bool FUSED>
 __global__ void __launch_bounds__(BLOCK)
-scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
+scan_kernel(const ScanConsts c, const FuseArgs fa,
+            const float* __restrict__ tmp0,
             const float* __restrict__ scal0,
             const float* __restrict__ forcing,
             const float* __restrict__ trf, const float* __restrict__ aux,
@@ -199,6 +672,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
             float* __restrict__ out, int P, int tp, int T, int nsteps,
             int off, int out_base, int cofs, int t_total, float cof_red) {
   using K = Ch<SLIM>;
+  extern __shared__ float seg_smem[];
   const int p = blockIdx.x * BLOCK + threadIdx.x;
   if (p >= P) return;
   const int64_t PP = P;
@@ -207,7 +681,28 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
   // the channel stride (the tile width)
   const int64_t FS = tp;
   const int64_t tile = p / tp;
-  const float* fpt = forcing + tile * (int64_t)T * K::N * FS + (p - tile * FS);
+  const float* fpt =
+      FUSED ? nullptr
+            : forcing + tile * (int64_t)T * K::N * FS + (p - tile * FS);
+  // K3 fused: the point's column in the grid's tile rows, the chunk's
+  // first step time, the segment lines and the sun's per-point terms
+  const int64_t colbase = tile * (int64_t)fa.K * FS + (p - tile * FS);
+  float* seg = seg_smem + threadIdx.x;
+  float tr0 = 0.0f;
+  SunPoint sp{0.0f, 0.0f, 0.0f};
+  if (FUSED) {
+    if (fa.has_grid) {
+      tr0 = __ldg(fa.trel + off);
+      grid_segments(fa, colbase, FS, seg, tr0);
+    }
+    if (fa.sky_on) {
+      const float pi_f = (float)3.14159265358979323846;
+      const float latr = div_s(__fmul_rn(__ldg(fa.lat + p), pi_f), 180.0f);
+      sp.sin_lat = sinf(latr);
+      sp.cos_lat = cosf(latr);
+      sp.lonr = div_s(__fmul_rn(__ldg(fa.lon + p), pi_f), 180.0f);
+    }
+  }
 
   // K2's per-point aux rows, read once
   float a_swc = 0.0f, a_lwc = 0.0f, a_cend = 0.0f, a_obs = 0.0f;
@@ -239,6 +734,11 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
 
   const float dt = c.dt;
   const float tph = c.tph;
+  // a division by a constant is a multiply by its correctly rounded
+  // float32 reciprocal, as torch divides by a Python scalar on the card
+  const float inv_dt = 1.0f / dt;
+  const float inv_vk = 1.0f / c.vk;
+  const float inv_melt = 1.0f / c.melt_heat;
   const float s2i = (float)(0.25 / 0.45);
   // the output cadence as a counter: the first step t whose global step
   // off + t is a multiple of out_stride, and its row; each hit moves both
@@ -247,7 +747,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
   const int64_t first = ((int64_t)off + c.out_stride - 1) / c.out_stride;
   unsigned t_hit = (unsigned)(first * c.out_stride - off);
   int row_hit = (int)first - out_base;
-  const int64_t f_step = (int64_t)K::N * FS;
+  const int64_t f_step = FUSED ? 0 : (int64_t)K::N * FS;
 
   const float* f = fpt;
   for (int t = 0; t < nsteps; ++t, f += f_step) {
@@ -272,12 +772,17 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       continue;
     }
 
-    const float tair = __ldg(f + K::TAIR * FS);
+    // K3 fused prepares the step's channels here; the other modes read
+    // them from the forcing where they are used
+    StepIn in;
+    if (FUSED) in = fused_prep(fa, p, colbase, FS, seg, tr0, tg, sp);
+#define FIN(X, FIELD) (FUSED ? in.FIELD : __ldg(f + K::X * FS))
+    const float tair = FIN(TAIR, tair);
     const bool abnormal = (tsurf < -100.0f) || (tsurf > 100.0f);
-    const bool failed = (__ldg(f + K::VALID * FS) < 0.5f) || abnormal;
+    const bool failed = (FIN(VALID, valid) < 0.5f) || abnormal;
 
     // SetCurrentValues + obs forcing
-    const float obs = __ldg(f + K::TSURF_OBS * FS);
+    const float obs = FIN(TSURF_OBS, obs);
     tmp[0] = tair;
     if (obs > -100.0f) {
       tmp[1] = obs;
@@ -286,13 +791,13 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     }
 
     // precipitation to storage
-    wat = wat + __ldg(f + K::RAIN * FS);
-    snow = snow + __ldg(f + K::SNOW * FS);
+    wat = wat + FIN(RAIN, rain);
+    snow = snow + FIN(SNOW, snow);
 
     // boundary-layer fixed point (pallas_step.py:104-172): each thread
     // stops at its own convergence, which equals the masked freeze
-    const float vz = __ldg(f + K::VZ * FS);
-    const float air_vcap = __ldg(f + K::AIRVCAP * FS);
+    const float vz = FIN(VZ, vz);
+    const float air_vcap = FIN(AIRVCAP, airvcap);
     const float tak = tair + 273.15f;
     const float dt_ts = tsurf - tair;
     const float inv_kvz = __frcp_rn(c.vk * vz);
@@ -319,13 +824,13 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       if (newly) break;
     }
     const float raero = nmin((c.log_mom + psim) * (c.log_heat + psih) *
-                                 (inv_kvz / c.vk),
+                                 (inv_kvz * inv_vk),
                              30.0f);
     const float psych_c = 0.1f * (0.00063f * tak + 0.47496f);
     const float wat_den = -0.0050f * tsurf * tsurf + 0.0079f * tsurf +
                           1000.0028f;
     const float esurf = esat1(tsurf);
-    float le = air_vcap * (esurf - __ldg(f + K::EAIR * FS)) / (psych_c * raero);
+    float le = air_vcap * (esurf - FIN(EAIR, eair)) / (psych_c * raero);
     const float lheat = tsurf >= 0.0f ? c.lvap : c.lfus;
     float evap = le / (lheat * wat_den) * 1000.0f * dt;
     if ((le > 0.0f) && (wat <= 0.0f)) {
@@ -355,10 +860,10 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       }
       // opaque to the optimiser, like K1's loaded channels: a coefficient
       // known to be 1 (or a select against 1) would let the products below
-      // be folded or split, and round unlike K1's contracted expression
+      // be folded or split, and round unlike K1's expression
       asm("" : "+f"(sw_cof), "+f"(lw_cof));
-      rnet = (1.0f - alb) * __ldg(f + K::SW * FS) * sw_cof +
-             c.emiss * __ldg(f + K::LW * FS) * lw_cof - c.emiss_sb * tk2 * tk2;
+      rnet = (1.0f - alb) * FIN(SW, sw) * sw_cof +
+             c.emiss * FIN(LW, lw) * lw_cof - c.emiss_sb * tk2 * tk2;
     } else {
       rnet = (1.0f - alb) * __ldg(f + C_SW * FS) * __ldg(f + C_SWCOF * FS) +
              c.emiss * __ldg(f + C_LW * FS) * __ldg(f + C_LWCOF * FS) -
@@ -385,7 +890,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
                                    0.11516f * t2_ - 3.4739f * tj + 4217.2f;
         const float chwt = roo * cw;
         const float vsh = (j <= 2 ? c.dry1 : c.dry2) + c.wcont[j - 1] * chwt;
-        if (j == 1) hs1 = vsh * c.dyc[0] / dt;
+        if (j == 1) hs1 = vsh * c.dyc[0] * inv_dt;
         // -1/x as the negated correctly rounded reciprocal: the same bits
         // as the IEEE divide, without its quotient refinement and range
         // check
@@ -402,7 +907,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     const bool has_frozen = (snow > 0.0f) || (ice > 0.0f) || (ice2 > 0.0f);
     float q2 = has_frozen ? q2m : 0.0f;
     if (c.melt_change) {
-      const bool in_cpl = __ldg(f + K::INCPL * FS) > 0.5f;
+      const bool in_cpl = FIN(INCPL, incpl) > 0.5f;
       const bool guard =
           (hstor <= 0.00001f) || (tsurf <= t4m) || (q2m <= 0.0f) ||
           (in_cpl && ((SLIM ? a_obs : __ldg(f + C_CPLOBS * FS)) < t4m));
@@ -456,7 +961,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       ice = ice + dep;
       dep = 0.0f;
     }
-    const float mm = 1000.0f * (q2 * dt) / c.melt_heat;
+    const float mm = 1000.0f * (q2 * dt) * inv_melt;
     {
       const bool has_snow = snow > 0.0f;
       const bool melt_f = has_snow && c.force_snow;
@@ -535,10 +1040,10 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     float q2n = 0.0f;
     float t4n = t4m;
     if (snow > 0.0f) {
-      q2n = c.melt_heat * (snow / 1000.0f) / dt;
+      q2n = c.melt_heat * (snow * (1.0f / 1000.0f)) * inv_dt;
       t4n = c.t_lim_melt_snow;
     } else if (ice > 0.0f) {
-      q2n = c.melt_heat * (ice / 1000.0f) / dt;
+      q2n = c.melt_heat * (ice * (1.0f / 1000.0f)) * inv_dt;
       t4n = c.t_lim_melt_ice;
     }
     q2n = nmax(q2n, 0.0f);
@@ -547,7 +1052,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
     const bool snowy_a = (snow > 0.01f) && (snow > ice);
     const bool icy_a = (ice > 0.01f) || (dep > 0.01f);
     const float icy_alb =
-        ice_sum < 1.5f ? c.alb_dry + (ice_sum / 1.5f) * c.alb_span : c.alb_snow;
+        ice_sum < 1.5f ? c.alb_dry + (ice_sum * (1.0f / 1.5f)) * c.alb_span : c.alb_snow;
     alb = snowy_a ? c.alb_snow : (icy_a ? icy_alb : c.alb_dry);
 
     // commit (this point was active): the profile was updated in place
@@ -570,6 +1075,7 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
       o[6 * PP] = 0.0f;
       o[7 * PP] = 0.0f;
     }
+#undef FIN
   }
 
   // write back: rows 0..L from registers, the rest passed through
@@ -595,9 +1101,12 @@ scan_kernel(const ScanConsts c, const float* __restrict__ tmp0,
 }
 
 // Dispatch on the layer bucket and the output-depth option; returns
-// cudaGetLastError() after the launch (0 = ok).
-template <bool SLIM>
-static int launch(const ScanConsts* c, const float* tmp0, const float* scal0,
+// cudaGetLastError() after the launch (0 = ok).  FUSED takes its inputs
+// from *fa (then forcing is null and T = nsteps) and its dynamic shared
+// memory for the segment lines.
+template <bool SLIM, bool FUSED>
+static int launch(const ScanConsts* c, const FuseArgs* fa,
+                  const float* tmp0, const float* scal0,
                   const float* forcing, const float* trf, const float* aux,
                   float* tmp_out, float* scal_out, float* out, int P,
                   int tp, int T, int nsteps, int off, int out_base, int cofs,
@@ -605,12 +1114,32 @@ static int launch(const ScanConsts* c, const float* tmp0, const float* scal0,
   if (P <= 0 || c->L < 1 || c->L > LMAX_ALL || tp <= 0 || P % tp != 0 ||
       (tp != P && tp % BLOCK != 0) || nsteps > T)
     return (int)cudaErrorInvalidValue;
+  static const FuseArgs none = {};
+  size_t smem = 0;
+  if (FUSED) {
+    if (fa == nullptr || (fa->has_grid && (fa->span < 1 ||
+                                            fa->span > SPAN_MAX)))
+      return (int)cudaErrorInvalidValue;
+    int nch = 0;
+    if (fa->has_grid)
+      for (int k = 0; k < F_PPHASE; ++k) nch += fa->g[k] != nullptr;
+    smem = (size_t)nch * fa->span * 2 * BLOCK * sizeof(float);
+  }
+  const FuseArgs& args = FUSED ? *fa : none;
   const dim3 grid((P + BLOCK - 1) / BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(LM, DEPTH)                                                  \
-  scan_kernel<LM, DEPTH, SLIM><<<grid, BLOCK, 0, s>>>(                     \
-      *c, tmp0, scal0, forcing, trf, aux, tmp_out, scal_out, out, P, tp, T, \
-      nsteps, off, out_base, cofs, t_total, cof_red)
+#define LAUNCH(LM, DEPTH)                                                   \
+  do {                                                                      \
+    auto kern = scan_kernel<LM, DEPTH, SLIM, FUSED>;                        \
+    if (smem > 48 * 1024) {                                                 \
+      cudaError_t e = cudaFuncSetAttribute(                                 \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
+      if (e != cudaSuccess) return (int)e;                                  \
+    }                                                                       \
+    kern<<<grid, BLOCK, smem, s>>>(*c, args, tmp0, scal0, forcing, trf, aux, \
+                                   tmp_out, scal_out, out, P, tp, T, nsteps, \
+                                   off, out_base, cofs, t_total, cof_red);  \
+  } while (0)
   if (c->L <= 16) {
     if (c->use_depth) LAUNCH(16, true); else LAUNCH(16, false);
   } else {
@@ -628,9 +1157,9 @@ int roadsurf_scan(const ScanConsts* c, const float* tmp0, const float* scal0,
                   const float* forcing, float* tmp_out, float* scal_out,
                   float* out, int P, int tp, int T, int nsteps, int off,
                   int out_base, void* stream) {
-  return launch<false>(c, tmp0, scal0, forcing, nullptr, nullptr, tmp_out,
-                       scal_out, out, P, tp, T, nsteps, off, out_base, 0, 0,
-                       1.0f, stream);
+  return launch<false, false>(c, nullptr, tmp0, scal0, forcing, nullptr,
+                              nullptr, tmp_out, scal_out, out, P, tp, T,
+                              nsteps, off, out_base, 0, 0, 1.0f, stream);
 }
 
 // K2 on `stream`: forcing [T, 11, P] (tp = P), or K3 slim: [P / tp, T, 11,
@@ -642,9 +1171,23 @@ int roadsurf_scan_slim(const ScanConsts* c, const float* tmp0,
                        float* scal_out, float* out, int P, int tp, int T,
                        int nsteps, int off, int out_base, int cofs,
                        int t_total, float cof_red, void* stream) {
-  return launch<true>(c, tmp0, scal0, forcing, trf, aux, tmp_out, scal_out,
-                      out, P, tp, T, nsteps, off, out_base, cofs, t_total,
-                      cof_red, stream);
+  return launch<true, false>(c, nullptr, tmp0, scal0, forcing, trf, aux,
+                             tmp_out, scal_out, out, P, tp, T, nsteps, off,
+                             out_base, cofs, t_total, cof_red, stream);
+}
+
+// K3 fused on `stream`: K3 slim with each step's channels prepared in the
+// kernel from the raw inputs of *fa (no forcing tensor); tile width tp,
+// trf [>= off + nsteps], aux [4, P], cofs as roadsurf_scan_slim.
+int roadsurf_scan_fused(const ScanConsts* c, const FuseArgs* fa,
+                        const float* tmp0, const float* scal0,
+                        const float* trf, const float* aux, float* tmp_out,
+                        float* scal_out, float* out, int P, int tp,
+                        int nsteps, int off, int out_base, int cofs,
+                        int t_total, float cof_red, void* stream) {
+  return launch<true, true>(c, fa, tmp0, scal0, nullptr, trf, aux, tmp_out,
+                            scal_out, out, P, tp, nsteps, nsteps, off,
+                            out_base, cofs, t_total, cof_red, stream);
 }
 
 // K4, the sharded launch.  Replaces
@@ -660,8 +1203,10 @@ int roadsurf_scan_slim(const ScanConsts* c, const float* tmp0,
 // of the kernel above on streams[b] (a stream of that device).  Per block:
 // the pointers of roadsurf_scan / roadsurf_scan_slim, its point count P[b]
 // and its tile width tp[b]; trf and aux are read when slim != 0 (trf[b] is
-// the copy of the time-only vector on that block's device).  The constants,
-// the chunk geometry and the decay arguments are the same for every block.
+// the copy of the time-only vector on that block's device).  With `fused`
+// (an array of n FuseArgs, slim != 0) each block runs K3 fused on its own
+// raw inputs fused[b] and forcing is not read.  The constants, the chunk
+// geometry and the decay arguments are the same for every block.
 // One host call, no synchronisation; the caller's device is restored.
 // Returns the first CUDA error (0 = ok) and, through failed_block, the block
 // it came from (-1 when it is not a block's: the device query or restore).
@@ -674,7 +1219,7 @@ int roadsurf_scan_sharded(const ScanConsts* c, int n, const int* devices,
                           float* const* out, const int* P, const int* tp,
                           int T, int nsteps, int off, int out_base, int slim,
                           int cofs, int t_total, float cof_red,
-                          int* failed_block) {
+                          const FuseArgs* fused, int* failed_block) {
   *failed_block = -1;
   if (n <= 0) return (int)cudaErrorInvalidValue;
   int caller = 0;
@@ -685,15 +1230,21 @@ int roadsurf_scan_sharded(const ScanConsts* c, int n, const int* devices,
     err = cudaSetDevice(devices[b]);
     if (err != cudaSuccess) {
       rc = (int)err;
+    } else if (fused != nullptr) {
+      rc = launch<true, true>(c, fused + b, tmp0[b], scal0[b], nullptr,
+                              trf[b], aux[b], tmp_out[b], scal_out[b],
+                              out[b], P[b], tp[b], nsteps, nsteps, off,
+                              out_base, cofs, t_total, cof_red, streams[b]);
     } else if (slim) {
-      rc = launch<true>(c, tmp0[b], scal0[b], forcing[b], trf[b], aux[b],
-                        tmp_out[b], scal_out[b], out[b], P[b], tp[b], T,
-                        nsteps, off, out_base, cofs, t_total, cof_red,
-                        streams[b]);
+      rc = launch<true, false>(c, nullptr, tmp0[b], scal0[b], forcing[b],
+                               trf[b], aux[b], tmp_out[b], scal_out[b],
+                               out[b], P[b], tp[b], T, nsteps, off, out_base,
+                               cofs, t_total, cof_red, streams[b]);
     } else {
-      rc = launch<false>(c, tmp0[b], scal0[b], forcing[b], nullptr, nullptr,
-                         tmp_out[b], scal_out[b], out[b], P[b], tp[b], T,
-                         nsteps, off, out_base, 0, 0, 1.0f, streams[b]);
+      rc = launch<false, false>(c, nullptr, tmp0[b], scal0[b], forcing[b],
+                                nullptr, nullptr, tmp_out[b], scal_out[b],
+                                out[b], P[b], tp[b], T, nsteps, off,
+                                out_base, 0, 0, 1.0f, streams[b]);
     }
     if (rc != 0) *failed_block = b;
   }
@@ -702,8 +1253,10 @@ int roadsurf_scan_sharded(const ScanConsts* c, int n, const int* devices,
   return rc;
 }
 
-// sizeof(ScanConsts), checked against the ctypes mirror before any launch
+// sizeof(ScanConsts) and sizeof(FuseArgs), checked against the ctypes
+// mirrors before any launch
 int roadsurf_consts_size(void) { return (int)sizeof(ScanConsts); }
+int roadsurf_fuse_args_size(void) { return (int)sizeof(FuseArgs); }
 
 const char* roadsurf_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

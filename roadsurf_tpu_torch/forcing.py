@@ -28,7 +28,7 @@ import torch
 from .config import ModelSettings, PhysicsParams, MISSING
 from .physics import storage
 from .physics.radiation import modify_radiation
-from .physics.sun import elevation_azimuth, julian_ephemeris_day
+from .physics.sun import julian_ephemeris_day, sun_at_points, sun_time_terms
 from .state import PointParams
 
 
@@ -143,7 +143,9 @@ def prepare_window(rawT: RawForcing, pts: PointParams, hour, settings, p,
     t_total: full simulation length T (for the first/last-step quirks);
     anchors: the ``relax_anchors`` triple (required when
     settings.use_relaxation); jde: [Tc] julian ephemeris day tensor
-    (required when ``enable_skyview``); flat_horizons: the horizons are all
+    (required when ``enable_skyview``), float64: the sun's time terms are
+    formed from it in float64 and cast to the run dtype, since a float32 day
+    steps by 0.25 day (``physics.sun.sun_time_terms``); flat_horizons: the horizons are all
     zero, so the lookup is skipped and ``pts.horizons`` is not read.  Every
     rule is elementwise over points, so the tile layout gives the values of
     the [Tc, P] layout, bit for bit, sky view included.
@@ -191,8 +193,9 @@ def prepare_window(rawT: RawForcing, pts: PointParams, hour, settings, p,
     # 0 <= sky_view < 1; Simulation.f90:152-155) -------------------------
     sw, lw = rawT.sw, rawT.lw
     if enable_skyview:
-        elev, azim = elevation_azimuth(tb(jde.to(dtype)), pvec(pts.lat),
-                                       pvec(pts.lon))
+        terms = sun_time_terms(jde.to(torch.float64))
+        elev, azim = sun_at_points(*(tb(x.to(dtype)) for x in terms),
+                                   pvec(pts.lat), pvec(pts.lon))
         sw_m, lw_m = modify_radiation(sw, sw_dir, lw, rawT.lw_net,
                                       elev, azim, pvec(pts.sky_view),
                                       pts.horizons, p,
@@ -282,15 +285,14 @@ def prepare(raw: RawForcing, pts: PointParams, cal: Calendar,
 
     Thin wrapper over :func:`prepare_window` with the full [0, T) window."""
     T = raw.tair.shape[-1]
-    dtype = raw.tair.dtype
     dev = raw.tair.device
 
     skyview_active = (pts.sky_view < 1.0) & (pts.sky_view > -0.01)
     enable_skyview = bool(skyview_active.any())
     anchors = relax_anchors(raw, pts) if settings.use_relaxation else None
-    # the Julian day is rounded to the run dtype (forcing.py:301): a float32
-    # run sees the same rounded day as the JAX package
-    jde = (torch.as_tensor(cal.jde, device=dev).to(dtype)
+    # the Julian day stays float64 whatever the run dtype (the JAX package
+    # rounds it to the run dtype, forcing.py:301: 0.25 day in float32)
+    jde = (torch.as_tensor(cal.jde, dtype=torch.float64, device=dev)
            if enable_skyview else None)
     rawT = RawForcing(*(x.transpose(-1, 0) for x in raw))
     return prepare_window(rawT, pts,

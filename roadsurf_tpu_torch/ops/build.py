@@ -29,7 +29,8 @@ BUILD_DIR = _PKG.parent / "build" / "roadsurf_tpu_torch"
 
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-         "-prec-div=true", "-prec-sqrt=true", "-ftz=false", "-Xptxas", "-v")
+         "-prec-div=true", "-prec-sqrt=true", "-ftz=false", "-fmad=false",
+         "-Xptxas", "-v")
 
 _LIBS: dict = {}
 
@@ -110,18 +111,25 @@ def load(sources=SOURCES) -> ctypes.CDLL:
     lib.roadsurf_scan_slim.argtypes = [vp] * 9 + [ci] * 8 + [
         ctypes.c_float, vp]
     lib.roadsurf_scan_slim.restype = ci
-    lib.roadsurf_scan_sharded.argtypes = [vp, ci] + [vp] * 12 + [ci] * 7 + [
+    lib.roadsurf_scan_fused.argtypes = [vp] * 9 + [ci] * 7 + [
         ctypes.c_float, vp]
+    lib.roadsurf_scan_fused.restype = ci
+    lib.roadsurf_scan_sharded.argtypes = [vp, ci] + [vp] * 12 + [ci] * 7 + [
+        ctypes.c_float, vp, vp]
     lib.roadsurf_scan_sharded.restype = ci
     lib.roadsurf_consts_size.argtypes = []
     lib.roadsurf_consts_size.restype = ci
+    lib.roadsurf_fuse_args_size.argtypes = []
+    lib.roadsurf_fuse_args_size.restype = ci
     lib.roadsurf_error_string.argtypes = [ci]
     lib.roadsurf_error_string.restype = ctypes.c_char_p
-    from .scan_kernel import ScanConsts
-    if lib.roadsurf_consts_size() != ctypes.sizeof(ScanConsts):
-        raise RuntimeError(
-            f"ScanConsts layout mismatch: C {lib.roadsurf_consts_size()} "
-            f"bytes, ctypes {ctypes.sizeof(ScanConsts)}")
+    from .scan_kernel import FuseArgs, ScanConsts
+    for name, mirror in (("consts", ScanConsts), ("fuse_args", FuseArgs)):
+        size = getattr(lib, f"roadsurf_{name}_size")()
+        if size != ctypes.sizeof(mirror):
+            raise RuntimeError(
+                f"{mirror.__name__} layout mismatch: C {size} bytes, "
+                f"ctypes {ctypes.sizeof(mirror)}")
     _LIBS[path] = lib
     return lib
 

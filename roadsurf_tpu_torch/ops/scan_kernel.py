@@ -9,7 +9,7 @@ the chunk with the profile and the scalar state in registers.  ``scan``
 dispatches on the tensors' device: CPU tensors take :func:`scan_reference`,
 CUDA tensors launch the kernel (or raise); nothing falls back.
 
-Three modes of the one kernel:
+Four modes of the one kernel:
 
  * K1, point-major: forcing ``[T, NCH, P]`` with all 16 channels;
  * K2, slim (``aux_rows`` given): forcing ``[T, NCH_SLIM, P]`` with only the
@@ -22,7 +22,16 @@ Three modes of the one kernel:
    NCH_SLIM, TP]`` (point ``p`` is lane ``p % TP`` of tile ``p // TP``, TP a
    multiple of ``LANE``), so each tile's steps are one contiguous slab
    (pallas_step.py:387-398, :619-629); state, aux rows and outputs stay
-   point-major.
+   point-major;
+ * K3 fused (:func:`scan_fused`): K3 slim with no forcing tensor at all.
+   Each thread prepares its step's 11 channels in registers from the
+   chunk's raw inputs, a ``FusedChunk`` of ``production``: the grid part's
+   series rows in the tile layout with the gap-capped interpolation's
+   segment lines, the station part's series and index, the source-order
+   merge, and every rule of ``forcing.prepare_window`` (sky view and
+   relaxation included) and :func:`forcing_thermo`.  Its plain version
+   composes what the unfused route runs: the chunk's eager prep,
+   :func:`pack_forcing_slim_tm` and :func:`scan_reference`.
 
 K4, the sharded launch (``scan_cuda_sharded``; the counterpart of
 ``roadsurf_tpu/parallel/sharding.py:pallas_scan_sharded``), has no
@@ -92,6 +101,9 @@ LANE = 128
 LAUNCHES = 0
 LAUNCHES_SLIM = 0
 LAUNCHES_TM = 0
+#: kernel launches of K3 fused (:func:`scan_cuda_fused` and the fused
+#: sharded launch), one for each block
+LAUNCHES_TM_FUSED = 0
 #: sharded launches by :func:`scan_cuda_sharded` (K4): one for each host call,
 #: whatever its number of blocks; each of its blocks also counts in its
 #: mode's counter above
@@ -120,6 +132,87 @@ class ScanConsts(ctypes.Structure):
             "min_dep_mms", "max_dep_mms", "alb_dry", "alb_snow",
             "alb_span")]
         + [(n, ctypes.c_float * LMAX) for n in ("dyc", "cond_dz", "wcont")])
+
+
+#: RawForcing's fields in order (forcing.RawForcing), the order of
+#: FuseArgs' pointer arrays
+RAW_FIELDS = ("tair", "tdew", "vz", "rhz", "prec", "sw", "lw", "sw_dir",
+              "lw_net", "tsurf_obs", "prec_phase")
+#: the most grid segments a chunk of K3 fused holds (its shared memory
+#: takes 2 floats a segment a channel a thread)
+SPAN_MAX = 16
+
+_VP = ctypes.c_void_p
+_FUSE_PTRS = (("trw", "trel", "pos", "pick", "tex", "havep"),
+              ("sidx", "sok", "lat", "lon", "sky", "hor", "init_len",
+               "cstart", "cend", "tr_relax", "vz_relax", "rh_relax",
+               "ctsurf", "anc_t", "anc_v", "anc_r", "hour", "sun"))
+_FUSE_INTS = ("has_grid", "has_station", "grid_last", "K", "KW", "span",
+              "k0", "lo", "complete", "s_tpad", "hor_w", "t_total", "relax",
+              "coupling", "force_tsurf", "sky_on", "flat_hor", "sun_stride")
+_FUSE_FLOATS = ("max_gap", "calm_ngt", "calm_day", "night_on", "night_off",
+                "min_prec", "p_snow", "p_rain", "miss_i", "alb_sur", "dt_f")
+_FUSE_DOUBLES = ("dt", "p_snow_d", "p_rain_d")
+
+
+class FuseArgs(ctypes.Structure):
+    """Mirror of ``struct FuseArgs`` in csrc/scan_kernel.cu: one block's
+    raw inputs of one chunk of K3 fused (pointers, then ints, floats and
+    doubles; a null pointer is an absent channel)."""
+    _fields_ = ([("g", _VP * len(RAW_FIELDS))]
+                + [(n, _VP) for n in _FUSE_PTRS[0]]
+                + [("s", _VP * len(RAW_FIELDS))]
+                + [(n, _VP) for n in _FUSE_PTRS[1]]
+                + [(n, ctypes.c_int) for n in _FUSE_INTS]
+                + [(n, ctypes.c_float) for n in _FUSE_FLOATS]
+                + [(n, ctypes.c_double) for n in _FUSE_DOUBLES])
+
+
+#: the dtype each FuseArgs pointer field must have
+_FUSE_DTYPES = dict(
+    trw=torch.float32, trel=torch.float32, pos=torch.int32,
+    pick=torch.int32, tex=torch.bool, havep=torch.bool, sidx=torch.int64,
+    sok=torch.bool, lat=torch.float32, lon=torch.float32,
+    sky=torch.float32, hor=torch.float32, init_len=torch.int32,
+    cstart=torch.int32, cend=torch.int32, tr_relax=torch.float32,
+    vz_relax=torch.float32, rh_relax=torch.float32, ctsurf=torch.float32,
+    anc_t=torch.float32, anc_v=torch.float32, anc_r=torch.float32,
+    hour=torch.int32, sun=torch.float32)
+
+
+def fuse_args(src, device) -> FuseArgs:
+    """The FuseArgs of a ``FusedChunk`` (``src.kernel_args()``: tensors
+    for the pointer fields, None for a null one, numbers for the rest),
+    each tensor checked for its device, dtype and contiguity.  The caller
+    keeps ``src`` alive until the launch is issued."""
+    a = src.kernel_args()
+    fa = FuseArgs()
+
+    def ptr(name, x, dtype):
+        if x is None:
+            return None
+        if not isinstance(x, torch.Tensor) or x.device != device:
+            raise ValueError(f"fused input {name} must be a tensor on "
+                             f"{device}")
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"fused input {name}: {x.dtype}, contiguous "
+                             f"{x.is_contiguous()}; need contiguous {dtype}")
+        return x.data_ptr()
+    for key in ("g", "s"):
+        for i, n in enumerate(RAW_FIELDS):
+            dt = (torch.int32 if key == "s" and n == "prec_phase"
+                  else torch.float32)
+            getattr(fa, key)[i] = ptr(f"{key}.{n}", a[key].get(n), dt)
+    for n in _FUSE_PTRS[0] + _FUSE_PTRS[1]:
+        setattr(fa, n, ptr(n, a.get(n), _FUSE_DTYPES[n]))
+    for n in _FUSE_INTS:
+        setattr(fa, n, int(a.get(n, 0)))
+    for n in _FUSE_FLOATS + _FUSE_DOUBLES:
+        setattr(fa, n, float(a.get(n, 0.0)))
+    if fa.has_grid and not 1 <= fa.span <= SPAN_MAX:
+        raise ValueError(f"the grid's SPAN {fa.span} is outside the fused "
+                         f"kernel's 1..{SPAN_MAX}")
+    return fa
 
 
 def make_consts(cfg: StepConfig, p: PhysicsParams, grid: LayerGrid,
@@ -424,9 +517,23 @@ def _road_cond(wat, snow, ice, ice2, dep, tsurf, evap, q2, t4, vcold,
     return wat, snow, ice, ice2, dep, vcold, q2n, t4n, albedo
 
 
+def is_fused(forcing) -> bool:
+    """Whether ``forcing`` is a chunk of raw inputs for K3 fused (a
+    ``production.FusedChunk``), not a forcing tensor."""
+    return not isinstance(forcing, torch.Tensor)
+
+
 def _forcing_layout(forcing, P: int, slim: bool):
     """(T, tile width) of a point-major ``[T, nch, P]`` forcing (tile width
-    P) or a tile-major ``[P / TP, T, nch, TP]`` one; raises on any other."""
+    P), a tile-major ``[P / TP, T, nch, TP]`` one, or a fused chunk of
+    ``tc`` steps on ``tile_geom``; raises on any other."""
+    if is_fused(forcing):
+        nt, tp = forcing.tile_geom
+        if not slim or nt * tp != P or tp % LANE:
+            raise ValueError(f"a fused chunk needs the slim arguments and "
+                             f"whole {LANE}-point tiles of the {P} points, "
+                             f"got {forcing.tile_geom}")
+        return forcing.tc, tp
     nch = NCH_SLIM if slim else NCH
     shape = tuple(forcing.shape)
     if forcing.dim() == 3 and shape[1:] == (nch, P):
@@ -690,7 +797,8 @@ def _checked_launch(tmp0, scal0, forcing, cfg, grid, out_stride, nsteps,
                nsteps)
     _check("tmp0", tmp0, (lpad, P), tmp0.device)
     _check("scal0", scal0, (NROWS, P), tmp0.device)
-    _check("forcing", forcing, tuple(forcing.shape), tmp0.device)
+    if not is_fused(forcing):
+        _check("forcing", forcing, tuple(forcing.shape), tmp0.device)
     if slim:
         _check("slim_trf", slim_trf, tuple(slim_trf.shape), tmp0.device)
         _check("aux_rows", aux_rows, (N_AUX, P), tmp0.device)
@@ -699,8 +807,10 @@ def _checked_launch(tmp0, scal0, forcing, cfg, grid, out_stride, nsteps,
 
 def _count_launches(forcing, slim: bool, n: int = 1):
     """Add ``n`` launches to the counter of the mode that ran."""
-    global LAUNCHES, LAUNCHES_SLIM, LAUNCHES_TM
-    if forcing.dim() == 4:
+    global LAUNCHES, LAUNCHES_SLIM, LAUNCHES_TM, LAUNCHES_TM_FUSED
+    if is_fused(forcing):
+        LAUNCHES_TM_FUSED += n
+    elif forcing.dim() == 4:
         LAUNCHES_TM += n
     elif slim:
         LAUNCHES_SLIM += n
@@ -722,6 +832,8 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     lpad, P, T, tp, nsteps, off, n_rows, out_base, slim = _checked_launch(
         tmp0, scal0, forcing, cfg, grid, out_stride, nsteps, out_offset,
         n_out, slim_trf, aux_rows, aux_cofs, t_total, cof_red)
+    if is_fused(forcing):
+        raise ValueError("a fused chunk launches through scan_cuda_fused")
     consts = make_consts(cfg, p, grid, lpad, int(out_stride), n_rows)
     tmp_f = torch.empty_like(tmp0)
     scal_f = torch.empty_like(scal0)
@@ -750,6 +862,80 @@ def scan_cuda(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     return tmp_f, scal_f, out
 
 
+def scan_cuda_fused(tmp0, scal0, src, cfg: StepConfig, p: PhysicsParams,
+                    grid: LayerGrid, out_stride: int = 1,
+                    nsteps: int = None, out_offset=None, n_out: int = None,
+                    slim_trf=None, aux_rows=None, aux_cofs: bool = False,
+                    t_total: int = None, cof_red: float = None):
+    """Launch K3 fused (``roadsurf_scan_fused``) on CUDA tensors: the
+    arguments and results of :func:`scan_fused_reference`.  Runs on the
+    current stream, does not synchronise, and raises if the launch is
+    refused."""
+    from . import build
+
+    lpad, P, T, tp, nsteps, off, n_rows, out_base, _ = _checked_launch(
+        tmp0, scal0, src, cfg, grid, out_stride, nsteps, out_offset, n_out,
+        slim_trf, aux_rows, aux_cofs, t_total, cof_red)
+    fa = fuse_args(src, tmp0.device)
+    consts = make_consts(cfg, p, grid, lpad, int(out_stride), n_rows)
+    tmp_f = torch.empty_like(tmp0)
+    scal_f = torch.empty_like(scal0)
+    out = torch.empty((n_rows, N_OUT_FIELDS, P), dtype=torch.float32,
+                      device=tmp0.device)
+    lib = build.load()
+    stream = torch.cuda.current_stream(tmp0.device).cuda_stream
+    with torch.cuda.device(tmp0.device):
+        rc = lib.roadsurf_scan_fused(
+            ctypes.addressof(consts), ctypes.addressof(fa), tmp0.data_ptr(),
+            scal0.data_ptr(), slim_trf.data_ptr(), aux_rows.data_ptr(),
+            tmp_f.data_ptr(), scal_f.data_ptr(), out.data_ptr(), P, tp,
+            nsteps, off, out_base, int(bool(aux_cofs)),
+            int(t_total) if aux_cofs else 0,
+            float(cof_red) if aux_cofs else 1.0, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused scan kernel launch failed: CUDA error "
+                           f"{rc} ({build.error_string(rc)})")
+    _count_launches(src, True)
+    return tmp_f, scal_f, out
+
+
+def scan_fused_reference(tmp0, scal0, src, cfg: StepConfig,
+                         p: PhysicsParams, grid: LayerGrid,
+                         out_stride: int = 1, nsteps: int = None,
+                         out_offset=None, n_out: int = None, slim_trf=None,
+                         aux_rows=None, aux_cofs: bool = False,
+                         t_total: int = None, cof_red: float = None,
+                         stats: dict = None):
+    """The plain version of K3 fused, on any device: the chunk's eager prep
+    (``src.prepared()``: the expander's tile-layout raw window, the parts
+    merged, ``forcing.prepare_window(time_axis=1)``), stacked by
+    :func:`pack_forcing_slim_tm` into K3's slim forcing and run by
+    :func:`scan_reference` with the same slim arguments."""
+    forcing = pack_forcing_slim_tm(src.prepared())[0]
+    return scan_reference(tmp0, scal0, forcing, cfg, p, grid,
+                          out_stride=out_stride, nsteps=nsteps,
+                          out_offset=out_offset, n_out=n_out,
+                          slim_trf=slim_trf, aux_rows=aux_rows,
+                          aux_cofs=aux_cofs, t_total=t_total,
+                          cof_red=cof_red, stats=stats)
+
+
+def scan_fused(tmp0, scal0, src, cfg: StepConfig, p: PhysicsParams,
+               grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
+               out_offset=None, n_out: int = None, slim_trf=None,
+               aux_rows=None, aux_cofs: bool = False, t_total: int = None,
+               cof_red: float = None):
+    """K3 fused on one block: CPU tensors run :func:`scan_fused_reference`,
+    CUDA tensors the kernel."""
+    args = (tmp0, scal0, src, cfg, p, grid, out_stride, nsteps, out_offset,
+            n_out, slim_trf, aux_rows, aux_cofs, t_total, cof_red)
+    if tmp0.device.type == "cpu":
+        return scan_fused_reference(*args)
+    if tmp0.device.type == "cuda":
+        return scan_cuda_fused(*args)
+    raise ValueError(f"no fused scan kernel for device {tmp0.device}")
+
+
 def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
                       p: PhysicsParams, grid: LayerGrid, streams,
                       out_stride: int = 1, nsteps: int = None,
@@ -762,12 +948,13 @@ def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
 
     ``tmp0``, ``scal0``, ``forcing`` and, in the slim mode, ``slim_trf`` and
     ``aux_rows`` are sequences with one entry per block, each as
-    :func:`scan_cuda` takes it; the other arguments are the same for every
-    block.  The results of block ``b`` are allocated on ``streams[b]`` and
-    ordered after its launch there: the caller issues a block's other work
-    on the same stream, or orders it against that stream itself.  Does not
-    synchronise; raises if any launch is refused.  Returns a list of
-    (tmp, scal, out) per block."""
+    :func:`scan_cuda` takes it (a fused chunk in place of every forcing
+    tensor runs K3 fused on each block); the other arguments are the same
+    for every block.  The results of block ``b`` are allocated on
+    ``streams[b]`` and ordered after its launch there: the caller issues a
+    block's other work on the same stream, or orders it against that stream
+    itself.  Does not synchronise; raises if any launch is refused.
+    Returns a list of (tmp, scal, out) per block."""
     global LAUNCHES_SHARDED
     from . import build
 
@@ -785,8 +972,10 @@ def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
         aux_rows[b] if slim else None, aux_cofs, t_total, cof_red)
         for b in range(n)]
     lpad, _, T, _, nsteps, off, n_rows, out_base, _ = geo[0]
+    fused = is_fused(forcing[0])
+    kind = lambda f: "fused" if is_fused(f) else f.dim()
     for b, g in enumerate(geo):
-        if (g[0], g[2]) != (lpad, T) or forcing[b].dim() != forcing[0].dim():
+        if (g[0], g[2]) != (lpad, T) or kind(forcing[b]) != kind(forcing[0]):
             raise ValueError(
                 f"block {b} differs from block 0 in profile rows, steps or "
                 f"forcing layout")
@@ -804,6 +993,9 @@ def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
     ptrs = lambda xs: (ctypes.c_void_p * n)(*(x.data_ptr() for x in xs))
     ints = lambda xs: (ctypes.c_int * n)(*xs)
     null = (ctypes.c_void_p * n)()
+    fas = ((FuseArgs * n)(*(fuse_args(f, t.device)
+                            for f, t in zip(forcing, tmp0)))
+           if fused else None)
     failed_block = ctypes.c_int(-1)
     lib = build.load()
     with torch.cuda.device(tmp0[0].device):
@@ -811,7 +1003,7 @@ def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
             ctypes.addressof(consts), n,
             ints(t.device.index for t in tmp0),
             (ctypes.c_void_p * n)(*(s.cuda_stream for s in streams)),
-            ptrs(tmp0), ptrs(scal0), ptrs(forcing),
+            ptrs(tmp0), ptrs(scal0), null if fused else ptrs(forcing),
             ptrs(slim_trf) if slim else null,
             ptrs(aux_rows) if slim else null,
             ptrs(r[0] for r in results), ptrs(r[1] for r in results),
@@ -819,6 +1011,7 @@ def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
             ints(g[3] for g in geo), T, nsteps, off, out_base, int(slim),
             int(bool(aux_cofs)), int(t_total) if aux_cofs else 0,
             float(cof_red) if aux_cofs else 1.0,
+            ctypes.addressof(fas) if fused else None,
             ctypes.byref(failed_block))
     if rc != 0:
         raise RuntimeError(

@@ -228,8 +228,10 @@ def _check_blocks(tmp0, forcing, mesh: DeviceBlocks):
             f"blocks) must divide the devices ({len(mesh)}): one equal "
             "block for each; pad with pad_points() first")
     per = tmp0[0].shape[1]
+    f0 = forcing[0]
     block_ranges(per * len(mesh), len(mesh),
-                 forcing[0].shape[3] if forcing[0].dim() == 4 else None)
+                 f0.tile_geom[1] if sk.is_fused(f0)
+                 else f0.shape[3] if f0.dim() == 4 else None)
     for b, (t, d) in enumerate(zip(tmp0, mesh.devices)):
         if t.device != d:
             raise ValueError(f"block {b} lies on {t.device}, its device is "
@@ -249,9 +251,10 @@ def scan_sharded(tmp0, scal0, forcing, cfg, params, grid, devices=None,
     The arguments of ``ops.scan_kernel.scan`` with a per-block list in place
     of each tensor: ``tmp0[b]`` [LPAD, P_b], ``scal0[b]`` [NROWS, P_b],
     ``forcing[b]`` [T, NCH or NCH_SLIM, P_b] or tile-major
-    [P_b / TP, T, nch, TP], and in the slim mode ``slim_trf[b]`` (a copy of
-    the time-only vector on the block's device) and ``aux_rows[b]``
-    [4, P_b], each on ``devices[b]`` (:func:`shard_packed` cuts whole
+    [P_b / TP, T, nch, TP] (or a fused chunk of raw inputs,
+    ``production.FusedChunk``: K3 fused), and in the slim mode
+    ``slim_trf[b]`` (a copy of the time-only vector on the block's device)
+    and ``aux_rows[b]`` [4, P_b], each on ``devices[b]`` (:func:`shard_packed` cuts whole
     tensors so).  ``devices``: a list of devices or a :class:`DeviceBlocks`;
     None means every visible CUDA device.
 
@@ -304,7 +307,8 @@ def scan_sharded_reference(tmp0, scal0, forcing, cfg, params, grid,
     """The plain version of :func:`scan_sharded`: ``scan_reference`` on one
     block after the other, on whatever device each lies."""
     slim = aux_rows is not None
-    return [sk.scan_reference(
+    return [(sk.scan_fused_reference if sk.is_fused(forcing[b])
+             else sk.scan_reference)(
         tmp0[b], scal0[b], forcing[b], cfg, params, grid,
         out_stride=out_stride, nsteps=nsteps, out_offset=out_offset,
         n_out=n_out, slim_trf=slim_trf[b] if slim else None,

@@ -31,7 +31,7 @@ def modify_radiation(sw, sw_dir, lw, lw_net, elev, azim, sky_view,
     sw/sw_dir/lw/lw_net/elev/azim: one layout with time on ``time_axis``
     and the point axes on the others ([T, P], or the kernel's tile layout
     [n_tiles, T, TP] with ``time_axis=1``; elev/azim from
-    sun.elevation_azimuth); sky_view broadcastable against them;
+    sun.sun_at_points); sky_view broadcastable against them;
     horizons: [*point_shape, 360] local horizon angles (degrees per azimuth
     degree), or one shared [360] table; flat_horizons: all-zero horizons,
     known ahead, so the table is not read.

@@ -47,14 +47,14 @@ def _wrap_to(x, period):
     return x
 
 
-def elevation_azimuth(jde, lat, lon):
-    """Solar elevation and azimuth (degrees) for Julian Ephemeris Day values.
-
-    Vectorized re-derivation of src/SunPosition.f90:20-194; broadcasts the
-    ``jde`` tensor against the ``lat``/``lon`` tensors.  Returns
-    (elevation_deg, azimuth_deg) with -9999.9 where the sun is below the
-    horizon.
-    """
+def sun_time_terms(jde):
+    """The time-only part of the sun position (SunPosition.f90:20-120):
+    ``(sin_decl, cos_decl, stg, ra)`` of the declination, the Greenwich
+    mean sidereal time and the right ascension (radians), each the shape and
+    dtype of ``jde``.  Pass the float64 day: at 2.46e6 a float32 day steps
+    by 0.25 day, and ``stg`` is about 2.6e6 degrees before its wrap, so
+    these terms are formed in float64 and only the per-point part
+    (:func:`sun_at_points`) runs in the run dtype."""
     pi = math.pi
 
     t = (jde - 2451545.0) / 36525.0
@@ -87,9 +87,15 @@ def elevation_azimuth(jde, lat, lon):
     stg = (280.46061837 + 360.98564736629 * (jde - 2451545.0)
            + 0.000387933 * t * t - t ** 3 / 38710000.0)
     stg = _wrap_to(stg, 360.0) * pi / 180.0
+    return torch.sin(decl), torch.cos(decl), stg, ra
 
-    cos_decl = torch.cos(decl)
-    sin_decl = torch.sin(decl)
+
+def sun_at_points(sin_decl, cos_decl, stg, ra, lat, lon):
+    """Solar elevation and azimuth (degrees) from :func:`sun_time_terms`,
+    broadcast against the ``lat``/``lon`` tensors, in their dtype
+    (SunPosition.f90:121-194).  Returns (elevation_deg, azimuth_deg) with
+    -9999.9 where the sun is below the horizon."""
+    pi = math.pi
     latr = pi * lat / 180.0
     sin_lat = torch.sin(latr)
     cos_lat = torch.cos(latr)
@@ -122,3 +128,4 @@ def elevation_azimuth(jde, lat, lon):
     miss = torch.full_like(elevation, MISSING)
     return (torch.where(up, elevation, miss),
             torch.where(up, azim_deg, miss))
+

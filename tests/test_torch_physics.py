@@ -138,9 +138,9 @@ def test_sun():
     lat, lon = rng.uniform(55, 70, 64), rng.uniform(15, 35, 64)
     want = jsun.elevation_azimuth(jnp.asarray(jde)[:, None],
                                   jnp.asarray(lat)[None], jnp.asarray(lon)[None])
-    got = tsun.elevation_azimuth(torch.tensor(jde)[:, None],
-                                 torch.tensor(lat)[None],
-                                 torch.tensor(lon)[None])
+    got = tsun.sun_at_points(
+        *(x[:, None] for x in tsun.sun_time_terms(torch.tensor(jde))),
+        torch.tensor(lat)[None], torch.tensor(lon)[None])
     _close(got, want)
 
 

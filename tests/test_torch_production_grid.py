@@ -322,7 +322,10 @@ def test_scans_cap_window_at_expander_chunk():
 def _setup(config, T=64, use_coupling=False, with_jax=True):
     """(JAX expander, port expander, JAX settings, cal, pts, state0 [JAX
     float32]) of one configuration: ``grid``; ``composite``, the grid
-    forecast overlaid by station obs and wind; ``station_sky``, a station
+    forecast overlaid by station obs and wind; ``composite_2st``, that
+    composite under a second station network's radiation (K3 fused takes
+    at most one station source: K3 on the eager prep); ``station_sky``, a
+    station
     expander with sky view 0.6 and U(0, 25) degree horizons on every third
     point (tests/test_production_fused_generic.py:279-299).  The JAX side
     takes its generic route for the station part.  With ``use_coupling``
@@ -348,20 +351,26 @@ def _setup(config, T=64, use_coupling=False, with_jax=True):
                 if with_jax else None)
         texp = tprod.StationExpander(raw_st, st_idx, "cpu", chunk_t=32)
     else:
-        if config == "composite":
+        if config in ("composite", "composite_2st"):
             fields.pop("tsurf_obs")
         jexp = (jprod.GridExpander(times, lats, lons, fields, plat, plon,
                                    sim, mesh, chunk_t=32)
                 if with_jax else None)
         texp = tprod.GridExpander(times, lats, lons, fields, plat, plon, sim,
                                   "cpu", chunk_t=32)
-        if config == "composite":
-            raw_st, st_idx = _station_case(T, only={"tsurf_obs", "vz"})
+        if config in ("composite", "composite_2st"):
+            sources = [_station_case(T, only={"tsurf_obs", "vz"})]
+            if config == "composite_2st":
+                # a second station network, radiation only
+                sources.append(_station_case(T, S=5, seed=17,
+                                             only={"sw", "lw"}))
             if with_jax:
-                jexp = jprod.CompositeExpander([jexp, jprod.StationExpander(
-                    raw_st, st_idx, mesh, chunk_t=32)])
-            texp = tprod.CompositeExpander([texp, tprod.StationExpander(
-                raw_st, st_idx, "cpu", chunk_t=32)])
+                jexp = jprod.CompositeExpander([jexp] + [
+                    jprod.StationExpander(r, i, mesh, chunk_t=32)
+                    for r, i in sources])
+            texp = tprod.CompositeExpander([texp] + [
+                tprod.StationExpander(r, i, "cpu", chunk_t=32)
+                for r, i in sources])
     if use_coupling:
         last = tprod.last_valid_scan(texp, T, chunk_t=32)["tsurf_obs"]
         cl = int(settings.coupling_minutes * 60 / settings.dt)
@@ -411,28 +420,77 @@ def _assert_same(a, b):
     assert torch.equal(a.state.failed, b.state.failed)
 
 
+@functools.lru_cache(maxsize=None)
+def _model_runs(config):
+    """Model.run over the expander's merged forcing on the host: the JAX
+    package's in float64 (the reference; a float64 Julian day) and the
+    port's in float32 (which sizes the bound): (failed, {field: [T, P]})
+    of the JAX run and {field: [T, P]} of the port's."""
+    _, texp, settings, cal, pts, _ = _setup(config, with_jax=False)
+    T = settings.sim_len
+    vals = texp.host_at(np.arange(T), RawForcing._fields)
+
+    def raw(cls, dt):
+        return cls(*(
+            np.where(vals[n] <= -9000.0, -9999, vals[n]).astype(np.int32)
+            if n == "prec_phase" else np.asarray(vals[n], dt)
+            for n in RawForcing._fields))
+
+    final, out = Model(settings).run(raw(RawForcing, np.float64), pts, cal)
+    assert out.tsurf.dtype == jnp.float64
+    out64 = {n: np.asarray(getattr(out, n)) for n in NAMES}
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
+    _, out32 = tm.run(raw(tforcing.RawForcing, np.float32), pts, cal)
+    return (np.asarray(final.failed), out64,
+            {n: getattr(out32, n).numpy() for n in NAMES})
+
+
 @pytest.mark.parametrize("out_stride", [1, 6])
 @pytest.mark.parametrize("config", ["grid", "composite", "station_sky"])
 def test_port_production_matches_jax(config, out_stride):
-    (_, texp, settings, cal, pts, state0), want = _jax_reference(config)
+    """Grid and composite: against JAX's float32 run_production.  Station
+    + sky view: against the JAX package's float64 Model.run on the merged
+    forcing, at twice the port's float32 Model.run's error against it plus
+    the kernel tolerance, with equal failed masks; not against JAX's
+    float32 run, whose sun position reads a Julian day rounded to float32
+    (0.25 day; roadsurf_tpu/forcing.py:301), where the port forms the
+    sun's time terms in float64."""
+    if config == "station_sky":
+        _, texp, settings, cal, pts, state0 = _setup(config, with_jax=False)
+    else:
+        (_, texp, settings, cal, pts, state0), want = _jax_reference(config)
     tm = tmodel.Model(interop.settings(settings), device="cpu")
     eng = tprod._Engine(tm, texp, pts, cal, interop.state(state0, "cpu"),
                         chunk_t=32)
-    assert eng.tile_major and not eng.fast
+    assert eng.tile_major and eng.fused and not eng.fast
     assert eng.enable_sky == (config == "station_sky")
-    before = (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM)
+    before = (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM,
+              sk.LAUNCHES_TM_FUSED)
     got = tprod.run_production(tm, texp, pts, cal,
                                interop.state(state0, "cpu"), chunk_t=32,
                                out_stride=out_stride)
-    assert (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM) == before
+    assert (sk.LAUNCHES, sk.LAUNCHES_SLIM, sk.LAUNCHES_TM,
+            sk.LAUNCHES_TM_FUSED) == before
     assert np.array_equal(got.out_steps,
                           np.arange(0, settings.sim_len, out_stride))
-    _assert_match(got, want, out_stride)
+    if config != "station_sky":
+        _assert_match(got, want, out_stride)
+        return
+    failed64, out64, out32 = _model_runs(config)
+    for k, name in enumerate(NAMES):
+        ref = out64[name][::out_stride]
+        err = np.abs(got.fields[name] - ref).max()
+        err32 = np.abs(out32[name][::out_stride] - ref).max()
+        assert err <= 2.0 * err32 + (2e-4 if k == 0 else 2e-3), \
+            (name, err, err32)
+    assert np.array_equal(got.state.failed.numpy(), failed64)
 
 
-@pytest.mark.parametrize("config", ["grid", "composite", "station_sky"])
+@pytest.mark.parametrize("config", ["grid", "composite", "station_sky",
+                                    "composite_2st"])
 def test_tile_major_route_equals_generic(config, monkeypatch):
-    """The port's tile-major route (K3 slim, tile-layout prep, in-kernel
+    """The port's tile-major route (K3 fused on the raw inputs; K3 slim on
+    the tile-layout prep for a composite K3 fused does not take; in-kernel
     decay) against its generic route (K1 on the [Tc, P] prep, cof_window
     channels, forced by the engine's switch), bit for bit, uncoupled and
     coupled, on the same inputs."""
@@ -443,8 +501,9 @@ def test_tile_major_route_equals_generic(config, monkeypatch):
     routes = {}
     for tile in (True, False):
         monkeypatch.setattr(tprod._Engine, "force_generic", not tile)
-        assert tprod._Engine(tm, exp, pts, cal, st,
-                             chunk_t=32).tile_major == tile
+        eng = tprod._Engine(tm, exp, pts, cal, st, chunk_t=32)
+        assert eng.tile_major == tile
+        assert eng.fused == (tile and config != "composite_2st")
         routes[tile] = (
             tprod.run_production(tm, exp, pts, cal, st, chunk_t=32,
                                  out_stride=6),

@@ -640,3 +640,43 @@ def test_tile_major_kernel_on_cuda(mode, cofs, tp):
     pm = sk.scan(tmp0, scal0, forc, *args, **geo, **kw)
     for g, w in zip(got, pm):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_storage_runout_rounding_decides_the_melt():
+    """Storage.f90's run-out event on one point-step (phase 3c of
+    chip_smoke.py, the stations by day): the step's melt heat Q2Melt was
+    computed from the snow itself (q2n = heat * snow / 1000 / dt), so snow
+    - mm is a rounding remainder.  With true division (torch on the CPU; the
+    JAX package) +3.7e-9 remains, the snow wear turns it into ice, and that
+    ice melts with the same mm: the water takes the melt twice, in both
+    packages.  Divided as torch divides by a Python scalar on the card (a
+    multiply by the float32 reciprocal), q2n is one ulp larger, nothing
+    remains and the water takes it once.  So the kernel rounds each
+    operation as torch does on the card (csrc/scan_kernel.cu, Numerics)."""
+    settings = ModelSettings(sim_len=8, dt=30.0)
+    model = Model(settings)
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
+    f32 = np.float32
+    heat = f32(model.params.wat_m_heat * model.params.wat_dens)
+    snow = f32(0.054304391)
+    q2_div = heat * (snow / f32(1000.0)) / f32(30.0)
+    q2_rcp = heat * (snow * (f32(1.0) / f32(1000.0))) * (f32(1.0) / f32(30.0))
+    assert q2_rcp > q2_div
+    runs = {}
+    for q2 in (q2_div, q2_rcp):
+        vals = (0.0, snow, 0.0, 0.0, 0.0, 0.3249589, 0.0, q2, 0.25)
+        got = sk._road_cond(*(torch.tensor([v], dtype=torch.float32)
+                              for v in vals), torch.tensor([False]),
+                            tm.cfg, tm.params)
+        mm = f32(1000.0) * (q2 * f32(30.0)) / heat
+        assert float(got[1][0]) == 0.0
+        runs[q2 == q2_div] = (float(got[0][0]), float(mm))
+        if q2 == q2_div:
+            want = ps._road_cond(*(jnp.asarray([v], jnp.float32)
+                                   for v in vals), jnp.asarray([False]),
+                                 model.cfg, model.params)
+            assert float(np.asarray(want[0])[0]) == float(got[0][0])
+    wat, mm = runs[True]
+    assert wat == float(f32(mm) + f32(mm))      # the melt, twice
+    wat, mm = runs[False]
+    assert wat == mm                             # once
