@@ -7,7 +7,8 @@ against its plain torch version, drives the station-fed production forecast
 end to end at 1,048,576 points x 8,881 steps (the operational 74-hour run
 at dt 30 s), uncoupled and observation-coupled, and the NWP-grid and
 grid+station forecasts with sky view at the same size, then the same
-forecasts over several point blocks and over two processes, and prints a
+forecasts over several point blocks and over two processes, then the
+runner CLI end to end on the example generators' inputs, and prints a
 JSON summary.
 
     python3 chip_smoke.py            # every phase (one card)
@@ -105,10 +106,13 @@ the plain version):
     of phases 3b/3c (65,536 points x 128 steps) for K1, K2 with the decay
     and K3 (TP 1024), at 2, 4 and 8 blocks on the card, each block on a
     stream of its own (and, with more cards visible, one block a card):
-    scan_sharded against scan_sharded_reference at the kernel tolerances
-    with equal failed masks, and against one scan launch bit for bit; then
+    scan_sharded against one scan launch bit for bit, and at 2 blocks
+    against scan_sharded_reference at the kernel tolerances with equal
+    failed masks; then
     phase 5's 1,048,576 x 64 chunk (K2) in station order at 1, 2, 4 and 8
-    blocks, bit for bit against one launch and timed beside it;
+    blocks, bit for bit against one launch, timed beside it in five rounds
+    (each round one launch and every block count in turn; the median and
+    range of each, and of the host's seconds to issue each call);
  3e. K2 and K1 on phase 5's 1,048,576 x 64 station chunk in the caller's
     point order and in station order (a run's blocks sort their points by
     station, so a warp's lanes share a station and leave the boundary-layer
@@ -133,6 +137,30 @@ the plain version):
     restores the checkpoints, and holds both to a one-process run bit for
     bit.  A worker that fails fails the run.
 
+ 9t. (only when named: python3 chip_smoke.py 9t) the measurement behind
+    production.auto_chunk_t: phase 5's station stream (K2) at 1,048,576
+    and at 65,536 points at chunk 32, 64, 128 and 256, two rounds in turns,
+    stream seconds and peak device memory;
+ 9. the runner CLI end to end on inputs the two example generators write
+    into a temporary directory: the native data-plane library built
+    (make -C native) or not; 9a examples/example1/make_data.py --stations
+    2048 --analysis 24 --forecast 50, example_config.json uncoupled at dt
+    30 s with a 1024 x 1024 points.grid (8,881 steps, hourly output) run as
+    runner.main(["-c", config, "-t", "20191202T0000"]) in this process,
+    through K2 and K4; 9b examples/example2/make_data.py --ny 300 --nx 400
+    --analysis 24 --forecast 50, grid_config.json with a 1024 x 1024
+    points.grid and no mask, through K3 fused and K4; each with its
+    runner phases, point-steps/s, time to first chunk, peak device memory
+    and auto chunk length, and a 64-point sample re-run through the
+    runner's scan engine on the card (a points.coordinates config of those
+    points) in float32 and float64, under phase 5's bound; 9c the same
+    configurations at 2,048 stations or 64 x 64 points over 4 h at dt
+    120 s on the card, kernel engine against scan engine at rtol 1e-4 / atol
+    5e-3 with equal failed masks (example1 in stations mode with sky view,
+    relaxation and coupling; example2 uncoupled and coupled), the JSON,
+    npz and checkpoint files read back, a warm-start cycle, and python -m
+    roadsurf_tpu_torch.runner in a process of its own.
+
 ``--variant LABEL=PATH`` (repeatable) builds another source of the kernel
 (an earlier copy, or an edited one, put under the gitignored build/) into a
 library of its own; phase 3e prints its ptxas and SASS counts, holds it to
@@ -141,10 +169,11 @@ this build bit for bit and times it in the same turns.
 Every run_production launch goes through K4 (one sharded launch a chunk,
 whatever the number of blocks), so K4's launches are counted over every
 main-path run.  Phases run in the order 1, 2, 3, 3e, 3b, 3d, 4, 4b, 5, 6,
-7 (with 3c before its run), 4c, 7b, 8, 8b.  The 64-point sample re-runs of
-phases 5, 6, 7 and 7b are plain torch on the host: each starts in worker
-processes when its full-size run ends, runs beside the phases that follow,
-and is checked at the end.  The last three lines of standard output are the kernel
+7 (with 3c before its run), 4c, 7b, 8, (9t,) 8b, 9.  The 64-point sample
+re-runs of phases 5, 6, 7 and 7b are plain torch on the host, phase 9's
+the scan engine on the card: each starts in worker processes when its
+full-size run ends, runs beside the phases that follow, and is checked at
+the end.  The last three lines of standard output are the kernel
 summary (JSON), the card's name and power limit, and the device line
 (JSON); with phases named on the command line they are not printed.
 """
@@ -152,9 +181,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib.util
 import json
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -176,17 +207,19 @@ from roadsurf_tpu_torch.config import ModelSettings  # noqa: E402
 from roadsurf_tpu_torch.forcing import (Calendar, RawForcing,  # noqa: E402
                                         cof_window, valid_threshold)
 from roadsurf_tpu_torch.io import gridsource  # noqa: E402
+from roadsurf_tpu_torch.io import native, points, sources  # noqa: E402
 from roadsurf_tpu_torch.io.synthetic import synthetic_raw  # noqa: E402
 from roadsurf_tpu_torch.model import Model  # noqa: E402
 from roadsurf_tpu_torch.observability import Progress, RunMetrics  # noqa: E402
 from roadsurf_tpu_torch.ops import build  # noqa: E402
 from roadsurf_tpu_torch.ops import scan_kernel as sk  # noqa: E402
-from roadsurf_tpu_torch import production  # noqa: E402
+from roadsurf_tpu_torch import production, runner  # noqa: E402
 from roadsurf_tpu_torch.io import writer  # noqa: E402
 from roadsurf_tpu_torch.parallel import distributed, sharding  # noqa: E402
 from roadsurf_tpu_torch.tools import sass  # noqa: E402
 from roadsurf_tpu_torch.forcing import relax_anchors  # noqa: E402
-from roadsurf_tpu_torch.state import PointParams, default_point_params  # noqa: E402
+from roadsurf_tpu_torch.state import (PointParams, State,  # noqa: E402
+                                      default_point_params)
 
 DEV = torch.device("cuda", 0)
 # tests/test_pallas_step.py:47-57 (tsurf and the profile; the storages)
@@ -1094,6 +1127,20 @@ def sample_reference(settings, pts, cal, raw, coupled, steps):
     return final.failed.numpy(), rows
 
 
+def cli_sample(cfg_path, dtype, steps):
+    """One sample re-run of phase 9 (a worker process of SampleRuns): the
+    runner's scan engine on the card (``Model.run`` over the whole
+    horizon) on a ``points.coordinates`` config of the sample's points, in
+    ``dtype``.  Returns (failed [n], {field: [len(steps), n]})."""
+    torch.set_num_threads(1)
+    state, fields = runner.run(cfg_path, CLI_TIME, verbose=False,
+                               device="cuda", engine="scan",
+                               dtype=getattr(torch, dtype))
+    return state.failed.cpu().numpy(), {
+        name: np.asarray(fields[name])[steps]
+        for name in production.OUT_FIELD_ROWS}
+
+
 class SampleRuns:
     """The long sample re-runs, made in worker processes on the host while
     the card goes on with the next phases: ``start`` hands a full-size run's
@@ -1140,12 +1187,26 @@ class SampleRuns:
         jobs = [self.pool.submit(sample_reference, settings, pts, cfg["cal"],
                                  cast(dt), coupled, res.out_steps)
                 for dt in (np.float32, np.float64)]
+        self._add(jobs, n, cfg["T"], res.state.failed[idx].numpy(),
+                  {name: res.fields[name][:, idx].copy()
+                   for name in production.OUT_FIELD_ROWS},
+                  label, coupled=coupled, hold_f32=hold_f32)
+
+    def start_cli(self, cfg_path, n, T, failed, got, steps, label):
+        """A sample given as a ``points.coordinates`` config of its points:
+        the runner's scan engine on the card (``cli_sample``), float32 and
+        float64; ``failed`` [n] and ``got`` {field: [rows, n]} are the
+        full-size run's at those points."""
+        jobs = [self.pool.submit(cli_sample, cfg_path, dt, steps)
+                for dt in ("float32", "float64")]
+        self._add(jobs, n, T, failed, got, label, what="the scan engine")
+
+    def _add(self, jobs, n, T, failed, got, label, coupled=False,
+             hold_f32=False, what=None):
         self.pending.append(dict(
-            jobs=jobs, n=n, T=cfg["T"], coupled=coupled, hold_f32=hold_f32,
-            label=label,
-            t0=time.perf_counter(), failed=res.state.failed[idx].numpy(),
-            got={name: res.fields[name][:, idx].copy()
-                 for name in production.OUT_FIELD_ROWS}))
+            jobs=jobs, n=n, T=T, coupled=coupled, hold_f32=hold_f32,
+            label=label, what=what, t0=time.perf_counter(), failed=failed,
+            got=got))
 
     def finish(self):
         """Wait for every sample and check it.  Over 8,881 steps no two
@@ -1187,7 +1248,8 @@ class SampleRuns:
                                                       else 0.0)))
             fmt = lambda e: json.dumps({k: float(f"{v:.3e}")
                                         for k, v in e.items()})
-            what = "Model.run_coupled" if s["coupled"] else "Model.run"
+            what = s["what"] or ("Model.run_coupled" if s["coupled"]
+                                 else "Model.run")
             log(f"  {s['label'] + ': ' if s['label'] else ''}"
                 f"{s['n']}-point sample over {s['T']} steps (ready "
                 f"{secs:.0f} s after its run), max |err| against float64 "
@@ -1345,9 +1407,13 @@ def joined(results):
 
 def phase_kernel_sharded_small(npoints=65536, T=128):
     """K4 on the offset chunk of phases 3b/3c, for K1, K2 with the decay
-    and K3 (TP 1024) at each device list: against its plain version (a loop
-    of scan_reference over the blocks) at the kernel tolerances with equal
-    failed masks, and against one launch of the whole, bit for bit."""
+    and K3 (TP 1024) at each device list against one launch of the whole,
+    bit for bit, and at 2 blocks (and over the visible cards) against its
+    plain version (a loop of scan_reference over the blocks) at the kernel
+    tolerances with equal failed masks.  The plain version's cost is its
+    count of block runs, eager and launch-bound; 4 and 8 blocks equal one
+    launch bit for bit, which phases 3, 3b and 3c hold to the plain
+    version."""
     model, tmp0, scal0, modes, geo = offset_chunk_case(npoints, T)
     rest = (model.cfg, model.params, model.grid)
     k1, _, k2d = modes
@@ -1364,28 +1430,37 @@ def phase_kernel_sharded_small(npoints=65536, T=128):
             got = sharding.scan_sharded(*blocks, *rest, mesh, **geo, **bkw)
             torch.cuda.synchronize()
             assert sk.LAUNCHES_SHARDED == before + 1
-            want = sharding.scan_sharded_reference(*blocks, *rest, **geo,
-                                                   **bkw)
             what = (f"{len(mesh)} blocks on "
                     f"{len(set(mesh.devices))} card(s)")
-            err = compare_scan(f"K4 {label} {what}", joined(got),
-                               joined(want), model.settings.nlayers)
             assert_bitwise(f"K4 ({label}, {what}) vs one launch, "
                            f"{npoints} x {T}", joined(got), one)
-            log(f"  K4 vs plain, {npoints} x {T}, {label}, {what}: max "
-                f"|err| {err:.3e}")
-            max_err = max(max_err, err)
-            del blocks, got, want
+            if len(mesh) == 2 or len(set(mesh.devices)) > 1:
+                want = sharding.scan_sharded_reference(*blocks, *rest, **geo,
+                                                       **bkw)
+                err = compare_scan(f"K4 {label} {what}", joined(got),
+                                   joined(want), model.settings.nlayers)
+                log(f"  K4 vs plain, {npoints} x {T}, {label}, {what}: max "
+                    f"|err| {err:.3e}")
+                max_err = max(max_err, err)
+                del want
+            del blocks, got
     return max_err
+
+
+#: rounds of phase 3d's block-count timing (each round times one launch
+#: and every block count in turn)
+ROUNDS_3D = 5
 
 
 def phase_kernel_sharded_chunk(cfg):
     """The 1,048,576 x 64 main-path chunk of phase 5 (K2, offset 448) in
     station order, as a block of the main path places it, through K4 at 1,
     2, 4 and 8 blocks on the card (and over the visible cards), each
-    against one launch bit for bit and timed with CUDA events beside it
-    (one launch, the block counts, one launch); at 4 blocks against the
-    plain version, which is timed too."""
+    against one launch bit for bit; at 4 blocks against the plain version,
+    which is timed too.  Then ROUNDS_3D rounds, each timing (CUDA events)
+    one launch and every block count in turn, and the host's seconds to
+    issue each call (no synchronisation); the median and range of each
+    are printed.  K4's time is its 4-block median."""
     model = cfg["model"]
     blk = production.station_sorted(cfg["exp"].block(0, cfg["npoints"], DEV))
     eng = production._Engine(model, blk, cfg["pts"], cfg["cal"],
@@ -1401,19 +1476,18 @@ def phase_kernel_sharded_chunk(cfg):
     sk.scan_reference(*packed, *rest, stats=stats, **geo, **skw)
     bound = scan_bound(packed, dict(geo, **skw), stats,
                        model.settings.nlayers)
-    one_ms = [cuda_ms(lambda: sk.scan_cuda(*packed, *rest, **geo, **skw),
-                      reps=10)]
-    times, err, plain_ms = {}, None, None
+    one_run = lambda: sk.scan_cuda(*packed, *rest, **geo, **skw)
+    runs, err, plain_ms = {"one launch": one_run}, None, None
     for devices in device_lists((1, 2, 4, 8)):
         mesh = sharding.make_mesh(devices)
         blocks, bkw = shard_call(packed, skw, mesh)
-        run = lambda: sharding.scan_sharded(*blocks, *rest, mesh, **geo,
-                                            **bkw)
+        run = (lambda blocks=blocks, bkw=bkw, mesh=mesh:
+               sharding.scan_sharded(*blocks, *rest, mesh, **geo, **bkw))
         key = (f"{len(mesh)}" if len(set(mesh.devices)) == 1
                else f"{len(mesh)} cards")
         assert_bitwise(f"1M K2 chunk through K4, {key} blocks, vs one "
                        f"launch", joined(run()), one)
-        times[key] = cuda_ms(run, reps=10)
+        runs[key] = run
         if key == "4":
             # the plain version is eager torch, four times the operations
             # of the whole at a quarter of the size each: it is run once,
@@ -1427,19 +1501,32 @@ def phase_kernel_sharded_chunk(cfg):
             err = compare_scan("1M K4 chunk, 4 blocks", joined(run()),
                                joined(want), model.settings.nlayers)
             del want
-        del blocks, bkw, run
-        torch.cuda.empty_cache()
-    one_ms.append(cuda_ms(lambda: sk.scan_cuda(*packed, *rest, **geo,
-                                               **skw), reps=10))
-    log(f"  [{card_line()}] K4 per 1M x 64 chunk (K2, offset {t0}, station "
-        f"order) by blocks (ms): " + json.dumps({k: round(v, 4)
-                                       for k, v in times.items()})
-        + f"; one launch {one_ms[0]:.4f} / {one_ms[1]:.4f} ms; plain (4 "
-        f"blocks) {plain_ms:.1f} ms; K4 vs plain max |err| {err:.3e}")
-    del forc, one, eng
+        del blocks, bkw
     torch.cuda.empty_cache()
-    return dict(err=err, ms=times["4"], plain_ms=plain_ms, bound=bound,
-                times=times, one_ms=one_ms)
+    times = {k: [] for k in runs}
+    issue = {k: [] for k in runs}
+    for _ in range(ROUNDS_3D):
+        for key, run in runs.items():
+            times[key].append(cuda_ms(run, reps=10))
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            run()
+            issue[key].append(1e3 * (time.perf_counter() - h0))
+            torch.cuda.synchronize()
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    stat = lambda v: (f"{np.median(v):.4f} [{min(v):.4f}-{max(v):.4f}]")
+    log(f"  [{card_line()}] K4 per 1M x 64 chunk (K2, offset {t0}, station "
+        f"order), {ROUNDS_3D} rounds, ms median [range]: "
+        + "; ".join(f"{k}: {stat(v)}" for k, v in times.items()))
+    log(f"  [{card_line()}] K4 host seconds to issue one call (ms median "
+        f"[range]): " + "; ".join(f"{k}: {stat(v)}"
+                                  for k, v in issue.items()))
+    log(f"  plain (4 blocks) {plain_ms:.1f} ms; K4 vs plain max |err| "
+        f"{err:.3e}")
+    del forc, one, eng, runs
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=med["4"], plain_ms=plain_ms, bound=bound,
+                times=times, one_ms=times["one launch"])
 
 
 def assert_same_result(label, got, want):
@@ -2360,6 +2447,378 @@ def composite_sky_setup(cfg7, cfg):
                 overlay=(raw_obs, cfg["st_idx"][:P]))
 
 
+# ---------------------------------------------------------------------------
+# the runner CLI end to end (phase 9)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+#: the example data's forecast time (make_data.py --now 201912020000)
+CLI_TIME = "20191202T0000"
+#: the full-size runs' points.grid: 1024 x 1024 = 1,048,576 points
+CLI_SIDE = 1024
+#: phase 9a's raster: over the 86 stations make_data places below 90 N
+#: (station k at 60.2 + 0.35 k N, 24.9 + 0.55 k E; the other 1,962 of the
+#: 2,048 lie past the pole), with a radius that gives every point one
+EX1_BBOX = [60.15, 24.85, 89.5, 71.2]
+EX1_RADIUS_KM = 2500.0
+
+
+def make_example(name, outdir, args):
+    """examples/<name>/make_data.py into ``outdir``; returns its seconds."""
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_make_data", os.path.join(EXAMPLES, name, "make_data.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        mod.main(list(args) + ["--outdir", outdir])
+    return time.perf_counter() - t0
+
+
+def write_json(obj, path):
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return path
+
+
+def ex1_config(outdir, side=CLI_SIDE, analysis=24, forecast=50, dt=30,
+               coupling=0, sky=False, coupling_minutes=None):
+    """examples/example1/example_config.json over make_data's files in
+    ``outdir``: the points a ``side`` x ``side`` raster (stations mode for
+    side 0), uncoupled unless asked, sky view only in stations mode (the
+    files are keyed by station id), no output file."""
+    cfg = sources.read_json_tolerant(
+        os.path.join(EXAMPLES, "example1", "example_config.json"))
+    cfg["time"].update(analysis=analysis, forecast=forecast)
+    if coupling_minutes:
+        cfg["time"]["coupling_minutes"] = coupling_minutes
+    cfg["model"].update(DTSecs=dt, use_coupling=coupling)
+    for src in cfg["input"]:
+        src["path"] = os.path.join(outdir, os.path.basename(src["path"]))
+    if sky:
+        cfg["parameters"].update(
+            sky_view_file=os.path.join(outdir, "skyview.txt"),
+            local_horizon_file=os.path.join(outdir, "horizons.txt"))
+    else:
+        cfg["parameters"] = {}
+    del cfg["output"]["filename"]
+    if side:
+        cfg["points"] = {"grid": {"bbox": EX1_BBOX, "ny": side, "nx": side},
+                         "max_radius_km": EX1_RADIUS_KM}
+    return cfg
+
+
+def ex2_config(outdir, side=CLI_SIDE, analysis=24, forecast=50, dt=30,
+               coupling=0, coupling_minutes=None):
+    """examples/example2/grid_config.json over make_data's files in
+    ``outdir`` (the NWP grid and the ASCII road station), its points.grid
+    at ``side`` x ``side`` over the same box, no mask (make_data's masks
+    are at the NWP grid's size), no output file."""
+    cfg = sources.read_json_tolerant(
+        os.path.join(EXAMPLES, "example2", "grid_config.json"))
+    cfg["time"].update(analysis=analysis, forecast=forecast)
+    if coupling_minutes:
+        cfg["time"]["coupling_minutes"] = coupling_minutes
+    cfg["model"].update(DTSecs=dt, use_coupling=coupling)
+    cfg["points"]["grid"].update(ny=side, nx=side)
+    del cfg["points"]["mask"]
+    cfg["input"][0]["path"] = os.path.join(outdir, "forecast_grid.npz")
+    cfg["input"][1]["path"] = os.path.join(outdir, "road_station.txt")
+    del cfg["output"]["filename"]
+    return cfg
+
+
+def run_cli(argv, metrics):
+    """``runner.main(argv)`` in this process, with ``metrics`` handed to
+    its run and the run's (state, fields) kept; also the seconds from the
+    call to the first sharded launch (the first chunk)."""
+    kept = {}
+    run, scan_sharded = runner.run, sharding.scan_sharded
+
+    def keep_run(*a, **k):
+        kept["res"] = run(*a, metrics=metrics, **k)
+        return kept["res"]
+
+    def first_chunk(*a, **k):
+        kept.setdefault("first", time.perf_counter())
+        return scan_sharded(*a, **k)
+
+    runner.run, sharding.scan_sharded = keep_run, first_chunk
+    t0 = time.perf_counter()
+    try:
+        runner.main(argv)
+    finally:
+        runner.run, sharding.scan_sharded = run, scan_sharded
+    return kept["res"], kept["first"] - t0
+
+
+def phase_cli_full(label, cfg, outdir, samples, route):
+    """One full-size run of the CLI: ``runner.main(["-c", cfg, "-t",
+    CLI_TIME])`` as an operator types it, with its launches counted (K2
+    or K3 fused by ``route``, K4 once a chunk); a 64-point sample of it
+    re-run through the scan engine on the card (``start_cli``)."""
+    cfg_path = write_json(cfg, os.path.join(outdir, f"{label}.json"))
+    P, T = CLI_SIDE * CLI_SIDE, 8881
+    m = RunMetrics(announce=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    reset_counts()
+    t0 = time.perf_counter()
+    (state, fields), first = run_cli(["-c", cfg_path, "-t", CLI_TIME], m)
+    wall = time.perf_counter() - t0
+    chunk_t = int(m.counters["chunk_t"])
+    n_chunks = -(-T // chunk_t)
+    k4 = sk.LAUNCHES_SHARDED
+    launches = read_counts(n_chunks)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    want = (0, n_chunks, 0, 0) if route == "K2" else (0, 0, 0, n_chunks)
+    assert launches == want, (label, launches, want)
+    steps = fields["steps"]
+    assert np.array_equal(steps, np.arange(0, T, 120)), steps
+    for name in production.OUT_FIELD_ROWS:
+        f = fields[name]
+        assert f.shape == (len(steps), P), (name, f.shape)
+        assert np.all(np.isfinite(f) | (f == -9999.0)), name
+    failed = float(state.failed.float().mean())
+    ph = {k: round(v, 3) for k, v in m.phases.items()}
+    log(f"  [{card_line()}] {label}: runner.main wall {wall:.2f} s, "
+        f"{P} points x {T} steps, chunk_t {chunk_t} (auto_chunk_t), "
+        f"stream {m.phases['stream']:.2f} s = "
+        f"{m.counters['point_steps_per_s']:.6g} point-steps/s, time to "
+        f"first chunk {first:.2f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, failed share {failed:.6f}, native "
+        f"data-plane library {'taken' if native.load() else 'not built'}; "
+        f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K3 "
+        f"fused {launches[3]} K4 {k4}")
+    log(f"  [{card_line()}] {label} phases (s): " + json.dumps(ph))
+
+    # the sample: a points.coordinates config of 64 of the raster's points
+    idx = np.linspace(0, P - 1, 64).astype(np.int64)
+    pset = points.parse_points_full(cfg)
+    coords = dict(cfg, points={
+        "coordinates": [[float(pset.lats[i]), float(pset.lons[i])]
+                        for i in idx],
+        "max_radius_km": cfg["points"]["max_radius_km"]})
+    samples.start_cli(
+        write_json(coords, os.path.join(outdir, f"{label}_sample.json")),
+        64, T, state.failed[idx].numpy(),
+        {name: fields[name][:, idx].copy()
+         for name in production.OUT_FIELD_ROWS}, steps,
+        f"9, {label}")
+    return launches, k4
+
+
+def hold_engines(label, kernel, scan, tol=dict(rtol=1e-4, atol=5e-3)):
+    """A kernel-engine run against the scan engine (float64) of the same
+    config, at the output steps (tests/test_production.py:215-262's
+    tolerances); equal failed masks.  Returns the largest |err|."""
+    (ks, kf), (ss, sf) = kernel, scan
+    err = 0.0
+    for name in production.OUT_FIELD_ROWS:
+        err = max(err, check_close(
+            f"{label} {name}", torch.from_numpy(np.asarray(kf[name])),
+            torch.from_numpy(np.asarray(sf[name])[kf["steps"]]), tol))
+    if not torch.equal(ks.failed.cpu(), ss.failed.cpu()):
+        raise AssertionError(f"{label}: failed masks differ")
+    return err
+
+
+def same_checkpoints(label, a, b, tol=dict(rtol=1e-4, atol=5e-3)):
+    """Two checkpoint files through the port's reader: equal ids and
+    epoch, the states at ``tol``."""
+    fa, ia, ea = writer.load_checkpoint(a)
+    fb, ib, eb = writer.load_checkpoint(b)
+    assert np.array_equal(ia, ib) and ea == eb and set(fa) == set(fb), label
+    for k in fa:
+        if fa[k].dtype.kind == "b":
+            assert np.array_equal(fa[k], fb[k]), (label, k)
+        else:
+            check_close(f"{label} {k}", torch.from_numpy(fa[k]),
+                        torch.from_numpy(fb[k]), tol)
+
+
+def same_json_files(label, a, b, tol=dict(rtol=1e-4, atol=5e-3)):
+    """Two forecast JSON files: equal ids, locations and times, values at
+    ``tol``."""
+    with open(a) as fa, open(b) as fb:
+        da, db = json.load(fa), json.load(fb)
+    assert len(da) == len(db), label
+    for ra, rb in zip(da, db):
+        assert (ra["statId"], ra["lat"], ra["lon"], ra["time"]) == (
+            rb["statId"], rb["lat"], rb["lon"], rb["time"]), label
+        for k in ("RoadTemperature", "Water", "Snow", "Ice", "Deposit"):
+            check_close(f"{label} {k}", torch.tensor(ra[k]),
+                        torch.tensor(rb[k]), tol)
+    return len(da)
+
+
+def phase_cli_small(ex1_dir, ex2_dir):
+    """Phase 9c: the CLI's configurations at a few thousand points on the
+    card, 2 h of analysis and 2 h of forecast at dt 120 s, the kernel
+    engine against the scan engine (float64 on the card) at rtol 1e-4 /
+    atol 5e-3 with equal failed masks, and the files each writes read
+    back; the warm-start cycle; one run of the console entry in a process
+    of its own."""
+    tmp = tempfile.mkdtemp(prefix="cli_small_", dir=ex1_dir)
+    small = dict(analysis=2, forecast=2, dt=120)
+    path = lambda name: os.path.join(tmp, name)
+
+    def both(label, cfg, **kw):
+        cfg_path = write_json(cfg, path(f"{label}.json"))
+        out = {}
+        for engine in ("kernel", "scan"):
+            k = {n: v.format(engine=engine) for n, v in kw.items()}
+            t0 = time.perf_counter()
+            out[engine] = runner.run(cfg_path, k.pop("t", CLI_TIME),
+                                     verbose=False, device="cuda",
+                                     engine=engine, **k)
+            out[engine + "_s"] = time.perf_counter() - t0
+        err = hold_engines(label, out["kernel"], out["scan"])
+        n = out["kernel"][1]["tsurf"].shape[1]
+        log(f"  [{card_line()}] 9c {label}: {n} points, kernel engine "
+            f"{out['kernel_s']:.2f} s, scan engine {out['scan_s']:.2f} s, "
+            f"max |err| {err:.3e}")
+        return cfg_path, out
+
+    # example1 in stations mode with its whole feature set: sky view and
+    # horizons on half the stations, relaxation, coupling (a 60-minute
+    # window inside the analysis): K3 fused around phase B
+    _, o1 = both("ex1 stations, sky view, coupled",
+                 ex1_config(ex1_dir, side=0, sky=True, coupling=1,
+                            coupling_minutes=60, **small),
+                 output_path=path("ex1_{engine}.json"),
+                 checkpoint_out=path("ex1_{engine}_ck.npz"))
+    n = same_json_files("9c example1 JSON", path("ex1_kernel.json"),
+                        path("ex1_scan.json"))
+    same_checkpoints("9c example1 checkpoints", path("ex1_kernel_ck.npz"),
+                     path("ex1_scan_ck.npz"))
+    assert n == 2048, n
+    # example2: the NWP grid under the road station's obs at 64 x 64
+    # points (K3 fused), uncoupled and coupled, the gridded npz written
+    both("ex2 grid + station", ex2_config(ex2_dir, side=64, **small),
+         output_path=path("ex2_{engine}.npz"))
+    za, zb = np.load(path("ex2_kernel.npz")), np.load(path("ex2_scan.npz"))
+    assert za.files == zb.files
+    for k in za.files:
+        if za[k].dtype.kind == "f":
+            check_close(f"9c example2 npz {k}", torch.from_numpy(za[k]),
+                        torch.from_numpy(zb[k]), dict(rtol=1e-4, atol=5e-3))
+        else:
+            assert np.array_equal(za[k], zb[k]), k
+    assert za["tsurf"].shape == (5, 64, 64), za["tsurf"].shape
+    _, oc = both("ex2 grid + station, coupled",
+                 ex2_config(ex2_dir, side=64, coupling=1,
+                            coupling_minutes=60, **small))
+    # the warm-start cycle: example1's stations on a 64 x 64 raster (K2),
+    # checkpoint out at 00 UTC, in at 01 UTC
+    cyc = ex1_config(ex1_dir, side=64, **small)
+    cyc_path, c1 = both("ex1 raster, cycle 1", cyc,
+                        checkpoint_out=path("cyc_{engine}.npz"))
+    same_checkpoints("9c cycle checkpoints", path("cyc_kernel.npz"),
+                     path("cyc_scan.npz"))
+    _, c2 = both("ex1 raster, cycle 2 (warm)", cyc, t="20191202T0100",
+                 checkpoint_in=path("cyc_{engine}.npz"),
+                 output_path=path("cyc2_{engine}.json"))
+    _, cold = both("ex1 raster, cycle 2 (cold)", cyc, t="20191202T0100")
+    assert not np.allclose(c2["kernel"][1]["tsurf"][0],
+                           cold["kernel"][1]["tsurf"][0])
+    # the console entry in a process of its own, on the card: the same
+    # file as the in-process warm run
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "roadsurf_tpu_torch.runner", "-c", cyc_path,
+         "-t", "20191202T0100", "--checkpoint-in", path("cyc_kernel.npz"),
+         "-o", path("cyc2_cli.json")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"python -m roadsurf_tpu_torch.runner exit "
+                             f"code {res.returncode}:\n{res.stderr[-4000:]}")
+    with open(path("cyc2_cli.json"), "rb") as fa, \
+            open(path("cyc2_kernel.json"), "rb") as fb:
+        assert fa.read() == fb.read(), "console entry's file differs"
+    log(f"  [{card_line()}] 9c python -m roadsurf_tpu_torch.runner (warm "
+        f"cycle 2 on the card): exit code 0 in "
+        f"{time.perf_counter() - t0:.1f} s, its JSON equal byte for byte "
+        f"to the in-process run's")
+
+
+def phase_chunk_sweep(cfg, counts=(1048576, 65536), chunks=(32, 64, 128, 256),
+                      rounds=2):
+    """Phase 9t, the measurement behind ``production.auto_chunk_t``: phase
+    5's station stream (K2) at 1,048,576 and 65,536 points at each chunk
+    length, in turns, with its stream seconds and peak device memory
+    (phase 5's expander stays resident; the resident bytes before each run
+    are printed beside the peak)."""
+    rows = {}
+    for r in range(rounds):
+        for P in counts:
+            for c in chunks:
+                exp = production.StationExpander(
+                    cfg["raw_st"], cfg["st_idx"][:P], DEV, chunk_t=c,
+                    prep_ctx=cfg["ctx"])
+                pts = PointParams(*(np.asarray(x)[:P] for x in cfg["pts"]))
+                state0 = State(*(x[:P] for x in cfg["state0"]))
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated(DEV)
+                torch.cuda.reset_peak_memory_stats(DEV)
+                m = RunMetrics()
+                res = production.run_production(
+                    cfg["model"], exp, pts, cfg["cal"], state0, chunk_t=c,
+                    metrics=m)
+                peak = torch.cuda.max_memory_allocated(DEV)
+                rows.setdefault((P, c), []).append(
+                    (m.phases["stream"], res.point_steps_per_s, peak,
+                     resident))
+                del exp, res, state0
+                torch.cuda.empty_cache()
+    for (P, c), rs in rows.items():
+        log(f"  [{card_line()}] 9t station stream, {P} points, chunk {c}: "
+            f"stream {[round(x[0], 3) for x in rs]} s = "
+            f"{[float(f'{x[1]:.4g}') for x in rs]} point-steps/s, peak "
+            f"device memory {[round(x[2] / 2**30, 2) for x in rs]} GiB "
+            f"({rs[0][3] / 2**30:.2f} GiB resident before)")
+    return rows
+
+
+def phase_cli(samples):
+    """Phase 9: the runner CLI end to end on inputs from the two example
+    generators (see the module docstring)."""
+    base = tempfile.mkdtemp(prefix="cli_")
+    ex1_dir, ex2_dir = (os.path.join(base, n) for n in ("ex1", "ex2"))
+    os.makedirs(ex1_dir)
+    os.makedirs(ex2_dir)
+    t0 = time.perf_counter()
+    lib = native.load(build_if_missing=True)
+    log(f"  native data-plane library (make -C native): "
+        f"{'built and loaded' if lib else 'unavailable, numpy paths'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    s1 = make_example("example1", ex1_dir, ["--stations", "2048",
+                                            "--analysis", "24",
+                                            "--forecast", "50"])
+    s2 = make_example("example2", ex2_dir, ["--ny", "300", "--nx", "400",
+                                            "--analysis", "24",
+                                            "--forecast", "50"])
+    log(f"  make_data: example1 2,048 stations in {s1:.1f} s, example2 "
+        f"300 x 400 x 75 grid in {s2:.1f} s")
+    launched = {}
+    log("== 9a. the CLI at full size, station-fed (example1): 1048576 "
+        "points x 8881 steps")
+    launched["9a"] = phase_cli_full("example1 raster", ex1_config(ex1_dir),
+                                    ex1_dir, samples, "K2")
+    torch.cuda.empty_cache()
+    log("== 9b. the CLI at full size, NWP grid + station obs (example2): "
+        "1048576 points x 8881 steps")
+    launched["9b"] = phase_cli_full("example2 raster", ex2_config(ex2_dir),
+                                    ex2_dir, samples, "K3 fused")
+    torch.cuda.empty_cache()
+    log("== 9c. the CLI's configurations small on the card, kernel engine "
+        "against scan engine")
+    phase_cli_small(ex1_dir, ex2_dir)
+    return base, launched
+
+
 def main():
     with SampleRuns() as samples:
         run_phases(samples)
@@ -2369,11 +2828,13 @@ def run_phases(samples):
     args, variants = parse_variants(sys.argv[1:])
     sel = set(args)
     known = {"3", "3b", "3c", "3d", "3e", "4", "4b", "4c", "5", "6", "7",
-             "7b", "8", "8b"}
+             "7b", "8", "8b", "9", "9t"}
     if sel - known:
         raise SystemExit(f"unknown phases {sorted(sel - known)}; "
                          f"phases: {sorted(known)}")
     want = lambda ph: not sel or ph in sel
+    # 9t, the chunk sweep behind production.auto_chunk_t, only when named
+    named = lambda ph: ph in sel
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log("== 1. toolchain and device")
@@ -2394,7 +2855,8 @@ def run_phases(samples):
 
     metrics = RunMetrics(announce=True)      # phase lines on stderr
     cfg = cfg6 = cfg7 = None
-    if any(want(ph) for ph in ("3", "3b", "3d", "3e", "5", "6", "7b", "8")):
+    if any(want(ph) for ph in ("3", "3b", "3d", "3e", "5", "6", "7b", "8")
+           ) or named("9t"):
         cfg = full_size_setup(metrics)
     if want("3"):
         log("== 3. K1 against its plain version")
@@ -2549,6 +3011,11 @@ def run_phases(samples):
         del res7b
         phase_sharded_coupled_small()
         stamp()
+    if named("9t"):
+        log("== 9t. the station stream at 1048576 and 65536 points by chunk "
+            "length (auto_chunk_t)")
+        phase_chunk_sweep(cfg)
+        stamp()
     del cfg, cfg6, cfg7, cfg7b
     torch.cuda.empty_cache()
     if want("8b"):
@@ -2556,9 +3023,19 @@ def run_phases(samples):
             "checkpoints")
         phase_two_processes()
         stamp()
-    log("== the 64-point samples of the full-size runs, re-run on the host "
-        "beside the phases above")
+    cli_dir = None
+    if want("9"):
+        log("== 9. the runner CLI end to end on the example generators' "
+            "inputs")
+        cli_dir, l9 = phase_cli(samples)
+        launched[1] += l9["9a"][0][1]
+        k3_launches += l9["9b"][0][3]
+        stamp()
+    log("== the 64-point samples of the full-size runs, re-run beside the "
+        "phases above")
     samples.finish()
+    if cli_dir:
+        shutil.rmtree(cli_dir, ignore_errors=True)
     stamp()
     if sel:
         log(f"phases {sorted(sel)} passed; the summary needs every phase")

@@ -1,8 +1,9 @@
-"""Gridded forecast extraction at points and onto the simulation times.
+"""Gridded forecast source: the npz grid reader and its extraction at
+points and onto the simulation times.
 
-The host numpy path of ``roadsurf_tpu/io/gridsource.py:45-328``, the
-re-derivation of example2's QueryDataSource
-(examples/example2/src/QueryDataSource.cpp): gridded NWP fields extracted at
+The counterpart of ``roadsurf_tpu/io/gridsource.py``, the re-derivation of
+example2's QueryDataSource (examples/example2/src/QueryDataSource.cpp):
+gridded NWP fields extracted at
 arbitrary simulation points by bilinear spatial interpolation
 (``InterpolatedValue(pLatLon)``, QueryDataSource.cpp:931) and interpolated in
 time onto the simulation grid with the reference's per-variable semantics
@@ -17,24 +18,101 @@ time onto the simulation grid with the reference's per-variable semantics
  * RH clamped to [0, 100]; precipitation > 100 mm/h treated as missing
    (QueryDataSource.cpp:867-872).
 
-Values <= -9000 or NaN are missing.  Only the numpy path is here: the
-multithreaded native extraction of the JAX package (expression-identical to
-it) and the npz file reader ``GridSource`` wait for the port's own binding
-of ``native/``.
+The container format is not FMI querydata (a proprietary binary tied to
+newbase); the container is npz: ``times`` [R] (UTC epochs), ``lats`` [ny],
+``lons`` [nx] (regular grid, either axis order), and per variable
+``[R, ny, nx]`` float arrays keyed by the short names used throughout this
+package (tair, tdew, rhz, vz, prec, sw, lw, sw_dir, lw_net, tsurf_obs,
+prec_phase).  Values <= -9000 or NaN are missing.
+
+A ``directory`` source merges every ``*.npz`` in the directory along the time
+axis, later files overriding earlier ones at duplicate times -- the
+NFmiMultiQueryInfo multi-file view (QueryDataSource.cpp:62-66).
+
+Both extractions take the multithreaded native library (``io/native.py``,
+expression-identical to the numpy paths) when it is built, as the JAX
+package's do, so the two packages give the same values bit for bit.
 """
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from ..config import MISSING
+
+GRID_VARS = ("tair", "tdew", "vz", "rhz", "prec", "sw", "lw", "sw_dir",
+             "lw_net", "tsurf_obs", "prec_phase")
 
 MAX_TIME_GAP_MIN = 180      # QueryDataSource.cpp:811
 
 
 def _is_missing(a):
     return np.isnan(a) | (a <= -9000.0)
+
+
+def _load_npz_grid(path: str):
+    z = np.load(path)
+    times = np.asarray(z["times"], np.int64)
+    lats = np.asarray(z["lats"], np.float64)
+    lons = np.asarray(z["lons"], np.float64)
+    fields = {k: np.asarray(z[k], np.float64) for k in z.files
+              if k in GRID_VARS}
+    return times, lats, lons, fields
+
+
+def _merge_directory(paths: Sequence[str]):
+    """Multi-file time merge; later (newer) files win at duplicate times
+    (gridsource.py:59-86)."""
+    parts = [_load_npz_grid(p) for p in paths]
+    lats, lons = parts[0][1], parts[0][2]
+    for t, la, lo, f in parts[1:]:
+        if la.shape != lats.shape or lo.shape != lons.shape or \
+                not (np.allclose(la, lats) and np.allclose(lo, lons)):
+            raise ValueError("grid files in directory have differing grids")
+    names = sorted({k for p in parts for k in p[3]})
+    all_times = np.concatenate([p[0] for p in parts])
+    # stable keep-last per duplicate time, then time-sorted
+    uniq: Dict[int, int] = {}
+    for i, t in enumerate(all_times):
+        uniq[int(t)] = i                       # later file index wins
+    keep = np.array(sorted(uniq.items()))      # [K, 2] (time, row)
+    times = keep[:, 0].astype(np.int64)
+    rows = keep[:, 1]
+    ny, nx = len(lats), len(lons)
+    fields = {}
+    starts = np.cumsum([0] + [len(p[0]) for p in parts])
+    for name in names:
+        stacked = np.full((len(all_times), ny, nx), MISSING)
+        for pi, (t, _, _, f) in enumerate(parts):
+            if name in f:
+                stacked[starts[pi]:starts[pi + 1]] = f[name]
+        fields[name] = stacked[rows]
+    return times, lats, lons, fields
+
+
+def _native_extract(field, lats, lons, plat, plon, mode: int):
+    """Multithreaded C++ extraction (native/roadsurf_native.cpp
+    rs_grid_at_points), expression-identical to the numpy paths below;
+    returns [..., P] or None when the library is unavailable
+    (gridsource.py:89-109)."""
+    from . import native
+    if native.load() is None:
+        return None
+    f = np.asarray(field, np.float64)
+    if f.ndim < 2:
+        return None
+    la = np.asarray(lats, np.float64)
+    pshape = np.shape(plat)            # () scalars keep fallback shape
+    plat = np.atleast_1d(np.asarray(plat, np.float64))
+    plon = np.atleast_1d(np.asarray(plon, np.float64))
+    flip = len(la) > 1 and la[1] < la[0]
+    lead = f.shape[:-2]
+    out = native.grid_at_points(
+        f.reshape((-1,) + f.shape[-2:]), la[::-1] if flip else la, lons,
+        plat, plon, mode=mode, flip_y=flip)
+    return np.ascontiguousarray(out.T).reshape(lead + pshape)
 
 
 def _cell_geometry(lats, lons, plat, plon):
@@ -74,6 +152,9 @@ def bilinear_at_points(field: np.ndarray, lats: np.ndarray, lons: np.ndarray,
     (newbase interpolation tolerates missing corners); all-missing or
     out-of-grid points are missing.  Returns [..., P].
     """
+    nat = _native_extract(field, lats, lons, plat, plon, mode=0)
+    if nat is not None:
+        return nat
     flip, iy, ix, inside, fy, fx = _cell_geometry(lats, lons, plat, plon)
     if flip:
         field = field[..., ::-1, :]
@@ -99,6 +180,9 @@ def nearest_corner_at_points(field: np.ndarray, lats: np.ndarray,
     gridsource.py:160-205): the valid corner with the largest bilinear
     weight wins, ties to the earlier corner.  Returns exact field values.
     """
+    nat = _native_extract(field, lats, lons, plat, plon, mode=1)
+    if nat is not None:
+        return nat
     flip, iy, ix, inside, fy, fx = _cell_geometry(lats, lons, plat, plon)
     if flip:
         field = field[..., ::-1, :]
@@ -236,3 +320,64 @@ def timeseries_at_points(times, pv: Dict[str, np.ndarray], sim_abs,
             out["rhz"] = np.where(need_rh,
                                   np.asarray(rh_from_tdew(tair, td)), rh)
     return out
+
+
+class GridSource:
+    """Gridded forecast/analysis source (the QueryDataSource equivalent;
+    gridsource.py:331-388).
+
+    Config: ``{"type": "grid", "path": file.npz | directory/,
+    "source": "forecast"|"observations", "params": [optional subset]}``.
+    """
+
+    def __init__(self, cfg: dict, sim_times: np.ndarray,
+                 is_observation: bool = False):
+        self.is_observation = is_observation
+        self.sim_times = np.asarray(sim_times, np.int64)
+        path = cfg["path"]
+        if os.path.isdir(path):
+            files = sorted(
+                os.path.join(path, f) for f in os.listdir(path)
+                if f.endswith(".npz"))
+            if not files:
+                raise FileNotFoundError(f"no .npz grid files in {path}")
+            self.times, self.lats, self.lons, self.fields = \
+                _merge_directory(files)
+        else:
+            self.times, self.lats, self.lons, self.fields = \
+                _load_npz_grid(path)
+        params = cfg.get("params")
+        if params:
+            self.fields = {k: v for k, v in self.fields.items()
+                           if k in set(params)}
+        order = np.argsort(self.times, kind="stable")
+        self.times = self.times[order]
+        self.fields = {k: v[order] for k, v in self.fields.items()}
+
+    def stations(self):
+        """A grid has no stations; the point set must come from the config's
+        points section (example2 requires a point mode for querydata)."""
+        return []
+
+    def latest_valid_time(self, name: str) -> Optional[int]:
+        """GetLatestObsTime analogue (DataManager.cpp:85-104): latest raw
+        time at which ``name`` has any valid value on the grid."""
+        f = self.fields.get(name)
+        if f is None:
+            return None
+        any_valid = ~_is_missing(f).all(axis=(1, 2))
+        if not any_valid.any():
+            return None
+        return int(self.times[np.where(any_valid)[0][-1]])
+
+    def at_points(self, plat, plon) -> Dict[str, np.ndarray]:
+        """Extract all fields at points: bilinear in space, then the
+        reference's per-variable time interpolation.  Returns
+        {name: [P, S]}."""
+        pv = {}
+        for name, field in self.fields.items():
+            interp_sp = (nearest_corner_at_points if name == "prec_phase"
+                         else bilinear_at_points)
+            pv[name] = np.moveaxis(
+                interp_sp(field, self.lats, self.lons, plat, plon), -1, 0)
+        return timeseries_at_points(self.times, pv, self.sim_times)

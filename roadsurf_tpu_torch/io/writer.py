@@ -210,7 +210,8 @@ def restore_state(path: str, point_ids, state_template):
     """Build a State from a checkpoint, matching points by id; points absent
     from the checkpoint keep the template (cold-start) state.  Each leaf
     comes back as its template leaf is: a tensor on the template's device,
-    or numpy for a numpy template."""
+    or numpy for a numpy template.  A checkpoint of no points (the shard
+    of a process whose blocks hold only padding) restores nothing."""
     fields, ckpt_ids, _ = load_checkpoint(path)
     index = {int(pid): i for i, pid in enumerate(ckpt_ids)}
     rows = np.array([index.get(int(p), -1) for p in point_ids])
@@ -218,8 +219,10 @@ def restore_state(path: str, point_ids, state_template):
     rows_c = np.clip(rows, 0, None)
 
     def merge(name, tmpl):
-        ck = fields[name][rows_c]
         tmpl_np = _np(tmpl)
+        if not have.any():
+            return tmpl
+        ck = fields[name][rows_c]
         mask = have.reshape(have.shape + (1,) * (tmpl_np.ndim - 1))
         merged = np.where(mask, ck, tmpl_np).astype(tmpl_np.dtype)
         if isinstance(tmpl, torch.Tensor):

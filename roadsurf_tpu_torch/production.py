@@ -109,6 +109,55 @@ def tile_geometry(n_points: int, ndev: int = 1):
     return (n_points // tp, tp)
 
 
+#: the chunk rule of ``auto_chunk_t``, from the station stream (K2) timed
+#: on an H100 80GB HBM3 at 700 W at chunk 32-256, two rounds in each of
+#: three runs of chip_smoke.py phase 9t (PERF.md, Findings, PR 7): at
+#: 1,048,576 points chunk 128 beat 64 in all six readings (by 3-14%), 256
+#: beat 128 in one run of three and lost in two, and the peak memory over
+#: the resident rose 3.3 / 6.1 / 11.7 GiB at 64 / 128 / 256 (the slim
+#: chunk, 44 B a point-step); at 65,536 points the stream is host-bound
+#: and falls with every doubling up to 256 (0.29-0.55 s at 64, 0.12-0.17 s
+#: at 256).  So chunk_t x P is held near 128 x 1M; the floor keeps a
+#: chunk's forcing near 12 GB up to 4M points a process, the cap bounds a
+#: small run's output rows a chunk.
+CHUNK_TARGET_POINT_STEPS = 128 * 1048576
+CHUNK_FLOOR = 64
+CHUNK_CAP = 1024
+
+
+def auto_chunk_t(n_points: int) -> int:
+    """Streaming chunk length for a run of ``n_points`` (production.py:
+    110-121): chunk_t x P held near CHUNK_TARGET_POINT_STEPS, at least
+    CHUNK_FLOOR and at most CHUNK_CAP steps, a multiple of 8.  A chunk
+    carries enough kernel work to hide the host's per-chunk cost while its
+    forcing stays well inside the card's memory.  The kernel carries the
+    state across chunks, so the station routes' results do not depend on
+    it (a grid's float32 interpolation is rebased on each chunk's first
+    step, ``GridExpander.segments``)."""
+    tc = max(CHUNK_FLOOR, CHUNK_TARGET_POINT_STEPS // max(n_points, 1))
+    return min(CHUNK_CAP, tc) // 8 * 8
+
+
+def _span(pos, chunk_t: int, t_pad: int) -> int:
+    """The most raw positions a window of ``chunk_t`` steps advances
+    through, plus one, over the padded sim grid's raw positions ``pos``."""
+    return int(np.max(pos[chunk_t - 1:] - pos[:t_pad - chunk_t + 1])) + 1
+
+
+def grid_span(times, sim_epochs, chunk_t: int) -> int:
+    """The SPAN (segments a chunk's window holds) of a GridExpander of the
+    raw ``times`` over ``sim_epochs`` at ``chunk_t``, without building it:
+    K3 fused keeps a chunk's segment lines in shared memory and takes at
+    most ``ops.scan_kernel.SPAN_MAX``."""
+    times = np.unique(np.asarray(times, np.int64))
+    sim = np.asarray(sim_epochs, np.int64)
+    t_pad = (-(-len(sim) // chunk_t) + 1) * chunk_t
+    sim_pad = np.concatenate([sim, np.full(t_pad - len(sim), sim[-1],
+                                           np.int64)])
+    return _span(np.searchsorted(times, sim_pad, side="left"), chunk_t,
+                 t_pad)
+
+
 def host_shard(blocks, axis: int):
     """This process's columns of a sharded value along ``axis``
     (production.py:63-87): ``blocks`` is [(tensor, (lo, hi))], the
@@ -716,8 +765,7 @@ class GridExpander:
         else:
             MB, MF = 1, 1
         self.MB = MB = max(MB, 1)
-        self.SPAN = int(np.max(pos[chunk_t - 1:]
-                               - pos[:t_pad - chunk_t + 1])) + 1
+        self.SPAN = _span(pos, chunk_t, t_pad)
         self.KW = min(K, MB + self.SPAN + MF)
         self.K = K
 
@@ -885,18 +933,19 @@ class GridExpander:
                    for k, v in self._data.items()}
         return b
 
-    def _point_series(self, name) -> np.ndarray:
-        """Spatially-extracted [P, K] float64 series on the host; the
-        staples are cached (production.py:1105-1125)."""
+    def _point_series(self, name, rows=slice(None)) -> np.ndarray:
+        """Spatially-extracted [P, K] float64 series on the host, of the
+        raw rows ``rows`` (a slice); the staples' whole series are cached
+        (production.py:1105-1125)."""
         if name in self._pv_cache:
-            return self._pv_cache[name]
+            return self._pv_cache[name][:, rows]
         from .io.gridsource import bilinear_at_points, \
             nearest_corner_at_points
         times, glats, glons, fields, plat, plon, _ = self._href
         interp_sp = (nearest_corner_at_points if name == "prec_phase"
                      else bilinear_at_points)
-        out = interp_sp(fields[name], glats, glons, plat, plon).T  # [P, K]
-        if name in self._PV_STAPLES:
+        out = interp_sp(fields[name][rows], glats, glons, plat, plon).T
+        if rows == slice(None) and name in self._PV_STAPLES:
             self._pv_cache[name] = out
         return out
 
@@ -904,14 +953,27 @@ class GridExpander:
         """The extraction pipeline on the host at arbitrary epoch times
         (io.gridsource.timeseries_at_points over the per-point series;
         production.py:1127-1144): {name: [P, n]}, missing-filled for
-        absent variables."""
+        absent variables.  Only the raw rows within the gap cap of the
+        times, and one more on either side, can decide their values (a
+        bracketing sample, a nearest one, or none within the cap), so only
+        those are extracted: the same values, bit for bit, at a fraction
+        of the whole series' cost when the times are few."""
         from .io.gridsource import timeseries_at_points
         times = self._href[0]
         want = set(names) | ({"tair", "tdew", "rhz"} & set(self.var_names))
         sim_abs = np.asarray(sim_abs, np.int64)
-        pv = {n: self._point_series(n)
+        rows = slice(None)
+        if sim_abs.size:
+            lo = np.searchsorted(times, sim_abs.min() - self.max_gap_s,
+                                 side="left")
+            hi = np.searchsorted(times, sim_abs.max() + self.max_gap_s,
+                                 side="right")
+            rows = slice(max(int(lo) - 1, 0), min(int(hi) + 1, len(times)))
+            if rows == slice(0, len(times)):
+                rows = slice(None)
+        pv = {n: self._point_series(n, rows)
               for n in sorted(want & set(self.var_names))}
-        out = timeseries_at_points(times, pv, sim_abs, self.max_gap_s)
+        out = timeseries_at_points(times[rows], pv, sim_abs, self.max_gap_s)
         for n in names:
             if n not in out:
                 out[n] = np.full((self.num_points, len(sim_abs)),

@@ -6,10 +6,17 @@ the failed-count reduction.  The parent merges the shards and holds them to
 the one-process run, bit for bit, and to the JAX package's run at the
 production tolerances (the cases of tests/_mp_worker.py:72-145).
 
+The runner CLI's branch of several processes (the cases of
+tests/test_distributed.py:69-160): two processes drive ``runner.run`` on
+example2's operational config, coupled, with ``--device cpu``; each writes
+its output shard and checkpoint; the shards merged through the
+``merge-shards`` subcommand equal a one-process run.
+
 The file is its own worker: the tests start it with
-``python test_torch_distributed.py <port> <nproc> <rank> <outdir>``; the
-worker imports nothing of JAX.  Inputs come from numpy seeds, so parent and
-workers build the same.
+``python test_torch_distributed.py <port> <nproc> <rank> <outdir>`` (or
+``runner <port> <nproc> <rank> <outdir>`` for the runner's); the worker
+imports nothing of JAX.  Inputs come from numpy seeds and the example
+generators, so parent and workers build the same.
 """
 import json
 import os
@@ -116,6 +123,51 @@ def worker(port: int, nproc: int, rank: int, outdir: str):
     print(f"MP_OK {rank}", flush=True)
 
 
+def runner_worker(port: int, nproc: int, rank: int, outdir: str):
+    """One process of the runner's run of several: the kernel engine on
+    one CPU block, its shard and checkpoint written by the runner."""
+    from roadsurf_tpu_torch import runner
+    from roadsurf_tpu_torch.parallel import distributed
+    distributed.initialize(f"127.0.0.1:{port}", nproc, rank)
+    # mixed verbosity on purpose (the common rank-0-only-logs pattern)
+    runner.run(os.path.join(outdir, "cfg.json"), "20191202T0000",
+               output_path=os.path.join(outdir, "mp_out.npz"),
+               checkpoint_out=os.path.join(outdir, "mp_ck.npz"),
+               verbose=(rank == 0), device="cpu", engine="kernel")
+    distributed.shutdown()
+    print(f"MP_RUNNER_OK {rank}", flush=True)
+
+
+def _spawn(mode_args, outdir, timeout=240):
+    """Start the NPROC workers of this file (``mode_args`` before the port)
+    on a free port; fail on a worker that fails."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    me = os.path.abspath(__file__)
+    repo = os.path.dirname(os.path.dirname(me))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (repo + os.pathsep + env.get("PYTHONPATH", "")
+                         ).rstrip(os.pathsep)
+    procs = [subprocess.Popen(
+        [sys.executable, me, *mode_args, str(port), str(NPROC), str(i),
+         str(outdir)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for i in range(NPROC)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"worker {i} failed:\n{out}"
+    return outs
+
+
 # ---------------------------------------------------------------------------
 # the parent's tests
 # ---------------------------------------------------------------------------
@@ -128,29 +180,7 @@ def _workers(tmp_path_factory):
     if "out" in _RUN:
         return _RUN["out"]
     outdir = tmp_path_factory.mktemp("mp")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    me = os.path.abspath(__file__)
-    repo = os.path.dirname(os.path.dirname(me))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = (repo + os.pathsep + env.get("PYTHONPATH", "")
-                         ).rstrip(os.pathsep)
-    procs = [subprocess.Popen(
-        [sys.executable, me, str(port), str(NPROC), str(i), str(outdir)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for i in range(NPROC)]
-    outs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=240)
-            outs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"worker {i} failed:\n{out}"
+    for i, out in enumerate(_spawn([], outdir)):
         assert f"MP_OK {i}" in out, f"worker {i} output:\n{out}"
     stats = [json.loads((outdir / f"stats_{i}.json").read_text())
              for i in range(NPROC)]
@@ -293,5 +323,76 @@ def test_single_process_helpers():
     distributed.shutdown()                               # no-op
 
 
+def test_multiprocess_runner_shards(tmp_path):
+    """The runner's run of several processes end to end
+    (tests/test_distributed.py:69-160): two gloo processes run example2's
+    operational config (NWP grid + ASCII station obs, coupled, a window
+    inside the analysis) with ``--device cpu``; each writes its output
+    shard and per-shard checkpoint; the shards merged through the
+    ``merge-shards`` subcommand, and the checkpoints restored in turn,
+    equal a one-process run (one block of the same padded points), bit for
+    bit."""
+    import importlib.util
+    from roadsurf_tpu_torch import runner
+    from roadsurf_tpu_torch.io import writer
+    from roadsurf_tpu_torch.io.sources import read_json_tolerant
+    from roadsurf_tpu_torch.observability import RunMetrics
+    ex2 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "examples", "example2")
+    spec = importlib.util.spec_from_file_location(
+        "ex2_gen", os.path.join(ex2, "make_data.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    gen.main(["--analysis", "2", "--forecast", "2", "--ny", "6", "--nx", "8",
+              "--outdir", str(tmp_path)])
+    # 12 x 16 points: 128 in the first process's block, 64 in the second's
+    cfg = read_json_tolerant(os.path.join(ex2, "grid_config.json"))
+    cfg["time"]["analysis"] = 1
+    cfg["time"]["forecast"] = 1
+    cfg["time"]["coupling_minutes"] = 30
+    cfg["model"]["DTSecs"] = 120
+    cfg["model"]["use_coupling"] = 1
+    cfg["points"].pop("mask")
+    cfg["input"][0]["path"] = str(tmp_path / "forecast_grid.npz")
+    cfg["input"][1]["path"] = str(tmp_path / "road_station.txt")
+    cfg["output"]["filename"] = str(tmp_path / "unused.npz")
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+
+    m = RunMetrics()
+    ref_state, ref = runner.run(
+        str(tmp_path / "cfg.json"), "20191202T0000",
+        output_path=str(tmp_path / "ref.npz"), verbose=False, device="cpu",
+        engine="kernel", metrics=m)
+    assert m.counters["coupling_points"] > 0
+    for i, out in enumerate(_spawn(["runner"], tmp_path)):
+        assert f"MP_RUNNER_OK {i}" in out, f"worker {i} output:\n{out}"
+
+    shards = sorted(str(f) for f in tmp_path.glob("mp_out.npz.shard*.npz"))
+    assert len(shards) == NPROC, shards
+    merged = tmp_path / "merged.npz"
+    runner.main(["merge-shards", str(merged)] + shards)
+    z = np.load(merged)
+    np.testing.assert_array_equal(z["steps"], ref["steps"])
+    for n in NAMES:
+        assert z[n].shape == ref[n].shape
+        np.testing.assert_array_equal(z[n], ref[n], err_msg=n)
+    cks = sorted(tmp_path.glob("mp_ck.npz.shard*"))
+    assert len(cks) == NPROC, cks
+    assert [len(writer.load_checkpoint(str(c))[1]) for c in cks] == [128, 64]
+    from roadsurf_tpu_torch.state import State
+    ids = list(range(1, ref["tsurf"].shape[1] + 1))
+    state = State(*(torch.zeros_like(x) for x in ref_state))
+    for ck in cks:
+        state = writer.restore_state(str(ck), ids, state)
+    for name in State._fields:
+        assert torch.equal(getattr(state, name), getattr(ref_state, name)), \
+            name
+
+
 if __name__ == "__main__":
-    worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1] == "runner":
+        runner_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                      sys.argv[5])
+    else:
+        worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+               sys.argv[4])

@@ -117,3 +117,45 @@ def test_random_grid_pipeline_matches_jax():
                                    **TOL)
     assert (got["rhz"] > 100.0).sum() == 0
     assert ((got["prec"] > 100.0) & (got["prec"] > -9000.0)).sum() == 0
+
+
+@pytest.mark.parametrize("sel", [[0], [200], [47, 48], [0, 100, 239],
+                                 list(range(240)), [239, 3, 3, 130]],
+                         ids=["first", "last", "pair", "spread", "all",
+                              "unsorted"])
+def test_host_at_extracts_only_the_rows_it_needs(sel):
+    """``GridExpander.host_at`` extracts only the raw rows within the gap
+    cap of the selected steps and one more on either side; its values
+    equal the whole series' pipeline bit for bit, prec_phase's nearest
+    pick and a missing-sample search that crosses the window's edge
+    included (irregular raw times, gaps over the cap, missing runs)."""
+    from roadsurf_tpu_torch import production
+    rng = np.random.default_rng(8)
+    times = 1575244800 + np.cumsum(rng.choice([1200, 3600, 4 * 3600], 30,
+                                              p=[0.3, 0.6, 0.1]))
+    lats, lons = np.linspace(60.0, 61.0, 4), np.linspace(24.0, 25.5, 5)
+    shp = (len(times), 4, 5)
+    fields = {"tair": rng.normal(-2.0, 3.0, shp),
+              "rhz": rng.uniform(60.0, 110.0, shp),
+              "vz": rng.uniform(0.0, 8.0, shp),
+              "prec_phase": rng.integers(0, 4, shp).astype(float)}
+    for name in fields:
+        fields[name] = np.where(rng.random(shp) < 0.25, MISSING,
+                                fields[name])
+    fields["tair"][10:13] = MISSING                # a run over the cap
+    P = 256
+    plat = 59.95 + rng.uniform(0, 1.1, P)
+    plon = 23.95 + rng.uniform(0, 1.6, P)
+    sim = times[0] - 1800 + 600 * np.arange(240, dtype=np.int64)
+    exp = production.GridExpander(times, lats, lons, fields, plat, plon,
+                                  sim, "cpu", chunk_t=16, extract="host")
+    names = ("tair", "tdew", "rhz", "vz", "prec_phase")
+    got = exp.host_at(np.asarray(sel), names)
+    pv = {n: (tgs.nearest_corner_at_points if n == "prec_phase"
+              else tgs.bilinear_at_points)(f, lats, lons, plat, plon).T
+          for n, f in fields.items()}
+    want = tgs.timeseries_at_points(times, pv, sim[np.asarray(sel)])
+    for n in names:
+        w = want.get(n, np.full(got[n].shape, MISSING))
+        assert got[n].dtype == w.dtype, n
+        np.testing.assert_array_equal(got[n], w, err_msg=n)

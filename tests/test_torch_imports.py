@@ -35,7 +35,10 @@ def test_package_has_modules():
     assert {"__init__.py", "model.py", "production.py", "interop.py",
             "coupling.py", "ops/scan_kernel.py", "ops/build.py",
             "io/gridsource.py", "io/writer.py", "parallel/sharding.py",
-            "parallel/distributed.py", "observability.py"} <= names
+            "parallel/distributed.py", "observability.py", "runner.py",
+            "io/interp.py", "io/native.py", "io/sources.py",
+            "io/skyview.py", "io/masks.py", "io/points.py", "io/driver.py",
+            "io/smartmet.py"} <= names
 
 
 @pytest.mark.parametrize("path", MODULES,
@@ -46,12 +49,13 @@ def test_no_jax_imports(path):
 
 
 def _entry_points():
-    from roadsurf_tpu_torch import interop, model, production
+    from roadsurf_tpu_torch import interop, model, production, runner
     conv = ("to_torch", "point_params", "raw_forcing", "state", "prepared",
             "coupling_vars", "packed")
     return ([model.Model, production.StationExpander,
              production.GridExpander, production.CompositeExpander,
-             production.run_production, production.run_production_coupled]
+             production.run_production, production.run_production_coupled,
+             runner.run, runner.run_production_config]
             + [getattr(interop, n) for n in conv])
 
 

@@ -174,6 +174,24 @@ def test_checkpoint_round_trip_through_the_other_package(tmp_path,
     assert all(isinstance(x, np.ndarray) for x in back)
 
 
+def test_restore_from_an_empty_checkpoint(tmp_path):
+    """The checkpoint of a process whose blocks hold only padding has no
+    points; restoring it gives the template back, tensor or numpy, and the
+    JAX package reads the file as the port does."""
+    path = str(tmp_path / "empty.npz")
+    empty = State(*(torch.as_tensor(x[:0]) for x in _state(1)))
+    twriter.save_checkpoint(path, empty, [], 1234)
+    fields, ids, epoch = jwriter.load_checkpoint(path)
+    assert len(ids) == 0 and epoch == 1234 and fields["tmp"].shape == (0, 17)
+    template = _state(2)
+    back = twriter.restore_state(path, 100 + np.arange(12), template)
+    for got, want in zip(back, template):
+        np.testing.assert_array_equal(got, want)
+    ttemplate = State(*(torch.as_tensor(x) for x in template))
+    back = twriter.restore_state(path, 100 + np.arange(12), ttemplate)
+    assert all(torch.equal(g, w) for g, w in zip(back, ttemplate))
+
+
 def test_warm_start_cycle_matches_jax(tmp_path):
     """Run, checkpoint, restore onto a cold template (with a few points
     missing from the checkpoint), run on: the port's cycle against the JAX
