@@ -48,7 +48,11 @@ the plain version):
     (chunk_t, out_stride) pairs; kernel tolerances, equal failed masks;
  5. the main path at full size: 2,048 stations -> 1,048,576 points, 8,881
     steps, hourly output, chunk 64, through K2 (the default) and through
-    K1 (slim=False); kernel launches counted over each run; the K2 run
+    K1 (slim=False), each at production.PIPELINE_DEPTH 1 and 2 (held to
+    each other bit for bit; per run the stream and output seconds, the
+    card's busy share of the stream from CUDA events, the host's issue,
+    wait and row-copy milliseconds a chunk, the peak memory); kernel
+    launches counted over each run; the K2 run
     (its block in station order) against a run whose caller passes the
     points in station order (the block's sort then the identity), mapped
     through that order, bit for bit; a 64-point
@@ -87,7 +91,8 @@ the plain version):
     against Model.run / Model.run_coupled fed host_at's merged forcing and
     against each other; K3's launches count here;
  7. the NWP-grid forecast at full size through K3 fused (no prepare_window
-    call): the JAX package's grid
+    call), at PIPELINE_DEPTH 1 and 2 as phase 5's runs: the JAX package's
+    grid
     configuration (tools/gen_production.py --grid-source: a 300 x 400 grid
     of 75 hourly samples over 59.6-70.1 N, 20.5-31.6 E, its field formulas
     at seed 7) at 1,048,576 points on a 1024 x 1024 raster, 8,881 steps,
@@ -110,9 +115,11 @@ the plain version):
     against scan_sharded_reference at the kernel tolerances with equal
     failed masks; then
     phase 5's 1,048,576 x 64 chunk (K2) in station order at 1, 2, 4 and 8
-    blocks, bit for bit against one launch, timed beside it in five rounds
-    (each round one launch and every block count in turn; the median and
-    range of each, and of the host's seconds to issue each call);
+    blocks, with new outputs and into the caller's (out=, as the main
+    path launches it), bit for bit against one launch, timed beside it in
+    five rounds (each round one launch and every block count both ways in
+    turn; the median and range of each, and of the host's seconds to
+    issue each call);
  3e. K2 and K1 on phase 5's 1,048,576 x 64 station chunk in the caller's
     point order and in station order (a run's blocks sort their points by
     station, so a warp's lanes share a station and leave the boundary-layer
@@ -122,8 +129,9 @@ the plain version):
     gathers in both orders;
  8. the sharded main path at full width and depth: phase 5's station cell
     and phase 7b's grid + stations with sky view, each through
-    run_production(devices=[the card] * 4) (or the visible cards) against
-    the one-block run, bit for bit over every output row and the final
+    run_production(devices=[the card] * 4) (or the visible cards) at
+    PIPELINE_DEPTH 1 and 2 as phase 5's runs, each against the one-block
+    run, bit for bit over every output row and the final
     state (the station one also against phase 5's station-order caller,
     mapped); phase 4b's coupled station case at 4 blocks against 1, bit for
     bit; stream seconds, point-steps/s, launches and peak memory per device
@@ -151,7 +159,9 @@ the plain version):
     --analysis 24 --forecast 50, grid_config.json with a 1024 x 1024
     points.grid and no mask, through K3 fused and K4; each with its
     runner phases, point-steps/s, time to first chunk, peak device memory
-    and auto chunk length, and a 64-point sample re-run through the
+    and auto chunk length, at PIPELINE_DEPTH 1 and 2 as phase 5's runs
+    (the two runs' outputs and final states bit for bit), and a 64-point
+    sample of the depth-2 run re-run through the
     runner's scan engine on the card (a points.coordinates config of those
     points) in float32 and float64, under phase 5's bound; 9c the same
     configurations at 2,048 stations or 64 x 64 points over 4 h at dt
@@ -173,7 +183,8 @@ main-path run.  Phases run in the order 1, 2, 3, 3e, 3b, 3d, 4, 4b, 5, 6,
 re-runs of phases 5, 6, 7 and 7b are plain torch on the host, phase 9's
 the scan engine on the card: each starts in worker processes when its
 full-size run ends, runs beside the phases that follow, and is checked at
-the end.  The last three lines of standard output are the kernel
+the end, and the streams of phases 5, 7, 8 and 9 at both depths are
+summed up.  The last three lines of standard output are the kernel
 summary (JSON), the card's name and power limit, and the device line
 (JSON); with phases named on the command line they are not printed.
 """
@@ -310,6 +321,102 @@ class PrepCalls:
 
     def __exit__(self, *exc):
         production.prepare_window = self._orig
+
+
+class StreamProbe:
+    """The card's busy time over the production runs made in the block:
+    CUDA events on each block's stream around its chunk forcing
+    (``_Engine.kernel_inputs``) and around every sharded launch; the busy
+    time is the union of those spans on the card's clock (the forcing's
+    kernels and the launch are each issued in one go, so a span holds no
+    wait for the host).  The drain's copies are not counted."""
+
+    def __enter__(self):
+        self.spans = []
+        new = lambda: torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        self.ref = new()
+        self.ref.record()
+        self._orig = inputs, launch = (production._Engine.kernel_inputs,
+                                       sharding.scan_sharded)
+
+        def timed_inputs(eng, *a, **k):
+            e0 = new()
+            e0.record()
+            res = inputs(eng, *a, **k)
+            e1 = new()
+            e1.record()
+            self.spans.append((e0, e1))
+            return res
+
+        def timed_launch(*a, **k):
+            mesh = sharding.make_mesh(a[6] if len(a) > 6 else k["devices"])
+            streams = [mesh.stream(b) for b in range(len(mesh))]
+            starts = [new() for _ in streams]
+            for e, s in zip(starts, streams):
+                e.record(s)
+            res = launch(*a, **k)
+            for e0, s in zip(starts, streams):
+                e1 = new()
+                e1.record(s)
+                self.spans.append((e0, e1))
+            return res
+        production._Engine.kernel_inputs = timed_inputs
+        sharding.scan_sharded = timed_launch
+        return self
+
+    def __exit__(self, *exc):
+        production._Engine.kernel_inputs, sharding.scan_sharded = self._orig
+
+    def busy_s(self) -> float:
+        torch.cuda.synchronize()
+        spans = sorted((self.ref.elapsed_time(a), self.ref.elapsed_time(b))
+                       for a, b in self.spans)
+        busy, end = 0.0, -np.inf
+        for lo, hi in spans:
+            if hi > end:
+                busy += hi - max(lo, end)
+                end = hi
+        return busy / 1e3
+
+
+def stream_line(label, depth, m, probe, peak, wall=None):
+    """One run's stream at one pipeline depth: walls, the card's busy share
+    of the stream, the host's issue, wait and row-copy seconds a chunk, the
+    output phase and the peak memory.  Returns the figures as a dict."""
+    c = m.counters
+    n = int(c["stream_chunks"])
+    stream = m.phases["stream"]
+    fig = dict(depth=depth, wall=wall, stream=stream,
+               output=m.phases["output"], busy=probe.busy_s(),
+               issue_ms=1e3 * c["stream_issue_s"] / n,
+               wait_ms=1e3 * c["stream_wait_s"] / n,
+               rows_ms=1e3 * c["stream_rows_s"] / n, chunks=n,
+               peak=peak / 2**30)
+    log(f"  [{card_line()}] {label}, PIPELINE_DEPTH {depth}: "
+        + (f"wall {wall:.3f} s, " if wall is not None else "")
+        + f"stream {stream:.3f} s, output {fig['output']:.3f} s; card busy "
+        f"{fig['busy']:.3f} s = {100 * fig['busy'] / stream:.1f}% of the "
+        f"stream; host a chunk ({n} chunks): issue {fig['issue_ms']:.3f} "
+        f"ms, wait {fig['wait_ms']:.3f} ms, rows to step order "
+        f"{fig['rows_ms']:.3f} ms; peak device memory "
+        f"{fig['peak']:.2f} GiB")
+    return fig
+
+
+@contextlib.contextmanager
+def pipeline_depth(depth):
+    """production.PIPELINE_DEPTH set to ``depth`` in the block."""
+    old = production.PIPELINE_DEPTH
+    production.PIPELINE_DEPTH = depth
+    try:
+        yield
+    finally:
+        production.PIPELINE_DEPTH = old
+
+
+#: every stream_line of the run, by label
+STREAMS = {}
 
 
 def card_line() -> str:
@@ -1077,25 +1184,28 @@ def mapped(res, order):
         state=type(res.state)(*(x[idx] for x in res.state)))
 
 
-def phase_main_full(cfg, metrics, exp):
+def phase_main_full(cfg, metrics, exp, depth=None):
     """The uncoupled main path at full size through ``exp``: K2 when it is
-    slim, else K1.  Returns (result, K1 launches, K2 launches, peak bytes,
-    failed share)."""
+    slim, else K1, at PIPELINE_DEPTH ``depth`` (the package's by default).
+    Returns (result, K1 launches, K2 launches, peak bytes, failed share,
+    the run's StreamProbe)."""
     model, T = cfg["model"], cfg["T"]
     slim = exp.slim
     torch.cuda.reset_peak_memory_stats(DEV)
     n_chunks = -(-T // cfg["chunk_t"])
     reset_counts()
-    res = production.run_production(
-        model, exp, cfg["pts"], cfg["cal"], cfg["state0"],
-        chunk_t=cfg["chunk_t"], metrics=metrics,
-        progress=Progress(T, every_s=2.0))
+    with StreamProbe() as probe, \
+            pipeline_depth(depth or production.PIPELINE_DEPTH):
+        res = production.run_production(
+            model, exp, cfg["pts"], cfg["cal"], cfg["state0"],
+            chunk_t=cfg["chunk_t"], metrics=metrics,
+            progress=Progress(T, every_s=2.0))
     launches = read_counts(n_chunks)[:2]
     peak = torch.cuda.max_memory_allocated(DEV)
     assert launches == ((0, n_chunks) if slim else (n_chunks, 0)), launches
     check_outputs(res, cfg)
     failed = float(res.state.failed.float().mean())
-    return res, launches, peak, failed
+    return res, launches, peak, failed, probe
 
 
 def check_outputs(res, cfg):
@@ -1456,11 +1566,13 @@ def phase_kernel_sharded_chunk(cfg):
     """The 1,048,576 x 64 main-path chunk of phase 5 (K2, offset 448) in
     station order, as a block of the main path places it, through K4 at 1,
     2, 4 and 8 blocks on the card (and over the visible cards), each
-    against one launch bit for bit; at 4 blocks against the plain version,
-    which is timed too.  Then ROUNDS_3D rounds, each timing (CUDA events)
-    one launch and every block count in turn, and the host's seconds to
-    issue each call (no synchronisation); the median and range of each
-    are printed.  K4's time is its 4-block median."""
+    against one launch bit for bit, with new outputs and into the caller's
+    (``out=``, as the main path's blocks launch it); at 4 blocks against
+    the plain version, which is timed too.  Then ROUNDS_3D rounds, each
+    timing (CUDA events) one launch and every block count in turn, both
+    ways, and the host's seconds to issue each call (no synchronisation);
+    the median and range of each are printed.  K4's time is its 4-block
+    median with ``out=``."""
     model = cfg["model"]
     blk = production.station_sorted(cfg["exp"].block(0, cfg["npoints"], DEV))
     eng = production._Engine(model, blk, cfg["pts"], cfg["cal"],
@@ -1488,6 +1600,15 @@ def phase_kernel_sharded_chunk(cfg):
         assert_bitwise(f"1M K2 chunk through K4, {key} blocks, vs one "
                        f"launch", joined(run()), one)
         runs[key] = run
+        # the same launch into the caller's outputs, as the main path's
+        # blocks make it (out=, a set reused for every call)
+        out = [tuple(torch.empty_like(x) for x in r) for r in run()]
+        run_out = (lambda blocks=blocks, bkw=bkw, mesh=mesh, out=out:
+                   sharding.scan_sharded(*blocks, *rest, mesh, out=out,
+                                         **geo, **bkw))
+        assert_bitwise(f"1M K2 chunk through K4 out=, {key} blocks, vs one "
+                       f"launch", joined(run_out()), one)
+        runs[f"{key} out="] = run_out
         if key == "4":
             # the plain version is eager torch, four times the operations
             # of the whole at a quarter of the size each: it is run once,
@@ -1501,7 +1622,7 @@ def phase_kernel_sharded_chunk(cfg):
             err = compare_scan("1M K4 chunk, 4 blocks", joined(run()),
                                joined(want), model.settings.nlayers)
             del want
-        del blocks, bkw
+        del blocks, bkw, out
     torch.cuda.empty_cache()
     times = {k: [] for k in runs}
     issue = {k: [] for k in runs}
@@ -1525,7 +1646,7 @@ def phase_kernel_sharded_chunk(cfg):
         f"{err:.3e}")
     del forc, one, eng, runs
     torch.cuda.empty_cache()
-    return dict(err=err, ms=med["4"], plain_ms=plain_ms, bound=bound,
+    return dict(err=err, ms=med["4 out="], plain_ms=plain_ms, bound=bound,
                 times=times, one_ms=times["one launch"])
 
 
@@ -1555,44 +1676,54 @@ def run_devices():
 
 
 def phase_sharded_run(cfg, label, ref=None, **kw):
-    """``cfg``'s full-size run over ``run_devices()`` against the one-block
-    run ``ref`` (made here when not given), bit for bit; the sharded
-    launches and the per-mode launches are counted over the run."""
+    """``cfg``'s full-size run over ``run_devices()`` at PIPELINE_DEPTH 1
+    and 2, each against the one-block run ``ref`` (made here when not
+    given), bit for bit; the sharded launches and the per-mode launches are
+    counted over each run.  Returns the depth-2 run."""
     T = cfg["T"]
     n_chunks = -(-T // cfg["chunk_t"])
     args = (cfg["model"], cfg["exp"], cfg["pts"], cfg["cal"], cfg["state0"])
     if ref is None:
         ref = production.run_production(*args, chunk_t=cfg["chunk_t"], **kw)
     devices = run_devices()
-    for d in set(devices):
-        torch.cuda.reset_peak_memory_stats(d)
-    metrics = RunMetrics(announce=True)
-    reset_counts()
-    t0 = time.perf_counter()
-    with PrepCalls() as calls:
-        res = production.run_production(*args, devices=devices,
-                                        chunk_t=cfg["chunk_t"],
-                                        metrics=metrics,
-                                        progress=Progress(T, every_s=5.0),
-                                        **kw)
-    launches = read_counts(n_chunks)
-    assert calls.n == 0, calls.n
-    wall = time.perf_counter() - t0
-    assert sum(launches) == n_chunks * len(devices), launches
-    check_outputs(res, cfg)
-    peaks = {k[len("peak_device_bytes_"):]: round(v / 2**30, 2)
-             for k, v in metrics.counters.items()
-             if k.startswith("peak_device_bytes_")}
-    log(f"  [{card_line()}] run_production ({label}, {len(devices)} blocks "
-        f"on {len(set(devices))} card(s)) wall {wall:.2f} s, stream "
-        f"{metrics.phases['stream']:.2f} s = {res.point_steps_per_s:.6g} "
-        f"point-steps/s, kernel launches K1 {launches[0]} K2 {launches[1]} "
-        f"K3 {launches[2]} K3 fused {launches[3]}, sharded launches "
-        f"{n_chunks}, prepare_window calls {calls.n}, peak device memory "
-        f"(GiB) {json.dumps(peaks)}")
-    log(f"  [{card_line()}] phases (s): " + json.dumps(
-        {k: round(v, 3) for k, v in metrics.phases.items()}))
-    assert_same_result(f"{label}, {len(devices)} blocks vs 1", res, ref)
+    for depth in (1, 2):
+        for d in set(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        metrics = RunMetrics(announce=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        with PrepCalls() as calls, StreamProbe() as probe, \
+                pipeline_depth(depth):
+            res = production.run_production(*args, devices=devices,
+                                            chunk_t=cfg["chunk_t"],
+                                            metrics=metrics,
+                                            progress=Progress(T, every_s=5.0),
+                                            **kw)
+        launches = read_counts(n_chunks)
+        assert calls.n == 0, calls.n
+        wall = time.perf_counter() - t0
+        assert sum(launches) == n_chunks * len(devices), launches
+        check_outputs(res, cfg)
+        peaks = {k[len("peak_device_bytes_"):]: v
+                 for k, v in metrics.counters.items()
+                 if k.startswith("peak_device_bytes_")}
+        log(f"  [{card_line()}] run_production ({label}, {len(devices)} "
+            f"blocks on {len(set(devices))} card(s), PIPELINE_DEPTH {depth}) "
+            f"wall {wall:.2f} s, stream {metrics.phases['stream']:.2f} s = "
+            f"{res.point_steps_per_s:.6g} point-steps/s, kernel launches K1 "
+            f"{launches[0]} K2 {launches[1]} K3 {launches[2]} K3 fused "
+            f"{launches[3]}, sharded launches {n_chunks}, prepare_window "
+            f"calls {calls.n}, peak device memory (GiB) "
+            + json.dumps({k: round(v / 2**30, 2) for k, v in peaks.items()}))
+        log(f"  [{card_line()}] phases (s): " + json.dumps(
+            {k: round(v, 3) for k, v in metrics.phases.items()}))
+        STREAMS[f"8, {label}, {len(devices)} blocks", depth] = stream_line(
+            f"8, {label}, {len(devices)} blocks", depth, metrics, probe,
+            max(peaks.values()), wall)
+        assert_same_result(f"{label}, {len(devices)} blocks vs 1, "
+                           f"PIPELINE_DEPTH {depth}", res, ref)
+        if depth == 1:
+            del res
     return res
 
 
@@ -2390,15 +2521,17 @@ def grid_sample_raw(cfg7, overlay=None):
     return raw_fn
 
 
-def phase_grid_full(cfg, metrics, label):
-    """A full-size run through the tile-major path: K3 launched once a
-    chunk and no K1 / K2 launch; returns (result, K3 launches)."""
+def phase_grid_full(cfg, metrics, label, depth=None):
+    """A full-size run through the tile-major path at PIPELINE_DEPTH
+    ``depth`` (the package's by default): K3 launched once a chunk and no
+    K1 / K2 launch; returns (result, K3 launches, its stream_line)."""
     T = cfg["T"]
     torch.cuda.reset_peak_memory_stats(DEV)
     n_chunks = -(-T // cfg["chunk_t"])
     reset_counts()
     t0 = time.perf_counter()
-    with PrepCalls() as calls:
+    with PrepCalls() as calls, StreamProbe() as probe, \
+            pipeline_depth(depth or production.PIPELINE_DEPTH):
         res = production.run_production(
             cfg["model"], cfg["exp"], cfg["pts"], cfg["cal"], cfg["state0"],
             chunk_t=cfg["chunk_t"], metrics=metrics,
@@ -2419,7 +2552,9 @@ def phase_grid_full(cfg, metrics, label):
         f"({calls.n / n_chunks:g} a chunk)")
     log(f"  [{card_line()}] phases (s): " + json.dumps(
         {k: round(v, 3) for k, v in metrics.phases.items()}))
-    return res, launches[3]
+    fig = stream_line(label, production.PIPELINE_DEPTH if depth is None
+                      else depth, metrics, probe, peak, wall)
+    return res, launches[3], fig
 
 
 def composite_sky_setup(cfg7, cfg):
@@ -2554,44 +2689,70 @@ def run_cli(argv, metrics):
 
 
 def phase_cli_full(label, cfg, outdir, samples, route):
-    """One full-size run of the CLI: ``runner.main(["-c", cfg, "-t",
-    CLI_TIME])`` as an operator types it, with its launches counted (K2
-    or K3 fused by ``route``, K4 once a chunk); a 64-point sample of it
-    re-run through the scan engine on the card (``start_cli``)."""
+    """The CLI at full size: ``runner.main(["-c", cfg, "-t", CLI_TIME])``
+    as an operator types it, at PIPELINE_DEPTH 1 and then 2 (held to each
+    other bit for bit), with each run's launches counted (K2 or K3 fused by
+    ``route``, K4 once a chunk); a 64-point sample of the depth-2 run re-run
+    through the scan engine on the card (``start_cli``).  Returns the
+    launches of both runs (K1, K2, K3, K3 fused) and their K4 launches."""
     cfg_path = write_json(cfg, os.path.join(outdir, f"{label}.json"))
     P, T = CLI_SIDE * CLI_SIDE, 8881
-    m = RunMetrics(announce=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(DEV)
-    reset_counts()
-    t0 = time.perf_counter()
-    (state, fields), first = run_cli(["-c", cfg_path, "-t", CLI_TIME], m)
-    wall = time.perf_counter() - t0
-    chunk_t = int(m.counters["chunk_t"])
-    n_chunks = -(-T // chunk_t)
-    k4 = sk.LAUNCHES_SHARDED
-    launches = read_counts(n_chunks)
-    peak = torch.cuda.max_memory_allocated(DEV)
-    want = (0, n_chunks, 0, 0) if route == "K2" else (0, 0, 0, n_chunks)
-    assert launches == want, (label, launches, want)
-    steps = fields["steps"]
-    assert np.array_equal(steps, np.arange(0, T, 120)), steps
+    total, k4_total, kept = [0, 0, 0, 0], 0, None
+    for depth in (1, 2):
+        m = RunMetrics(announce=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        reset_counts()
+        t0 = time.perf_counter()
+        with StreamProbe() as probe, pipeline_depth(depth):
+            (state, fields), first = run_cli(["-c", cfg_path, "-t",
+                                              CLI_TIME], m)
+        wall = time.perf_counter() - t0
+        chunk_t = int(m.counters["chunk_t"])
+        n_chunks = -(-T // chunk_t)
+        k4 = sk.LAUNCHES_SHARDED
+        launches = read_counts(n_chunks)
+        peak = torch.cuda.max_memory_allocated(DEV)
+        want = (0, n_chunks, 0, 0) if route == "K2" else (0, 0, 0, n_chunks)
+        assert launches == want, (label, launches, want)
+        total = [a + b for a, b in zip(total, launches)]
+        k4_total += k4
+        steps = fields["steps"]
+        assert np.array_equal(steps, np.arange(0, T, 120)), steps
+        for name in production.OUT_FIELD_ROWS:
+            f = fields[name]
+            assert f.shape == (len(steps), P), (name, f.shape)
+            assert np.all(np.isfinite(f) | (f == -9999.0)), name
+        failed = float(state.failed.float().mean())
+        ph = {k: round(v, 3) for k, v in m.phases.items()}
+        log(f"  [{card_line()}] {label}, PIPELINE_DEPTH {depth}: runner.main "
+            f"wall {wall:.2f} s, {P} points x {T} steps, chunk_t {chunk_t} "
+            f"(auto_chunk_t), stream {m.phases['stream']:.2f} s = "
+            f"{m.counters['point_steps_per_s']:.6g} point-steps/s, time to "
+            f"first chunk {first:.2f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB, failed share {failed:.6f}, native "
+            f"data-plane library "
+            f"{'taken' if native.load() else 'not built'}; launches K1 "
+            f"{launches[0]} K2 {launches[1]} K3 {launches[2]} K3 fused "
+            f"{launches[3]} K4 {k4}")
+        log(f"  [{card_line()}] {label} phases (s): " + json.dumps(ph))
+        STREAMS[f"9, {label}", depth] = stream_line(
+            f"9, {label}", depth, m, probe, peak, wall)
+        if kept is None:
+            kept = (state, fields)
+            del state, fields
+    bits = lambda a: np.ascontiguousarray(a).view(np.int32)
     for name in production.OUT_FIELD_ROWS:
-        f = fields[name]
-        assert f.shape == (len(steps), P), (name, f.shape)
-        assert np.all(np.isfinite(f) | (f == -9999.0)), name
-    failed = float(state.failed.float().mean())
-    ph = {k: round(v, 3) for k, v in m.phases.items()}
-    log(f"  [{card_line()}] {label}: runner.main wall {wall:.2f} s, "
-        f"{P} points x {T} steps, chunk_t {chunk_t} (auto_chunk_t), "
-        f"stream {m.phases['stream']:.2f} s = "
-        f"{m.counters['point_steps_per_s']:.6g} point-steps/s, time to "
-        f"first chunk {first:.2f} s, peak device memory "
-        f"{peak / 2**30:.2f} GiB, failed share {failed:.6f}, native "
-        f"data-plane library {'taken' if native.load() else 'not built'}; "
-        f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K3 "
-        f"fused {launches[3]} K4 {k4}")
-    log(f"  [{card_line()}] {label} phases (s): " + json.dumps(ph))
+        if not np.array_equal(bits(fields[name]), bits(kept[1][name])):
+            raise AssertionError(f"9, {label}: {name} differs between "
+                                 f"PIPELINE_DEPTH 2 and 1")
+    for name, g, w in zip(state._fields, state, kept[0]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"9, {label}: final state {name} differs "
+                                 f"between PIPELINE_DEPTH 2 and 1")
+    log(f"  9, {label}: PIPELINE_DEPTH 2 vs 1 equal bit for bit (every "
+        f"output row and the final state)")
+    del kept
 
     # the sample: a points.coordinates config of 64 of the raster's points
     idx = np.linspace(0, P - 1, 64).astype(np.int64)
@@ -2606,7 +2767,7 @@ def phase_cli_full(label, cfg, outdir, samples, route):
         {name: fields[name][:, idx].copy()
          for name in production.OUT_FIELD_ROWS}, steps,
         f"9, {label}")
-    return launches, k4
+    return total, k4_total
 
 
 def hold_engines(label, kernel, scan, tol=dict(rtol=1e-4, atol=5e-3)):
@@ -2896,17 +3057,18 @@ def run_phases(samples):
     if want("5"):
         log("== 5. main path at full size: 1048576 points x 8881 steps")
         # K2 (the default, slim expander) and K1 (slim=False, a second
-        # expander on the same stations), in turns: the first run pays the
-        # allocator's growth
+        # expander on the same stations), in turns, each at pipeline depth
+        # 1 and 2: the first run pays the allocator's growth, and it is a
+        # depth-2 run
         exps = {"K2": cfg["exp"], "K1": production.StationExpander(
             cfg["raw_st"], cfg["st_idx"], DEV, chunk_t=cfg["chunk_t"],
             prep_ctx=cfg["ctx"], slim=False)}
         runs = {}
-        for label in ("K1", "K2", "K2", "K1"):
+        for label, depth in (("K1", 2), ("K2", 1), ("K2", 2), ("K1", 1)):
             m = RunMetrics(announce=True)
             t0 = time.perf_counter()
-            res, launches, peak, failed = phase_main_full(cfg, m,
-                                                          exps[label])
+            res, launches, peak, failed, probe = phase_main_full(
+                cfg, m, exps[label], depth)
             wall = time.perf_counter() - t0
             launched = [a + b for a, b in zip(launched, launches)]
             log(f"  [{card}] run_production ({label}) wall {wall:.2f} s, "
@@ -2917,22 +3079,27 @@ def run_phases(samples):
                 f"{launches[1]}")
             log(f"  [{card}] phases (s): " + json.dumps(
                 {k: round(v, 3) for k, v in m.phases.items()}))
-            runs[label] = (res, launches)
-        diff = max(float(np.abs(runs["K2"][0].fields[k]
-                                - runs["K1"][0].fields[k]).max())
+            STREAMS[f"5, station {label}", depth] = stream_line(
+                f"5, station {label}", depth, m, probe, peak, wall)
+            runs[label, depth] = res
+        for label in ("K1", "K2"):
+            assert_same_result(f"5, station {label}: PIPELINE_DEPTH 2 vs 1",
+                               runs[label, 2], runs[label, 1])
+        diff = max(float(np.abs(runs["K2", 2].fields[k]
+                                - runs["K1", 2].fields[k]).max())
                    for k in production.OUT_FIELD_ROWS)
         log(f"  K2 vs K1 main path, all output rows: max |diff| {diff:.3e}")
-        del exps, runs["K1"]
+        del exps, runs["K1", 1], runs["K1", 2], runs["K2", 1]
         torch.cuda.empty_cache()
-        res5 = runs["K2"][0]
+        res5 = runs["K2", 2]
         samples.start(cfg, res5)
         del runs
         # the blocks ran their points in station order: against a caller
         # that passes them in that order (the sort then the identity)
         cfg_sorted, order5 = station_sorted_setup(cfg)
         m = RunMetrics(announce=True)
-        res_sorted, launches, _, _ = phase_main_full(cfg_sorted, m,
-                                                     cfg_sorted["exp"])
+        res_sorted, launches, _, _, _ = phase_main_full(cfg_sorted, m,
+                                                        cfg_sorted["exp"])
         launched = [a + b for a, b in zip(launched, launches)]
         log(f"  [{card}] run_production (K2, the caller's points in station "
             f"order) stream {m.phases['stream']:.2f} s, "
@@ -2971,8 +3138,17 @@ def run_phases(samples):
     if want("7"):
         log("== 7. the NWP-grid forecast at full size through K3: "
             "1048576 points x 8881 steps")
-        res7, n7 = phase_grid_full(cfg7, RunMetrics(announce=True), "grid")
-        k3_launches += n7
+        for depth in (1, 2):
+            res7, n7, STREAMS["7, NWP grid", depth] = phase_grid_full(
+                cfg7, RunMetrics(announce=True), "7, NWP grid", depth)
+            k3_launches += n7
+            if depth == 1:
+                res7_1 = res7
+                del res7
+                torch.cuda.empty_cache()
+        assert_same_result("7, NWP grid: PIPELINE_DEPTH 2 vs 1", res7,
+                           res7_1)
+        del res7_1
         samples.start(cfg7, res7, raw_fn=grid_sample_raw(cfg7),
                       hold_f32=True, label="7, NWP grid")
         del res7
@@ -2989,8 +3165,8 @@ def run_phases(samples):
             "K3: 1048576 points x 8881 steps")
         cfg7b = composite_sky_setup(cfg7, cfg)
         fz7b = phase_fused_chunk(cfg7b, "grid + stations, sky view")
-        res7b, n7b = phase_grid_full(cfg7b, RunMetrics(announce=True),
-                                     "grid + stations, sky view")
+        res7b, n7b, _ = phase_grid_full(cfg7b, RunMetrics(announce=True),
+                                        "7b, grid + stations, sky view")
         k3_launches += n7b
         samples.start(cfg7b, res7b, raw_fn=grid_sample_raw(
             cfg7b, overlay=cfg7b["overlay"]), hold_f32=True,
@@ -3034,6 +3210,16 @@ def run_phases(samples):
     log("== the 64-point samples of the full-size runs, re-run beside the "
         "phases above")
     samples.finish()
+    if STREAMS:
+        log(f"== the streams at PIPELINE_DEPTH 1 and 2 [{card}] (s: stream, "
+            f"output; card busy share of the stream; host issue ms a chunk; "
+            f"peak GiB)")
+    for label in dict.fromkeys(k[0] for k in STREAMS):
+        log(f"  {label}: " + "; ".join(
+            f"depth {f['depth']}: {f['stream']:.3f} + {f['output']:.3f}, "
+            f"busy {100 * f['busy'] / f['stream']:.1f}%, issue "
+            f"{f['issue_ms']:.3f}, peak {f['peak']:.2f}"
+            for f in (STREAMS.get((label, d)) for d in (1, 2)) if f))
     if cli_dir:
         shutil.rmtree(cli_dir, ignore_errors=True)
     stamp()

@@ -320,9 +320,11 @@ def cof_window(sw_corr, lw_corr, coupling_end, t_offset: int, tc: int,
     end = end[None, :]
     dts = settings.dt
     # a tensor divisor: CUDA turns a Python-scalar divisor into a multiply
-    # by its reciprocal, which the kernel's IEEE division would not match
-    red = torch.tensor(settings.coupling_effect_reduction, dtype=dtype,
-                       device=end.device)
+    # by its reciprocal, which the kernel's IEEE division would not match;
+    # filled on the device (a tensor copied from the host would wait for
+    # the stream in every chunk of a pipelined run)
+    red = torch.full((), settings.coupling_effect_reduction, dtype=dtype,
+                     device=end.device)
     expo = -((dts * i_eff.to(dtype))[:, None] - dts * end.to(dtype)) / red
     dec = torch.exp(torch.clamp(expo, max=0.0))
     on = (i_eff[:, None] >= end) & (end >= 1)

@@ -51,6 +51,10 @@ class RunMetrics:
     def count(self, name: str, value: float):
         self.counters[name] = value
 
+    def add(self, name: str, value: float):
+        """Add ``value`` to a counter (from 0)."""
+        self.counters[name] = self.counters.get(name, 0) + value
+
     def note(self, msg: str):
         """One-line engine decision note (fast-path fallbacks etc.); printed
         only in announce (verbose) mode so slow paths are never silent."""

@@ -936,12 +936,39 @@ def scan_fused(tmp0, scal0, src, cfg: StepConfig, p: PhysicsParams,
     raise ValueError(f"no fused scan kernel for device {tmp0.device}")
 
 
+def check_out(out, tmp0, scal0, shapes):
+    """The caller's outputs of a sharded launch: one (tmp, scal, rows) of
+    contiguous float32 tensors per block, on the block's device, of the
+    launch's ``shapes`` [(tmp, scal, rows shape)], none of them in the
+    storage of the block's ``tmp0`` or ``scal0`` (the kernel reads those
+    while it writes these)."""
+    if len(out) != len(tmp0):
+        raise ValueError(f"out holds {len(out)} sets for {len(tmp0)} "
+                         f"blocks")
+    for b, (o, want) in enumerate(zip(out, shapes)):
+        if len(o) != 3:
+            raise ValueError(f"out[{b}]: (tmp, scal, rows), got {len(o)} "
+                             f"tensors")
+        reads = {x.untyped_storage().data_ptr() for x in (tmp0[b], scal0[b])}
+        for name, x, shape in zip(("tmp", "scal", "rows"), o, want):
+            if (tuple(x.shape) != tuple(shape) or x.dtype != torch.float32
+                    or x.device != tmp0[b].device or not x.is_contiguous()):
+                raise ValueError(
+                    f"out[{b}] {name}: {tuple(x.shape)} {x.dtype} on "
+                    f"{x.device}, contiguous {x.is_contiguous()}; need "
+                    f"contiguous float32 {tuple(shape)} on "
+                    f"{tmp0[b].device}")
+            if x.untyped_storage().data_ptr() in reads:
+                raise ValueError(f"out[{b}] {name} shares the storage of "
+                                 f"the block's tmp0 or scal0")
+
+
 def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
                       p: PhysicsParams, grid: LayerGrid, streams,
                       out_stride: int = 1, nsteps: int = None,
                       out_offset=None, n_out: int = None, slim_trf=None,
                       aux_rows=None, aux_cofs: bool = False,
-                      t_total: int = None, cof_red: float = None):
+                      t_total: int = None, cof_red: float = None, out=None):
     """K4: one host call (``roadsurf_scan_sharded`` of csrc/scan_kernel.cu)
     that launches the kernel once per block of points, block ``b`` on
     ``streams[b]``, a ``torch.cuda.Stream`` of the device its tensors lie on.
@@ -951,10 +978,11 @@ def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
     :func:`scan_cuda` takes it (a fused chunk in place of every forcing
     tensor runs K3 fused on each block); the other arguments are the same
     for every block.  The results of block ``b`` are allocated on
-    ``streams[b]`` and ordered after its launch there: the caller issues a
-    block's other work on the same stream, or orders it against that stream
-    itself.  Does not synchronise; raises if any launch is refused.
-    Returns a list of (tmp, scal, out) per block."""
+    ``streams[b]`` (or are ``out[b]``, the caller's (tmp, scal, rows),
+    checked by :func:`check_out`) and ordered after its launch there: the
+    caller issues a block's other work on the same stream, or orders it
+    against that stream itself.  Does not synchronise; raises if any launch
+    is refused.  Returns a list of (tmp, scal, out) per block."""
     global LAUNCHES_SHARDED
     from . import build
 
@@ -983,13 +1011,20 @@ def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
             raise ValueError(f"block {b} on {tmp0[b].device}, its stream on "
                              f"{streams[b].device}")
     consts = make_consts(cfg, p, grid, lpad, int(out_stride), n_rows)
-    results = []
-    for b in range(n):
-        with torch.cuda.stream(streams[b]):
-            results.append((
-                torch.empty_like(tmp0[b]), torch.empty_like(scal0[b]),
-                torch.empty((n_rows, N_OUT_FIELDS, geo[b][1]),
-                            dtype=torch.float32, device=tmp0[b].device)))
+    if out is not None:
+        check_out(out, tmp0, scal0,
+                  [(t.shape, s.shape, (n_rows, N_OUT_FIELDS, g[1]))
+                   for t, s, g in zip(tmp0, scal0, geo)])
+        results = [tuple(o) for o in out]
+    else:
+        results = []
+        for b in range(n):
+            with torch.cuda.stream(streams[b]):
+                results.append((
+                    torch.empty_like(tmp0[b]), torch.empty_like(scal0[b]),
+                    torch.empty((n_rows, N_OUT_FIELDS, geo[b][1]),
+                                dtype=torch.float32,
+                                device=tmp0[b].device)))
     ptrs = lambda xs: (ctypes.c_void_p * n)(*(x.data_ptr() for x in xs))
     ints = lambda xs: (ctypes.c_int * n)(*xs)
     null = (ctypes.c_void_p * n)()

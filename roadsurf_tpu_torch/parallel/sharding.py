@@ -243,7 +243,8 @@ def scan_sharded(tmp0, scal0, forcing, cfg, params, grid, devices=None,
                  out_offset=None, n_out: Optional[int] = None,
                  t_total: Optional[int] = None,
                  cof_red: Optional[float] = None, slim_trf=None,
-                 aux_rows=None, aux_cofs: bool = False, fence: bool = True):
+                 aux_rows=None, aux_cofs: bool = False, fence: bool = True,
+                 out=None):
     """The whole-scan kernel over the point blocks of a device list (K4,
     sharding.py:73 ``pallas_scan_sharded``): every block's chunk goes
     through one sharded launch, nothing is exchanged between blocks.
@@ -266,13 +267,17 @@ def scan_sharded(tmp0, scal0, forcing, cfg, params, grid, devices=None,
     the current stream need order nothing; a caller that issues each
     block's work inside ``DeviceBlocks.scope`` passes ``fence=False``.
 
+    ``out``: optional per-block (tmp, scal, rows) tensors the results are
+    written into (``ops.scan_kernel.check_out``), for a caller that keeps
+    two sets a block and alternates them; None allocates new ones.
+
     Returns a list of (tmp [LPAD, P_b], scal [NROWS, P_b],
     out [n_out, N_OUT_FIELDS, P_b]) per block."""
     mesh = make_mesh(devices)
     _check_blocks(tmp0, forcing, mesh)
     kw = dict(out_stride=out_stride, nsteps=nsteps, out_offset=out_offset,
               n_out=n_out, slim_trf=slim_trf, aux_rows=aux_rows,
-              aux_cofs=aux_cofs, t_total=t_total, cof_red=cof_red)
+              aux_cofs=aux_cofs, t_total=t_total, cof_red=cof_red, out=out)
     kinds = {d.type for d in mesh.devices}
     if kinds == {"cpu"}:
         return scan_sharded_reference(tmp0, scal0, forcing, cfg, params,
@@ -303,17 +308,25 @@ def scan_sharded_reference(tmp0, scal0, forcing, cfg, params, grid,
                            n_out: Optional[int] = None, slim_trf=None,
                            aux_rows=None, aux_cofs: bool = False,
                            t_total: Optional[int] = None,
-                           cof_red: Optional[float] = None):
+                           cof_red: Optional[float] = None, out=None):
     """The plain version of :func:`scan_sharded`: ``scan_reference`` on one
-    block after the other, on whatever device each lies."""
+    block after the other, on whatever device each lies; with ``out`` the
+    results are copied into it."""
     slim = aux_rows is not None
-    return [(sk.scan_fused_reference if sk.is_fused(forcing[b])
-             else sk.scan_reference)(
+    res = [(sk.scan_fused_reference if sk.is_fused(forcing[b])
+            else sk.scan_reference)(
         tmp0[b], scal0[b], forcing[b], cfg, params, grid,
         out_stride=out_stride, nsteps=nsteps, out_offset=out_offset,
         n_out=n_out, slim_trf=slim_trf[b] if slim else None,
         aux_rows=aux_rows[b] if slim else None, aux_cofs=aux_cofs,
         t_total=t_total, cof_red=cof_red) for b in range(len(tmp0))]
+    if out is None:
+        return res
+    sk.check_out(out, tmp0, scal0, [[x.shape for x in r] for r in res])
+    for o, r in zip(out, res):
+        for x, y in zip(o, r):
+            x.copy_(y)
+    return [tuple(o) for o in out]
 
 
 def gather_blocks(blocks, axis: int = -1, device="cpu"):

@@ -49,10 +49,14 @@ operational path is an async thread-pool runner over the full data plane
    coupling window (phase B) with the iteration-major engine of
    ``coupling.py`` in plain torch on the device.
 
-``_Blocks.stream`` is a plain loop: per chunk the host issues every block's
-forcing on the block's stream, launches all blocks in one call, then drains
-each block's rows (the device-to-host copy synchronises that block's
-stream); the JAX engine's two-deep pipelined dispatch is not ported yet.
+``_Blocks.stream`` pipelines its dispatch ``PIPELINE_DEPTH`` (two) deep, as
+the JAX engine does: per chunk the host issues every block's forcing on the
+block's stream, launches all blocks in one call into one of two alternating
+output sets, and queues each block's rows for the host (put in the caller's
+order on the device, then copied on the block's copy stream into a pinned
+staging buffer); only then does it drain the chunk before, waiting on that
+chunk's copy events alone and copying its rows to their place among the
+run's output steps while the card runs the chunk just issued.
 Across processes (``parallel/distributed.py``) each process runs the blocks
 of its own point range and drains only them (``drain="shard"``); no tensor
 crosses between processes.
@@ -123,6 +127,12 @@ def tile_geometry(n_points: int, ndev: int = 1):
 CHUNK_TARGET_POINT_STEPS = 128 * 1048576
 CHUNK_FLOOR = 64
 CHUNK_CAP = 1024
+
+#: chunks in flight in ``_Blocks.stream``: chunk k is issued before chunk
+#: k-1 is drained (production.py:1826-1856 waits on chunk k-2 the same
+#: way); 1 drains each chunk before the next is issued.  Both give the same
+#: bits: only the order of the host's work changes.
+PIPELINE_DEPTH = 2
 
 
 def auto_chunk_t(n_points: int) -> int:
@@ -350,6 +360,11 @@ class StationExpander:
         self.prep_data = {
             "stf": stf, "rhz": fin(prep.rhz), "trf": trf.contiguous(),
             "sidx": torch.tensor(np.where(ok, st_idx, S).astype(np.int64),
+                                 device=dev),
+            # K2's channels of stf, an index on the device: indexing with a
+            # Python list would copy it to the card and wait for the
+            # stream in every chunk
+            "slim": torch.tensor(sk.SLIM_CHANNELS, dtype=torch.int64,
                                  device=dev)}
 
     @property
@@ -371,7 +386,7 @@ class StationExpander:
             rep = {"channels": RawForcing(*(mv(x) for x in self.channels))}
             if self.prep_data is not None:
                 rep["prep"] = {k: mv(self.prep_data[k])
-                               for k in ("stf", "rhz", "trf")}
+                               for k in ("stf", "rhz", "trf", "slim")}
             self._replicas[key] = rep
         return self._replicas[key]
 
@@ -458,7 +473,7 @@ class StationExpander:
         coupling obs from its aux rows (production.py:537-557, whose
         one-hot expansion this gather replaces)."""
         pd = self.prep_data
-        sl = pd["stf"][t0:t0 + tc][:, list(sk.SLIM_CHANNELS)]
+        sl = pd["stf"][t0:t0 + tc].index_select(1, pd["slim"])
         return sl.index_select(2, pd["sidx"])
 
     def prepared_window(self, t0: int, tc: int) -> Prepared:
@@ -1489,6 +1504,14 @@ class _Engine:
         back into the caller's."""
         return x if self.inv is None else x.index_select(dim, self.inv)
 
+    def rows_to_caller(self, rows, n_rows: int):
+        """Output rows ``rows[:n_rows, :6]`` ([k, F, P]) in the caller's
+        point order as a tensor of their own, contiguous: the drain copies
+        it to the host while the launches write ``rows`` again."""
+        x = rows[:n_rows, :6]
+        return (x.index_select(2, self.inv) if self.inv is not None
+                else x.clone(memory_format=torch.contiguous_format))
+
     def _check_fast_contract(self, expander, pts):
         """The station-level fast path is only valid when every per-point
         prep parameter equals its station's (param i == st_pts[st_idx[i]],
@@ -1640,7 +1663,7 @@ class _Blocks:
     process's devices, every chunk of every block through ONE sharded
     launch (K4, ``parallel.sharding.scan_sharded``), each block's work
     issued on its own stream, each block's output rows drained to the
-    host.
+    host through its copy stream, ``PIPELINE_DEPTH`` chunks in flight.
 
     The points are padded to ``padded_points(n_real, blocks of all
     processes)`` and cut into equal contiguous blocks; process ``i`` of
@@ -1695,6 +1718,13 @@ class _Blocks:
             self.engines.append(eng)
             self.ranges.append((lo, lo + per))
         self.os_ = self.engines[0].os_
+        # the drain's state of each block: its two output sets (made at the
+        # first launch), a copy stream on the card, a ring of staging
+        # buffers keyed by (block, slot)
+        self._outs = [None] * ndev
+        self._copy = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                      else None for d in mesh.devices]
+        self._stage, self._n_queued = {}, 0
         # blocks issue on their own streams: order them after the set-up
         for d in {d for d in mesh.devices if d.type == "cuda"}:
             torch.cuda.synchronize(d)
@@ -1716,72 +1746,181 @@ class _Blocks:
     def synchronize(self):
         self.mesh.synchronize()
 
-    def _pull(self, blocks, n_rows: int) -> list:
-        """Output rows [k, 6, P_b] of every block -> one [n_rows, 6, P_b]
-        numpy array for each block on the host: this process's columns
-        only (production.py:1858-1868; both drain modes pull the same in
-        one process, and a run of several processes has only ``shard``).
-        ``assemble`` joins them once, at the end of the run.  A block in
-        station order is put back into the caller's on its device first."""
-        # each copy is issued on, and waits for, its block's own stream
-        return [eng.to_caller(blocks[b][:n_rows], 2).cpu().numpy()
-                for b, eng in self.scopes()]
-
-    def stream(self, carry, t_lo: int, t_hi: int, cofs=None,
-               progress: Optional[Progress] = None, collected=None):
-        """Stream global forcing rows [t_lo, t_hi) through the kernel, chunk
-        by chunk (production.py:1826-1856, without the two-deep
-        pipelining): each block's forcing is issued on its stream, all
-        blocks launch in one sharded call, then each block's output rows
-        are drained to the host.  ``carry``: [(tmp, scal)] per block;
-        ``cofs``: optional [(sw_corr, lw_corr)] per block, [P_b] tensors
-        enabling the post-window coefficient decay.  Returns (carry,
-        collected) with collected = [(steps, [one [k, 6, P_b] numpy for
-        each block])], appended to ``collected`` when given."""
-        from .parallel import sharding
-        collected = collected if collected is not None else []
-        model = self.model
+    def chunks(self, t_lo: int, t_hi: int):
+        """[(t0, steps, output steps)] of a stream over global steps
+        [t_lo, t_hi), at the global-offset output cadence (production.py:
+        1844-1846)."""
+        grid = []
         for t0 in range(t_lo, t_hi, self.chunk_t):
-            nsteps_c = min(self.chunk_t, t_hi - t0)
-            # the global-offset output cadence (production.py:1844-1846)
+            nsteps = min(self.chunk_t, t_hi - t0)
             first_hit = -(-t0 // self.os_) * self.os_
-            steps = list(range(first_hit, t0 + nsteps_c, self.os_))
-            inputs = [eng.kernel_inputs(t0, cofs[b] if cofs else None)
-                      for b, eng in self.scopes()]
-            forc, kws = [i[0] for i in inputs], [i[1] for i in inputs]
-            kw = dict(kws[0])
-            for name in ("slim_trf", "aux_rows"):
-                if name in kw:
-                    kw[name] = [k[name] for k in kws]
-            res = sharding.scan_sharded(
-                [c[0] for c in carry], [c[1] for c in carry], forc,
-                model.cfg, model.params, model.grid, self.mesh, fence=False,
-                **self.engines[0].scan_kwargs(t0, nsteps_c), **kw)
-            carry = [(r[0], r[1]) for r in res]
-            if steps:
-                collected.append(
-                    (steps, self._pull([r[2][:, :6] for r in res],
-                                       len(steps))))
+            grid.append((t0, nsteps,
+                         list(range(first_hit, t0 + nsteps, self.os_))))
+        return grid
+
+    def row_plan(self, t_lo: int, t_hi: int) -> list:
+        """The output steps of each drain of a stream over [t_lo, t_hi)
+        that holds any (``_HostRows``' plan)."""
+        return [s for _, _, s in self.chunks(t_lo, t_hi) if s]
+
+    def _out_set(self, b: int, eng, tmp):
+        """Block ``b``'s output set (tmp, scal, rows) for a launch that
+        reads the profile ``tmp``: the block keeps two and the launches
+        alternate between them (the kernel reads tmp0 and writes tmp, so
+        they cannot be one).  Made on the block's stream at first use."""
+        if self._outs[b] is None:
+            self._outs[b] = [(
+                torch.empty_like(eng.tmp0), torch.empty_like(eng.scal0),
+                torch.empty((eng.k_alloc, sk.N_OUT_FIELDS, eng.P_pad),
+                            dtype=torch.float32, device=eng.device))
+                for _ in range(2)]
+        first, second = self._outs[b]
+        return second if first[0] is tmp else first
+
+    def _staging(self, b: int, slot: int, shape):
+        """A host buffer of ``shape`` from block ``b``'s ring (pinned where
+        the block is on the card), grown where it is too small."""
+        need = int(np.prod(shape))
+        buf = self._stage.get((b, slot))
+        if buf is None or buf.numel() < need:
+            buf = torch.empty(need, dtype=torch.float32,
+                              pin_memory=self._copy[b] is not None)
+            self._stage[(b, slot)] = buf
+        return buf[:need].view(shape)
+
+    def _queue(self, rows, n_rows: int, out: "_HostRows", k):
+        """Queue the output rows ``rows[b][:n_rows]`` of every block for the
+        host as drain ``k`` of ``out`` (None: the chunk has no output row).
+        Each block's rows are put in the caller's order on its device and
+        copied into a staging buffer of the ring: on the card
+        ``non_blocking`` on the block's copy stream, ordered after the launch
+        by an event, the copied tensor recorded on the copy stream so the
+        allocator keeps it until the copy has read it; on the CPU at once.
+        A block with nothing to copy records an event on its stream, the
+        drain's back-pressure (production.py:1840).  Returns the pending
+        item: (k, [(staged rows or None, event or None)] per block)."""
+        slot = self._n_queued % PIPELINE_DEPTH
+        self._n_queued += 1
+        staged = []
+        for b, eng in self.scopes():
+            cs = self._copy[b]
+            ev = torch.cuda.Event() if cs is not None else None
+            if k is None or out.cols[b][1] == 0:
+                if ev is not None:
+                    ev.record()
+                staged.append((None, ev))
+                continue
+            src = eng.rows_to_caller(rows[b], n_rows)
+            buf = self._staging(b, slot, src.shape)
+            if cs is None:
+                buf.copy_(src)
             else:
-                self.synchronize()
-            # nothing of this chunk outlives it: the next chunk's forcing
-            # is built in the room this one's leaves
-            del inputs, forc, kws, kw, res
+                ev.record()
+                cs.wait_event(ev)
+                with torch.cuda.stream(cs):
+                    buf.copy_(src, non_blocking=True)
+                src.record_stream(cs)
+                ev = torch.cuda.Event()
+                ev.record(cs)
+            staged.append((buf, ev))
+        return k, staged
+
+    def _drain(self, item, out: "_HostRows"):
+        """Wait for a queued item's events, one block after the other, and
+        copy each block's staged rows to their place in ``out``."""
+        k, staged = item
+        for b, (buf, ev) in enumerate(staged):
+            t0 = timelib.perf_counter()
+            if ev is not None:
+                ev.synchronize()
+            t1 = timelib.perf_counter()
+            if buf is not None:
+                out.put(k, b, buf)
+            self.metrics.add("stream_wait_s", t1 - t0)
+            self.metrics.add("stream_rows_s", timelib.perf_counter() - t1)
+        if k is not None:
+            out.done += 1
+
+    def drain_rows(self, rows, n_rows: int, out: "_HostRows", steps):
+        """Drain the output rows ``rows[b][:n_rows]`` of every block (phase
+        B's) to their steps in ``out`` now, through the stream's path."""
+        self._drain(self._queue(rows, n_rows, out, out.claim(steps)), out)
+
+    def _issue(self, carry, t0: int, nsteps: int, steps, out: "_HostRows",
+               cofs):
+        """Issue the chunk at global step t0 on every block: its forcing on
+        the block's stream, one sharded launch into the blocks' alternate
+        output sets, its rows queued for the host.  Returns (the carry
+        after the chunk, the pending item of ``_queue``)."""
+        from .parallel import sharding
+        t_issue = timelib.perf_counter()
+        model = self.model
+        inputs = [eng.kernel_inputs(t0, cofs[b] if cofs else None)
+                  for b, eng in self.scopes()]
+        forc, kws = [i[0] for i in inputs], [i[1] for i in inputs]
+        kw = dict(kws[0])
+        for name in ("slim_trf", "aux_rows"):
+            if name in kw:
+                kw[name] = [k[name] for k in kws]
+        outs = [self._out_set(b, eng, carry[b][0])
+                for b, eng in self.scopes()]
+        res = sharding.scan_sharded(
+            [c[0] for c in carry], [c[1] for c in carry], forc, model.cfg,
+            model.params, model.grid, self.mesh, fence=False, out=outs,
+            **self.engines[0].scan_kwargs(t0, nsteps), **kw)
+        # the chunk's forcing goes as soon as its launch is issued: it was
+        # made on each block's stream, which reuses the room only after the
+        # launch
+        del inputs, forc, kws, kw
+        item = self._queue([r[2] for r in res], len(steps), out,
+                           out.claim(steps) if steps else None)
+        self.metrics.add("stream_issue_s", timelib.perf_counter() - t_issue)
+        self.metrics.add("stream_chunks", 1)
+        return [(r[0], r[1]) for r in res], item
+
+    def stream(self, carry, t_lo: int, t_hi: int, out: "_HostRows",
+               cofs=None, progress: Optional[Progress] = None):
+        """Stream global forcing rows [t_lo, t_hi) through the kernel with
+        ``PIPELINE_DEPTH``-deep pipelined dispatch (production.py:
+        1826-1856): for each chunk the host issues every block's forcing on
+        its stream, launches all blocks in one sharded call into their
+        alternate output sets and queues their rows (``_queue``); only then
+        does it drain the chunk issued ``PIPELINE_DEPTH - 1`` before, its
+        rows landing in ``out`` while the card runs the later chunks.  Every
+        chunk is drained when it returns.  ``carry``: [(tmp, scal)] per
+        block; ``cofs``: optional [(sw_corr, lw_corr)] per block, [P_b]
+        tensors enabling the post-window coefficient decay.  Returns the
+        carry."""
+        pending = []
+        for t0, nsteps_c, steps in self.chunks(t_lo, t_hi):
+            carry, item = self._issue(carry, t0, nsteps_c, steps, out, cofs)
+            pending.append((item, nsteps_c))
+            while len(pending) >= PIPELINE_DEPTH:
+                item, n = pending.pop(0)
+                self._drain(item, out)
+                if progress:
+                    progress.update(n)
+        for item, n in pending:
+            self._drain(item, out)
             if progress:
-                progress.update(nsteps_c)
-        return carry, collected
+                progress.update(n)
+        return carry
 
     def run_uncoupled(self, progress: Optional[Progress] = None):
         """Stream every step [0, T) and assemble the result."""
+        out = _HostRows(self.row_plan(0, self.T), self.ranges, self.n_real)
         with self.metrics.phase("stream"):
             t_start = timelib.perf_counter()
-            carry, collected = self.stream(self.carry0(), 0, self.T,
-                                           progress=progress)
+            carry = self.stream(self.carry0(), 0, self.T, out,
+                                progress=progress)
             self.synchronize()
             wall = timelib.perf_counter() - t_start
-        return self.assemble(collected, carry, wall)
+        return self.assemble(out, carry, wall)
 
-    def assemble(self, collected, carry, wall: float) -> ProductionResult:
+    def assemble(self, out: "_HostRows", carry, wall: float
+                 ) -> ProductionResult:
+        """The result: the final state on the host, the counters, and the
+        output rows the stream has already put in step order."""
         with self.metrics.phase("output"):
             # a padding-only range (every point >= n_real) anchors its
             # empty range at n_real, so the ranges of all processes still
@@ -1806,34 +1945,68 @@ class _Blocks:
             self.metrics.count("points", n_loc)
             self.metrics.count("steps", self.T)
             self.metrics.count("blocks", len(self))
+            self.metrics.count("pipeline_depth", PIPELINE_DEPTH)
             for d in sorted({d for d in self.mesh.devices
                              if d.type == "cuda"}, key=str):
                 self.metrics.count(f"peak_device_bytes_{d}",
                                    torch.cuda.max_memory_allocated(d))
-
-            # every block's rows of every chunk go straight to their place
-            # among the steps in order: one copy of the output
-            all_steps = np.concatenate(
-                [np.asarray(s, np.int64) for s, _ in collected]) \
-                if collected else np.zeros(0, np.int64)
-            order = np.argsort(all_steps, kind="stable")
-            dest = np.empty_like(order)
-            dest[order] = np.arange(len(order))
-            stacked = np.empty((len(all_steps), 6, n_loc), np.float32)
-            row = 0
-            for steps, parts in collected:
-                rows = dest[row:row + len(steps)]
-                row += len(steps)
-                for (b_lo, b_hi), part in zip(self.ranges, parts):
-                    n_b = min(b_hi, self.n_real) - b_lo
-                    if n_b > 0:
-                        stacked[rows, :, b_lo - lo:b_lo - lo + n_b] = \
-                            part[:, :, :n_b]
-            fields = {name: stacked[:, r]
-                      for name, r in OUT_FIELD_ROWS.items()}
-        return ProductionResult(state=final, out_steps=all_steps[order],
-                                fields=fields, point_steps_per_s=rate,
+        return ProductionResult(state=final, out_steps=out.steps,
+                                fields=out.fields(), point_steps_per_s=rate,
                                 point_range=(lo_eff, lo_eff + n_loc))
+
+
+class _HostRows:
+    """The output rows of a run on the host, [n_rows, 6, n_loc] in step
+    order, this process's columns only, filled as each drain lands (the
+    reference writes disjoint rows into one shared object the same way,
+    examples/example2/src/QueryDataTools.cpp:299-345).  ``plan`` lists the
+    steps of every drain of the run in the order the drains come (each
+    chunk that holds an output step, phase B's rows), which is step order,
+    so each drain's destination rows are known before the stream starts;
+    ``claim`` hands out the next drain's index, ``put`` copies one block's
+    rows of it."""
+
+    def __init__(self, plan, ranges, n_real: int):
+        lo = ranges[0][0]
+        n_loc = max(0, min(ranges[-1][1], n_real) - lo)
+        self.plan = [list(s) for s in plan]
+        self.steps = np.asarray([s for steps in self.plan for s in steps],
+                                np.int64)
+        if np.any(np.diff(self.steps) <= 0):
+            raise ValueError("the drains' steps are not in step order")
+        cuts = np.cumsum([0] + [len(s) for s in self.plan])
+        self.dest = [slice(a, b) for a, b in zip(cuts[:-1], cuts[1:])]
+        # a torch tensor: its copies run on torch's intra-op threads (the
+        # first touch of each page is most of their time)
+        self.rows = torch.empty((len(self.steps), 6, n_loc),
+                                dtype=torch.float32)
+        #: each block's first column here and its count of real points
+        self.cols = [(b_lo - lo, max(0, min(b_hi, n_real) - b_lo))
+                     for b_lo, b_hi in ranges]
+        self.claimed = self.done = 0
+
+    def claim(self, steps) -> int:
+        """The index of the next drain, which must hold ``steps``."""
+        k = self.claimed
+        if k >= len(self.plan) or list(steps) != self.plan[k]:
+            raise RuntimeError(f"drain {k} holds steps {list(steps)}, the "
+                               f"run's plan {self.plan[k:k + 1]}")
+        self.claimed += 1
+        return k
+
+    def put(self, k: int, b: int, part: torch.Tensor):
+        """Block ``b``'s rows [n, 6, P_b] (a host tensor) of drain ``k``
+        into place."""
+        c0, n_b = self.cols[b]
+        self.rows[self.dest[k], :, c0:c0 + n_b].copy_(part[:, :, :n_b])
+
+    def fields(self) -> dict:
+        """{field: [n_rows, n_loc]} views, once every drain has landed."""
+        if self.done != len(self.plan):
+            raise RuntimeError(f"{self.done} of {len(self.plan)} drains "
+                               f"landed")
+        return {name: self.rows[:, r].numpy()
+                for name, r in OUT_FIELD_ROWS.items()}
 
 
 def run_production(model: Model, expander,
@@ -1958,24 +2131,30 @@ def run_production_coupled(model: Model, expander,
                 res.out.permute(0, 2, 1).to(torch.float32), res.reruns,
                 res.rows)
 
+    # phase A's chunks, phase B's rows, phase C's chunks: the drains' order
+    plan_b = [list(rows_b)] if len(rows_b) else []
+    out = _HostRows(run.row_plan(0, ws - 1) + plan_b + run.row_plan(we_b, T),
+                    run.ranges, run.n_real)
     with run.metrics.phase("stream"):
         t_start = timelib.perf_counter()
         with run.metrics.phase("phase_a"):
-            carry, col = run.stream(run.carry0(), 0, ws - 1,
-                                    progress=progress)
+            # drains every chunk before it returns: phase B reads the carry
+            carry = run.stream(run.carry0(), 0, ws - 1, out,
+                               progress=progress)
         with run.metrics.phase("phase_b"):
             done = [phase_b(eng, *carry[b]) for b, eng in run.scopes()]
             carry = [d[0] for d in done]
             cvs = [d[1] for d in done]
             if len(rows_b):
-                col.append((list(rows_b),
-                            run._pull([d[2] for d in done], len(rows_b))))
+                run.drain_rows([d[2] for d in done], len(rows_b), out,
+                               rows_b)
             if progress:
                 progress.update(W)
         with run.metrics.phase("phase_c"):
-            carry, col = run.stream(
-                carry, we_b, T, cofs=[(cv.sw_corr, cv.lw_corr) for cv in cvs],
-                progress=progress, collected=col)
+            carry = run.stream(
+                carry, we_b, T, out,
+                cofs=[(cv.sw_corr, cv.lw_corr) for cv in cvs],
+                progress=progress)
             run.synchronize()
         wall = timelib.perf_counter() - t_start
     n_cpl = n_failed = 0
@@ -1993,4 +2172,4 @@ def run_production_coupled(model: Model, expander,
     run.metrics.count("coupling_points", n_cpl)
     run.metrics.count("coupling_failed", n_failed)
     run.metrics.count("coupling_succeeded", n_cpl - n_failed)
-    return run.assemble(col, carry, wall)
+    return run.assemble(out, carry, wall)
