@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: builds the
 hand-written scan kernel (K1, point-major; K2, slim; K3, tile-major; K3
 fused, tile-major with the forcing prepared in the kernel from the raw
-series: modes of one source) and its sharded launch (K4) from this
-checkout, holds each
+series: modes of one source), its sharded launch (K4) and the coupling
+window kernel (K5, phase B of the coupled run) from this checkout, holds
+each
 against its plain torch version, drives the station-fed production forecast
 end to end at 1,048,576 points x 8,881 steps (the operational 74-hour run
 at dt 30 s), uncoupled and observation-coupled, and the NWP-grid and
@@ -13,6 +14,8 @@ JSON summary.
 
     python3 chip_smoke.py            # every phase (one card)
     python3 chip_smoke.py 3c 4c      # only the named phases, no summary
+    python3 chip_smoke.py 3w 9d      # K5 alone, and the shipped coupled
+                                     # example1 config through the CLI
     python3 chip_smoke.py 3d 8 8b    # the sharded launch and paths alone
     python3 chip_smoke.py 3e --variant old=build/old/scan_kernel.cu
                                      # another source of the kernel beside
@@ -62,10 +65,23 @@ the plain version):
  6. the coupled main path at full size: phase 5's stations and points with
     relaxation and a 180-minute coupling window ending in the last 20
     minutes of a 24 h analysis, every 7th station without obs:
-    run_production_coupled (phase A and C through K2, phase B in torch on
-    the card), with a 64-point sample of coupled points re-run through
-    Model.run_coupled on the host in float32 and float64 under the same
-    bound;
+    run_production_coupled (phase A and C through K2, phase B through K5,
+    its seconds, the steps of its slowest lane and K5's launches printed;
+    K5 timed again on the run's own window inputs, and its plain version
+    run on the first 65,536 points of them, against the run's own K5
+    results and the new launch's, bit for bit), with a 64-point
+    sample of coupled points re-run through Model.run_coupled on the host
+    in float32 and float64 under the same bound;
+ 3w. K5 against window_reference on the card, bit for bit with equal
+    failed masks: 65,536 points in station order over a 240-step run,
+    60-step windows ending at staggered steps (every 5th at the last), obs
+    below the air temperature so the control iterates, every 7th point
+    without obs; output strides 1 and 7, with and without the output
+    depth, on the station table and on the identity table (equal bit for
+    bit); then K5 against the eager run_window_passes on the same card
+    and inputs (max |err|, the points whose re-run count differs, bitwise
+    or not); the steps of a lane and of its warp (the divergence factor);
+    K5 and its plain version timed, with K5's bound;
  3c. K3 against its plain version and against K1 / K2 on the same values,
     bit for bit, at tile widths 128, 1024 and 8192: 65,536 points x 128
     steps, both channel sets, with and without the decay, on an offset
@@ -105,7 +121,13 @@ the plain version):
     U(0, 25) degree horizons on every third point, at the same size and
     under the same bounds, after its 1,048,576 x 64 chunk is held and timed
     as phase 7's in 3c; the float32 sample's tsurf error against float64
-    is printed (the sun's time terms from the float64 Julian day).
+    is printed (the sun's time terms from the float64 Julian day);
+ 7w. phase 7's grid coupled at full size (180-minute windows ending in
+    the last 20 minutes of a 24 h analysis, obs below the grid's air
+    temperature, every 7th point without): phase B's table is the points'
+    prepared window (about 27 GB), run over the point slices of the
+    default 4 GB budget and in one launch, bit for bit, each run's phase
+    seconds, K5 launches and peak memory printed.
 
  3d. K4 against its plain version and against one launch: the offset chunk
     of phases 3b/3c (65,536 points x 128 steps) for K1, K2 with the decay
@@ -134,8 +156,8 @@ the plain version):
     run, bit for bit over every output row and the final
     state (the station one also against phase 5's station-order caller,
     mapped); phase 4b's coupled station case at 4 blocks against 1, bit for
-    bit; stream seconds, point-steps/s, launches and peak memory per device
-    are printed;
+    bit (phase B through K5 on each block); stream seconds, point-steps/s,
+    launches and peak memory per device are printed;
  8b. two processes on the card: the script starts itself twice as a worker
     (rendezvous on 127.0.0.1, the gloo backend); each takes its
     host_point_range of the station cell at 1,048,576 points x 961 steps,
@@ -169,7 +191,15 @@ the plain version):
     5e-3 with equal failed masks (example1 in stations mode with sky view,
     relaxation and coupling; example2 uncoupled and coupled), the JSON,
     npz and checkpoint files read back, a warm-start cycle, and python -m
-    roadsurf_tpu_torch.runner in a process of its own.
+    roadsurf_tpu_torch.runner in a process of its own;
+ 9d. (with 9, or named alone) 9a's inputs and raster under
+    examples/example1/example_config.json as shipped (coupling and
+    relaxation on, the 180-minute window; no sky-view files, keyed by
+    station id), 1,048,576 points x 8,881 steps through K2, K5 and K4 at
+    PIPELINE_DEPTH 2: the runner phases, phase B's seconds, time to first
+    chunk, peak memory; its outputs and final state against the
+    library-level run_production_coupled called on the arguments the
+    runner handed it, bit for bit; a 64-point sample as 9a's.
 
 ``--variant LABEL=PATH`` (repeatable) builds another source of the kernel
 (an earlier copy, or an edited one, put under the gitignored build/) into a
@@ -178,8 +208,8 @@ this build bit for bit and times it in the same turns.
 
 Every run_production launch goes through K4 (one sharded launch a chunk,
 whatever the number of blocks), so K4's launches are counted over every
-main-path run.  Phases run in the order 1, 2, 3, 3e, 3b, 3d, 4, 4b, 5, 6,
-7 (with 3c before its run), 4c, 7b, 8, (9t,) 8b, 9.  The 64-point sample
+main-path run.  Phases run in the order 1, 2, 3, 3e, 3b, 3w, 3d, 4, 4b,
+5, 6, 7 (with 3c before its run), 4c, 7b, 8, (9t,) 8b, 9 (9d first).  The 64-point sample
 re-runs of phases 5, 6, 7 and 7b are plain torch on the host, phase 9's
 the scan engine on the card: each starts in worker processes when its
 full-size run ends, runs beside the phases that follow, and is checked at
@@ -224,6 +254,8 @@ from roadsurf_tpu_torch.model import Model  # noqa: E402
 from roadsurf_tpu_torch.observability import Progress, RunMetrics  # noqa: E402
 from roadsurf_tpu_torch.ops import build  # noqa: E402
 from roadsurf_tpu_torch.ops import scan_kernel as sk  # noqa: E402
+from roadsurf_tpu_torch.ops import window_kernel as wk  # noqa: E402
+from roadsurf_tpu_torch import coupling  # noqa: E402
 from roadsurf_tpu_torch import production, runner  # noqa: E402
 from roadsurf_tpu_torch.io import writer  # noqa: E402
 from roadsurf_tpu_torch.parallel import distributed, sharding  # noqa: E402
@@ -290,6 +322,23 @@ def reset_counts():
     """Every launch count to 0, just before a main-path run."""
     sk.LAUNCHES = sk.LAUNCHES_SLIM = sk.LAUNCHES_TM = 0
     sk.LAUNCHES_TM_FUSED = sk.LAUNCHES_SHARDED = 0
+    wk.LAUNCHES = 0
+
+
+#: K5's launches of the main-path runs (phase 6 and 9d), summed as each run
+#: is read
+MAIN_PATH_K5 = [0]
+
+
+def read_window_count(main_path=False):
+    """K5's launches since reset_counts, just after a coupled run; it fails
+    where the run launched none.  ``main_path``: add them to
+    MAIN_PATH_K5."""
+    n = wk.LAUNCHES
+    assert n > 0, "the coupled run launched no window kernel (K5)"
+    if main_path:
+        MAIN_PATH_K5[0] += n
+    return n
 
 
 def read_counts(n_chunks=None):
@@ -818,16 +867,17 @@ def phase_kernel_slim_chunk(cfg6):
 # ---------------------------------------------------------------------------
 
 def kernel_label(mangled):
-    """``scan_kernel<LM, DEPTH, SLIM, FUSED>`` of a mangled instantiation
-    name (three arguments for a source from before K3 fused)."""
-    m = re.search(r"scan_kernelILi(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?",
-                  mangled)
+    """``scan_kernel<LM, DEPTH, SLIM, FUSED>`` or ``window_kernel<LM,
+    DEPTH>`` of a mangled instantiation name (three arguments for a scan
+    kernel from before K3 fused)."""
+    m = re.search(r"\d+(scan_kernel|window_kernel)I"
+                  r"((?:Li\d+E|Lb[01]E)+)E", mangled)
     if not m:
         return mangled
-    tf = lambda b: "true" if b == "1" else "false"
-    return ("scan_kernel<" + ", ".join(
-        [m.group(1)] + [tf(g) for g in m.groups()[1:] if g is not None])
-        + ">")
+    args = [a[2:] if a.startswith("Li") else
+            ("true" if a == "Lb1" else "false")
+            for a in re.findall(r"(Li\d+|Lb[01])E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def log_build(label, info):
@@ -1002,6 +1052,232 @@ def phase_station_order(cfg, variants=()):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K5, the coupling window (phase 3w)
+# ---------------------------------------------------------------------------
+
+def window_case(depth, npoints=65536, T=240, S=512, wlen=60, seed=19):
+    """Phase 3w's inputs: ``S`` stations' synthetic winter_mix forcing over
+    ``T`` steps, coupling on, relaxation off (with ``depth`` a global
+    output depth, the kernel's DEPTH instantiation); ``npoints`` points in
+    station order (a run's block order), each with its own ``wlen``-step
+    window ending at a step drawn from [150, T-1], every 5th at T-1; the obs
+    target the air temperature at the window end minus U(0.5, 2.5) K, so
+    the control iterates, every 7th point without obs.  The state after
+    phase A comes from K1 on the card; the station-rank prepared channels
+    (init_len 1: no window row forces the obs) hold for every point.
+    Returns the engine, the state after phase A, the window span's
+    arguments and the per-point window inputs."""
+    settings = ModelSettings(
+        sim_len=T, dt=30.0, use_relaxation=False, use_coupling=True,
+        **({"tsurf_output_depth": 0.03} if depth else {}))
+    model = Model(settings, device=DEV)
+    raw_st, cal = synthetic_raw(S, T, dt=30.0, seed=seed,
+                                scenario="winter_mix", dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    st_idx = np.sort(rng.integers(0, S, npoints))
+    end = rng.integers(150, T, npoints)
+    end[::5] = T - 1
+    obs = raw_st.tair[st_idx, end - 1] - rng.uniform(0.5, 2.5, npoints)
+    obs[::7] = -9999.9
+    pts = default_point_params(npoints)._replace(
+        coupling_start=(end - wlen + 1).astype(np.int32),
+        coupling_end=end.astype(np.int32), coupling_tsurf=obs)
+    ctx = {"st_pts": default_point_params(S + 1), "anchors": None,
+           "settings": settings, "params": model.params, "hour": cal.hour,
+           "t_total": T}
+    exp = production.StationExpander(raw_st, st_idx, DEV, chunk_t=T,
+                                     prep_ctx=ctx)
+    first = RawForcing(**{n: exp.first_host[n][:, None]
+                          for n in RawForcing._fields})
+    state0 = model.init(first, cal, dtype=torch.float32, pts=pts)
+    eng = production._Engine(model, exp, default_point_params(npoints), cal,
+                             state0, chunk_t=T)
+    _, (ws, we_b) = coupling.window_span(settings, pts)
+    tmp, scal, _ = sk.scan_cuda(eng.tmp0, eng.scal0, eng.chunk_forcing(0),
+                                model.cfg, model.params, model.grid,
+                                nsteps=ws - 1)
+    on = lambda x, dt: torch.tensor(np.asarray(x), dtype=dt, device=DEV)
+    pts_dev = eng.pts_dev._replace(
+        coupling_start=on(pts.coupling_start, torch.int32),
+        coupling_end=on(pts.coupling_end, torch.int32),
+        coupling_tsurf=on(pts.coupling_tsurf, torch.float32))
+    torch.cuda.synchronize()
+    return dict(model=model, eng=eng, exp=exp, tmp=tmp, scal=scal, ws=ws,
+                we_b=we_b, T=T, pts_dev=pts_dev,
+                wpts=wk.window_points(pts_dev, settings))
+
+
+def window_span_of(c, stride):
+    return wk.WindowSpan(c["ws"], c["we_b"], c["T"], stride,
+                         c["model"].settings.coupling_effect_reduction)
+
+
+def window_args(c, table, span):
+    m = c["model"]
+    return (c["tmp"], c["scal"], *table, c["wpts"], m.cfg, m.params, m.grid,
+            span)
+
+
+def assert_window_bitwise(label, got, want):
+    """Two WindowOut (or their slices), bit for bit (floats by their
+    bits).  Returns the largest |difference| of their float fields, found
+    before the check, with the points whose failed masks (the state's or
+    the control's) or re-run counts differ printed beside it."""
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want)
+              if g.dtype == torch.float32)
+    failed = lambda o: (o.scal[sk.R_FAILED] > 0.5) | o.cv_failed
+    n_failed = int((failed(got) != failed(want)).sum())
+    n_reruns = int((got.reruns != want.reruns).sum())
+    log(f"  {label}: max |err| {err:.3e}, points whose failed masks differ "
+        f"{n_failed}, whose re-run counts differ {n_reruns}")
+    for name, g, w in zip(got._fields, got, want):
+        same = (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                if g.dtype == torch.float32 else torch.equal(g, w))
+        if not same:
+            raise AssertionError(f"{label}: {name} differs")
+    return err
+
+
+def window_part(out, sl):
+    """The points ``sl`` of a WindowOut (the point axis is every field's
+    last)."""
+    return wk.WindowOut(*(x[..., sl] for x in out))
+
+
+def window_stats(steps):
+    """(lane steps, warp steps, slowest lane) of K5's per-point steps: a
+    warp issues 32 x its slowest lane's steps."""
+    lane = int(steps.sum())
+    warp = int(32 * steps.view(-1, 32).amax(dim=1).sum())
+    return lane, warp, int(steps.max())
+
+
+def window_bound(c, span, table, stats, n_points):
+    """(bound_ms, bound_by) of one K5 call: the bytes it must move (the
+    state and the profile read and written once, the snapshot written and
+    read once, the table's ten read channels and the TRF rows read once,
+    the per-point inputs read and results written once, the output rows
+    written once) over the card's HBM rate, against the float32 operations
+    of the steps these inputs take (window_reference's stats: each step's
+    body, its boundary-layer iterations) over its float32 rate."""
+    L = c["model"].grid.nlayers
+    tab = table[0]
+    n_bytes = (4 * n_points * 2 * (L + 3 + sk.R_FAILED + 1)
+               + 4 * n_points * 2 * (L + 3 + len(wk.SNAP_ROWS))
+               + 4 * 10 * tab.shape[0] * tab.shape[2] + 4 * tab.shape[0]
+               + n_points * (4 * 4 + 1) + n_points * (4 * 4 + 1)
+               + 4 * span.n_out * 6 * n_points)
+    n_ops = (stats["point_steps"] * (OPS_STEP + OPS_LAYER * L)
+             + stats["bl_iters"] * OPS_BL_ITER)
+    t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
+    t_ops = 1e3 * n_ops / PEAK_F32_OPS_S
+    log(f"  K5 bound: {n_bytes / 1e9:.4f} GB -> {t_bytes:.4f} ms at 3.35 "
+        f"TB/s; {n_ops / 1e9:.3f} G f32 ops ({stats['point_steps']} steps "
+        f"taken, {stats['bl_iters']} boundary-layer iterations) -> "
+        f"{t_ops:.4f} ms at 67 TFLOP/s")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_window_small():
+    """Phase 3w: K5 against window_reference on the card (65,536 points, a
+    240-step run, 60-step windows ending at staggered steps, some at T-1),
+    bit for bit with equal failed masks, at output strides 1 and 7, with
+    and without the output depth, on the station table and on the identity
+    table (both equal); then K5 against the eager run_window_passes on the
+    same card and inputs; lane and warp steps; K5 and its plain version
+    timed.  Returns {"err", "ms", "plain_ms", "bound"}, "err" the largest
+    max |err| of K5 against its plain version."""
+    res = {"err": 0.0}
+    for depth in (False, True):
+        c = window_case(depth)
+        eng = c["eng"]
+        P = eng.P_pad
+        tab_st = eng.window_table(window_span_of(c, 1), 0, P)
+        eng_id = copy.copy(eng)
+        eng_id.fast = False
+        tab_id = eng_id.window_table(window_span_of(c, 1), 0, P)
+        log(f"  3w case{' with the output depth' if depth else ''}: {P} "
+            f"points, T {c['T']}, window [{c['ws']}, {c['we_b']}], station "
+            f"table {tuple(tab_st[0].shape)}, identity table "
+            f"{tuple(tab_id[0].shape)}")
+        for stride in (1, 7):
+            span = window_span_of(c, stride)
+            got = wk.window_cuda(*window_args(c, tab_st, span))
+            got_id = wk.window_cuda(*window_args(c, tab_id, span))
+            torch.cuda.synchronize()
+            assert_window_bitwise(f"3w K5 station table vs identity table "
+                                  f"(depth {depth}, stride {stride})", got,
+                                  got_id)
+            stats = {}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            want = wk.window_reference(*window_args(c, tab_st, span),
+                                       stats=stats)
+            ev[1].record()
+            torch.cuda.synchronize()
+            res["err"] = max(res["err"], assert_window_bitwise(
+                f"3w K5 vs window_reference (depth {depth}, stride "
+                f"{stride})", got, want))
+            lane, warp, slow = window_stats(got.steps)
+            log(f"  [{card_line()}] 3w depth {depth}, stride {stride}: K5 "
+                f"== window_reference bit for bit (rows, state, "
+                f"corrections, failed masks, re-runs) on both tables; "
+                f"re-runs: most {int(got.reruns.max())}, points re-run "
+                f"{int((got.reruns > 0).sum())}; coupling failed "
+                f"{int(got.cv_failed.sum())}; steps a lane {lane / P:.2f}, "
+                f"issued a lane by its warp {warp / P:.2f} (divergence "
+                f"factor {warp / lane:.3f}), slowest lane {slow}")
+            if not depth and stride == 1:
+                args = window_args(c, tab_st, span)
+                res["ms"] = cuda_ms(lambda: wk.window_cuda(*args), reps=5)
+                # the plain version's one call above, on the card's clock
+                res["plain_ms"] = ev[0].elapsed_time(ev[1])
+                res["bound"] = window_bound(c, span, tab_st, stats, P)
+                log(f"  [{card_line()}] 3w K5 {res['ms']:.3f} ms, plain "
+                    f"version {res['plain_ms']:.1f} ms ({P} points)")
+                # the eager counterpart of the JAX engine on the same card
+                ws, we_b = c["ws"], c["we_b"]
+                t0 = time.perf_counter()
+                st = sk.unpack_state(c["tmp"], c["scal"],
+                                     c["model"].grid.nlayers, eng.template)
+                eager = coupling.run_window_passes(
+                    st, lambda t: c["exp"].prepared_window(t, 64),
+                    c["exp"].prepared_window(ws - 1, we_b - ws + 2).valid,
+                    ws, we_b, c["pts_dev"], c["model"].settings,
+                    c["model"].cfg, c["model"].grid, c["model"].params,
+                    out_stride=1, wchunk=64)
+                torch.cuda.synchronize()
+                t_eager = time.perf_counter() - t0
+                rows_e = eager.out.permute(0, 2, 1)
+                err = float((got.rows - rows_e).abs().max())
+                est = sk.pack_state(eager.state, lpad=c["tmp"].shape[0])
+                err_t = float((got.tmp[:c["model"].grid.nlayers + 2]
+                               - est[0][:c["model"].grid.nlayers + 2])
+                              .abs().max())
+                n_it = int((got.reruns != eager.point_reruns).sum())
+                bitwise = (torch.equal(got.rows, rows_e)
+                           and torch.equal(got.tmp[:c["model"].grid.nlayers
+                                                   + 2],
+                                           est[0][:c["model"].grid.nlayers
+                                                  + 2]))
+                same_failed = torch.equal(got.cv_failed, eager.cv.failed) \
+                    and torch.equal(got.scal[sk.R_FAILED] > 0.5,
+                                    eager.state.failed)
+                log(f"  [{card_line()}] 3w K5 vs the eager "
+                    f"run_window_passes on the card ({t_eager:.1f} s, "
+                    f"{eager.reruns} re-run passes, {eager.rows} rows): "
+                    f"max |err| rows {err:.3e}, profile {err_t:.3e}; points "
+                    f"whose re-run count differs {n_it}; failed masks "
+                    f"{'equal' if same_failed else 'DIFFER'}; "
+                    f"{'bitwise' if bitwise else 'not bitwise'}")
+                assert int(got.reruns.max()) > 0
+            del got, got_id, want
+        del c, tab_st, tab_id, eng, eng_id
+        torch.cuda.empty_cache()
+    return res
+
+
 def _small_station_case(S=64, P=8192, T=97, seed=11):
     """Station-fed setup with relaxation and out-of-radius points
     (tests/test_production.py:20-57 and :106-140, sky view off)."""
@@ -1133,11 +1409,12 @@ def phase_coupled_small(P=8192):
         exp = production.StationExpander(raw_st, st_idx, DEV,
                                          chunk_t=chunk_t, prep_ctx=ctx)
         metrics = RunMetrics()
-        before = sk.LAUNCHES_SLIM
+        reset_counts()
         res = production.run_production_coupled(
             model, exp, pts, cal, state0, chunk_t=chunk_t, out_stride=stride,
             metrics=metrics)
-        assert sk.LAUNCHES_SLIM > before
+        assert sk.LAUNCHES_SLIM > 0
+        k5 = read_window_count()
         want = np.arange(0, settings.sim_len, stride)
         assert np.array_equal(res.out_steps, want), res.out_steps
         c = metrics.counters
@@ -1146,8 +1423,9 @@ def phase_coupled_small(P=8192):
                              out_pc[torch.as_tensor(want)], final_pc, want)
         log(f"  run_production_coupled vs Model.run_coupled, {P} pts / 64 "
             f"stations / 97 steps, window [11, 40], (chunk_t, out_stride) = "
-            f"({chunk_t}, {stride}): max |err| {err:.3e}, reruns "
-            f"{c['coupling_reruns']}, coupled {c['coupling_points']}, "
+            f"({chunk_t}, {stride}): max |err| {err:.3e}, K5 launches "
+            f"{k5}, reruns {c['coupling_reruns']}, coupled "
+            f"{c['coupling_points']}, "
             f"succeeded {c['coupling_succeeded']}, failed "
             f"{c['coupling_failed']}")
 
@@ -1371,16 +1649,48 @@ class SampleRuns:
         return errs
 
 
+@contextlib.contextmanager
+def window_calls(kept, n_check=65536):
+    """``wk.window`` records in ``kept`` its first call's arguments (the
+    state after phase A cloned: the run reuses its room) and, cloned as
+    the call returns, its results for the first ``n_check`` points of that
+    call (the slice ``sl``), so that K5 can be timed again and held to its
+    plain version on the run's own inputs after the run."""
+    orig = wk.window
+
+    def recorded(*a, **k):
+        first = not kept
+        if first:
+            args = (a[0].clone(), a[1].clone()) + tuple(a[2:])
+        out = orig(*a, **k)
+        if first:
+            lo = k.get("lo", 0)
+            sl = slice(lo, lo + min(n_check, a[3].shape[0]))
+            kept.append((args, dict(k), sl, wk.WindowOut(
+                *(x.clone() for x in window_part(out, sl)))))
+        return out
+    wk.window = recorded
+    try:
+        yield kept
+    finally:
+        wk.window = orig
+
+
 def phase_coupled_full(cfg6, metrics):
+    """Phase 6: the coupled run at full size, phase B through K5; K5 timed
+    again on the run's own window inputs.  Returns (result, (K1, K2)
+    launches, K5's figures)."""
     model, T = cfg6["model"], cfg6["T"]
     torch.cuda.reset_peak_memory_stats(DEV)
     reset_counts()
     t0 = time.perf_counter()
-    res = production.run_production_coupled(
-        model, cfg6["exp"], cfg6["pts"], cfg6["cal"], cfg6["state0"],
-        anchors=cfg6["anchors"], chunk_t=cfg6["chunk_t"], metrics=metrics,
-        progress=Progress(T, every_s=5.0))
+    with window_calls([]) as kept:
+        res = production.run_production_coupled(
+            model, cfg6["exp"], cfg6["pts"], cfg6["cal"], cfg6["state0"],
+            anchors=cfg6["anchors"], chunk_t=cfg6["chunk_t"],
+            metrics=metrics, progress=Progress(T, every_s=5.0))
     launches = read_counts()[:2]
+    k5 = read_window_count(main_path=True)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(DEV)
     check_outputs(res, cfg6)
@@ -1391,18 +1701,60 @@ def phase_coupled_full(cfg6, metrics):
         f"{ph['phase_a']:.2f} s, phase B {ph['phase_b']:.2f} s, phase C "
         f"{ph['phase_c']:.2f} s; stream {ph['stream']:.2f} s = "
         f"{res.point_steps_per_s:.6g} point-steps/s")
-    log(f"  coupling: window steps {c['coupling_window_steps']}, re-run "
-        f"passes {c['coupling_reruns']}, window rows stepped "
-        f"{c['coupling_window_rows']} "
-        f"({1e3 * ph['phase_b'] / c['coupling_window_rows']:.2f} ms a row), "
-        f"window forcing cached "
+    log(f"  coupling: window steps {c['coupling_window_steps']}, most "
+        f"re-runs of a point {c['coupling_reruns']}, steps of the slowest "
+        f"lane {c['coupling_window_rows']}, one K5 launch a block "
         f"{bool(c['coupling_window_cached'])}; points coupled "
         f"{c['coupling_points']}, succeeded {c['coupling_succeeded']}, "
         f"failed {c['coupling_failed']}; K1 launches {launches[0]}, K2 "
-        f"launches {launches[1]}; peak device memory "
+        f"launches {launches[1]}, K5 launches {k5}; peak device memory "
         f"{peak / 2**30:.2f} GiB; failed share "
         f"{float(res.state.failed.float().mean()):.6f}")
-    return res, launches
+    # K5 again on the run's window inputs (its time at this size), and its
+    # plain version on the first 65,536 points of that launch, against the
+    # run's own K5 results and the new launch's, bit for bit
+    (args, kw, sl, run_part), = kept
+    del kept
+    again = wk.window_cuda(*args, **kw)
+    t0 = time.perf_counter()
+    lo = kw.get("lo", 0)
+    fidx = args[3][sl.start - lo:sl.stop - lo]
+    want = wk.window_reference(*args[:3], fidx, *args[4:],
+                               lo=sl.start)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    want = window_part(want, sl)
+    err = max(assert_window_bitwise(
+        f"6, K5 of the run vs window_reference on points [{sl.start}, "
+        f"{sl.stop})", run_part, want), assert_window_bitwise(
+        f"6, K5 again on the run's inputs vs window_reference on points "
+        f"[{sl.start}, {sl.stop})", window_part(again, sl), want))
+    log(f"  [{card_line()}] 6: K5 == window_reference bit for bit on "
+        f"{sl.stop - sl.start} points of the run's window (rows, state, "
+        f"corrections, failed masks, re-runs: most "
+        f"{int(want.reruns.max())}, steps of the slowest lane "
+        f"{int(want.steps.max())}; plain version {plain_s:.1f} s)")
+    del want, run_part
+    ms = cuda_ms(lambda: wk.window_cuda(*args, **kw), reps=3)
+    lane, warp, slow = window_stats(again.steps)
+    n = again.steps.shape[0]
+    # the bound with each step's boundary-layer loop at its floor of five
+    # iterations (the window's own iterations are not counted at this size)
+    L = model.grid.nlayers
+    t_ops = 1e3 * lane * (OPS_STEP + OPS_LAYER * L + 5 * OPS_BL_ITER) \
+        / PEAK_F32_OPS_S
+    t_bytes = 1e3 * (4 * n * 2 * (L + 3 + sk.R_FAILED + 1)
+                     + 4 * n * 2 * (L + 3 + len(wk.SNAP_ROWS))
+                     + 4 * 10 * args[2].shape[0] * args[2].shape[2]) \
+        / PEAK_BYTES_S
+    log(f"  [{card_line()}] K5 at this size: {ms:.3f} ms a launch ({n} "
+        f"points; steps a lane {lane / n:.2f}, issued a lane by its warp "
+        f"{warp / n:.2f}, divergence factor {warp / max(lane, 1):.3f}, "
+        f"slowest lane {slow}); bound {max(t_ops, t_bytes):.3f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}, five "
+        f"boundary-layer iterations a step)")
+    del again, args, kw
+    return res, launches, dict(ms=ms, launches=k5, err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -1747,10 +2099,11 @@ def phase_sharded_coupled_small(P=8192):
             model, exp, pts, cal, state0, devices=[DEV] * n, chunk_t=32,
             out_stride=6, metrics=metrics)
         launches = read_counts()
+        k5 = read_window_count()
         c = metrics.counters
         assert c["coupling_reruns"] > 0 and launches[1] > 0, (c, launches)
         log(f"  run_production_coupled, {P} points x 97 steps, {n} "
-            f"block(s): K2 launches {launches[1]}, reruns "
+            f"block(s): K2 launches {launches[1]}, K5 launches {k5}, reruns "
             f"{c['coupling_reruns']}, window rows {c['coupling_window_rows']}"
             f", coupled {c['coupling_points']}, failed "
             f"{c['coupling_failed']}")
@@ -2370,6 +2723,8 @@ def phase_tm_small():
                     finally:
                         production._Engine.force_generic = False
                     launched = read_counts()
+                    if coupled:
+                        read_window_count()
                     k = own if route == "own" else 0
                     assert launched[k] > 0 and sum(launched) == launched[k], (
                         config, route, launched)
@@ -2555,6 +2910,84 @@ def phase_grid_full(cfg, metrics, label, depth=None):
     fig = stream_line(label, production.PIPELINE_DEPTH if depth is None
                       else depth, metrics, probe, peak, wall)
     return res, launches[3], fig
+
+
+def grid_coupled_setup(cfg7, window_min=180, init_h=24, seed=29):
+    """Phase 7w's configuration: phase 7's grid and raster with coupling on
+    (relaxation off): each point's 180-minute window ends at a step drawn
+    from the last 20 minutes of a 24 h analysis, its obs the grid's air
+    temperature 40 steps before the analysis ends minus U(0.5, 2.5) K (so
+    the control iterates), none on every 7th point."""
+    T = cfg7["T"]
+    settings = ModelSettings(sim_len=T, dt=30.0, output_step_minutes=60,
+                             use_relaxation=False, use_coupling=True,
+                             coupling_minutes=window_min)
+    model = Model(settings, device=DEV)
+    n = cfg7["npoints"]
+    il = int(init_h * 3600 / settings.dt)               # 2,880
+    wl = settings.coupling_len_steps                     # 360
+    rng = np.random.default_rng(seed)
+    end = rng.integers(il - 39, il + 1, n).astype(np.int32)
+    tair = cfg7["exp"].window(il - 40, 1).tair[0, :n].cpu().numpy()
+    obs = tair - rng.uniform(0.5, 2.5, n)
+    obs[::7] = -9999.9
+    pts = cfg7["pts"]._replace(coupling_start=end - wl, coupling_end=end,
+                               coupling_tsurf=obs)
+    first = RawForcing(**{k: np.asarray(cfg7["exp"].first_host[k])[:, None]
+                          for k in RawForcing._fields})
+    state0 = model.init(first, cfg7["cal"], dtype=torch.float32)
+    log(f"  coupled grid: {int((obs > -100).sum())} of {n} points with "
+        f"obs, window ends in [{end.min()}, {end.max()}], {wl} window "
+        f"steps")
+    return dict(cfg7, model=model, pts=pts, state0=state0)
+
+
+def phase_grid_coupled(cfg7):
+    """Phase 7w: the coupled grid at full size, the window's table the
+    points' prepared window (about 27 GB at 1M points): phase B over the
+    point slices of run_production_coupled's default budget against one
+    launch (a budget that holds the whole table), bit for bit.  Returns
+    (K3 fused launches, K5 launches)."""
+    c = grid_coupled_setup(cfg7)
+    T = c["T"]
+    runs, n_k3, n_k5 = {}, 0, 0
+    for label, budget in (("point slices", 4e9), ("one launch", 64e9)):
+        m = RunMetrics(announce=True)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = production.run_production_coupled(
+            c["model"], c["exp"], c["pts"], c["cal"], c["state0"],
+            chunk_t=c["chunk_t"], metrics=m, wcache_bytes=budget,
+            progress=Progress(T, every_s=5.0))
+        launches = read_counts()
+        k5 = read_window_count(main_path=True)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(DEV)
+        check_outputs(res, c)
+        cnt, ph = m.counters, m.phases
+        assert cnt["coupling_reruns"] > 0, cnt
+        assert cnt["coupling_window_cached"] == (label == "one launch"), cnt
+        assert launches[:3] == (0, 0, 0) and launches[3] > 0, launches
+        n_k3 += launches[3]
+        n_k5 += k5
+        log(f"  [{card_line()}] 7w, coupled grid, phase B in {label} "
+            f"({budget / 1e9:.0f} GB a device): wall {wall:.2f} s, phase "
+            f"A {ph['phase_a']:.2f} s, phase B {ph['phase_b']:.2f} s, "
+            f"phase C {ph['phase_c']:.2f} s; K3 fused launches "
+            f"{launches[3]}, K5 launches {k5}; window steps "
+            f"{cnt['coupling_window_steps']}, most re-runs of a point "
+            f"{cnt['coupling_reruns']}, steps of the slowest lane "
+            f"{cnt['coupling_window_rows']}; points coupled "
+            f"{cnt['coupling_points']}, failed {cnt['coupling_failed']}; "
+            f"peak device memory {peak / 2**30:.2f} GiB")
+        runs[label] = res
+        del res
+    assert_same_result("7w, coupled grid: K5 over point slices vs one "
+                       "launch", runs["point slices"], runs["one launch"])
+    del runs
+    torch.cuda.empty_cache()
+    return n_k3, n_k5
 
 
 def composite_sky_setup(cfg7, cfg):
@@ -2943,9 +3376,109 @@ def phase_chunk_sweep(cfg, counts=(1048576, 65536), chunks=(32, 64, 128, 256),
     return rows
 
 
-def phase_cli(samples):
+def phase_cli_coupled(outdir, samples):
+    """Phase 9d: examples/example1/example_config.json as shipped (coupling
+    and relaxation on, the 180-minute window) over 9a's inputs and its
+    1024 x 1024 raster, 1,048,576 points x 8,881 steps, at PIPELINE_DEPTH 2,
+    through K2, K5 and K4; its outputs and final state against the
+    library-level run_production_coupled called again on the arguments the
+    runner handed it (the same expander, points, state, anchors and
+    geometry), bit for bit; a 64-point sample as 9a's.  Returns the run's
+    launches (K1, K2, K3, K3 fused) and its K4 launches."""
+    label = "example1 raster, coupled"
+    cfg = ex1_config(outdir, coupling=1)
+    assert cfg["model"]["use_relaxation"] and cfg["time"][
+        "coupling_minutes"] == 180, cfg
+    cfg_path = write_json(cfg, os.path.join(outdir, "example1_coupled.json"))
+    side, t = cfg["points"]["grid"]["nx"], cfg["time"]
+    P = side * cfg["points"]["grid"]["ny"]
+    T = int((t["analysis"] + t["forecast"]) * 3600
+            // cfg["model"]["DTSecs"]) + 1
+    kept = {}
+    lib_run = production.run_production_coupled
+
+    def keep(*a, **k):
+        kept["args"] = (a, k)
+        return lib_run(*a, **k)
+    m = RunMetrics(announce=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    reset_counts()
+    production.run_production_coupled = keep
+    try:
+        t0 = time.perf_counter()
+        with StreamProbe() as probe, pipeline_depth(2):
+            (state, fields), first = run_cli(["-c", cfg_path, "-t",
+                                              CLI_TIME], m)
+        wall = time.perf_counter() - t0
+    finally:
+        production.run_production_coupled = lib_run
+    k4 = sk.LAUNCHES_SHARDED
+    launches = read_counts()
+    k5 = read_window_count(main_path=True)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    assert launches[1] > 0 and launches[1] == sum(launches), launches
+    steps = fields["steps"]
+    stride = int(cfg["output"]["step"] * 60 // cfg["model"]["DTSecs"])
+    assert np.array_equal(steps, np.arange(0, T, stride)), steps
+    for name in production.OUT_FIELD_ROWS:
+        f = fields[name]
+        assert f.shape == (len(steps), P), (name, f.shape)
+        assert np.all(np.isfinite(f) | (f == -9999.0)), name
+    c, ph = m.counters, m.phases
+    assert c["coupling_reruns"] > 0, c
+    log(f"  [{card_line()}] {label}, PIPELINE_DEPTH 2: runner.main wall "
+        f"{wall:.2f} s, {P} points x {T} steps, chunk_t "
+        f"{int(c['chunk_t'])}, stream {ph['stream']:.2f} s (phase A "
+        f"{ph['phase_a']:.2f}, phase B {ph['phase_b']:.2f}, phase C "
+        f"{ph['phase_c']:.2f}), time to first chunk {first:.2f} s, peak "
+        f"device memory {peak / 2**30:.2f} GiB, failed share "
+        f"{float(state.failed.float().mean()):.6f}; launches K2 "
+        f"{launches[1]} K4 {k4} K5 {k5}; coupling: window steps "
+        f"{c['coupling_window_steps']}, most re-runs of a point "
+        f"{c['coupling_reruns']}, steps of the slowest lane "
+        f"{c['coupling_window_rows']}, points coupled "
+        f"{c['coupling_points']}, succeeded {c['coupling_succeeded']}, "
+        f"failed {c['coupling_failed']}")
+    log(f"  [{card_line()}] {label} phases (s): " + json.dumps(
+        {k: round(v, 3) for k, v in ph.items()}))
+    STREAMS[f"9d, {label}", 2] = stream_line(f"9d, {label}", 2, m, probe,
+                                             peak, wall)
+    # the library-level run on the runner's own arguments
+    a, k = kept.pop("args")
+    with pipeline_depth(2):
+        lib = lib_run(*a, **dict(k, metrics=RunMetrics(), progress=None))
+    del a, k
+    bits = lambda x: np.ascontiguousarray(x).view(np.int32)
+    diff = [name for name in production.OUT_FIELD_ROWS
+            if not np.array_equal(bits(fields[name]), bits(lib.fields[name]))]
+    diff += [name for name, g, w in zip(state._fields, state, lib.state)
+             if not torch.equal(g, w)]
+    if diff:
+        raise AssertionError(f"9d: the CLI and the library-level "
+                             f"run_production_coupled differ in {diff}")
+    log(f"  9d: the CLI == the library-level run_production_coupled on the "
+        f"same inputs, bit for bit (every output row and the final state)")
+    del lib
+    idx = np.linspace(0, P - 1, 64).astype(np.int64)
+    pset = points.parse_points_full(cfg)
+    coords = dict(cfg, points={
+        "coordinates": [[float(pset.lats[i]), float(pset.lons[i])]
+                        for i in idx],
+        "max_radius_km": cfg["points"]["max_radius_km"]})
+    samples.start_cli(
+        write_json(coords, os.path.join(outdir, "example1_coupled_sample"
+                                                ".json")),
+        64, T, state.failed[idx].numpy(),
+        {name: fields[name][:, idx].copy()
+         for name in production.OUT_FIELD_ROWS}, steps, f"9d, {label}")
+    return launches, k4
+
+
+def phase_cli(samples, run9=True, run9d=False):
     """Phase 9: the runner CLI end to end on inputs from the two example
-    generators (see the module docstring)."""
+    generators (see the module docstring); 9a-9c with ``run9``, 9d with
+    ``run9d``."""
     base = tempfile.mkdtemp(prefix="cli_")
     ex1_dir, ex2_dir = (os.path.join(base, n) for n in ("ex1", "ex2"))
     os.makedirs(ex1_dir)
@@ -2958,12 +3491,19 @@ def phase_cli(samples):
     s1 = make_example("example1", ex1_dir, ["--stations", "2048",
                                             "--analysis", "24",
                                             "--forecast", "50"])
+    log(f"  make_data: example1 2,048 stations in {s1:.1f} s")
+    launched = {}
+    if run9d:
+        log("== 9d. the CLI at full size on example1's shipped config, "
+            "coupled: 1048576 points x 8881 steps")
+        launched["9d"] = phase_cli_coupled(ex1_dir, samples)
+        torch.cuda.empty_cache()
+    if not run9:
+        return base, launched
     s2 = make_example("example2", ex2_dir, ["--ny", "300", "--nx", "400",
                                             "--analysis", "24",
                                             "--forecast", "50"])
-    log(f"  make_data: example1 2,048 stations in {s1:.1f} s, example2 "
-        f"300 x 400 x 75 grid in {s2:.1f} s")
-    launched = {}
+    log(f"  make_data: example2 300 x 400 x 75 grid in {s2:.1f} s")
     log("== 9a. the CLI at full size, station-fed (example1): 1048576 "
         "points x 8881 steps")
     launched["9a"] = phase_cli_full("example1 raster", ex1_config(ex1_dir),
@@ -2988,8 +3528,8 @@ def main():
 def run_phases(samples):
     args, variants = parse_variants(sys.argv[1:])
     sel = set(args)
-    known = {"3", "3b", "3c", "3d", "3e", "4", "4b", "4c", "5", "6", "7",
-             "7b", "8", "8b", "9", "9t"}
+    known = {"3", "3b", "3c", "3d", "3e", "3w", "4", "4b", "4c", "5", "6",
+             "7", "7b", "7w", "8", "8b", "9", "9d", "9t"}
     if sel - known:
         raise SystemExit(f"unknown phases {sorted(sel - known)}; "
                          f"phases: {sorted(known)}")
@@ -3035,6 +3575,11 @@ def run_phases(samples):
         log("== 3b. K2 against its plain version")
         err_slim_small = phase_kernel_slim_small()
         err_slim_chunk, slim_times = phase_kernel_slim_chunk(cfg6)
+        stamp()
+    if want("3w"):
+        log("== 3w. K5, the coupling window, against its plain version and "
+            "the eager window engine")
+        k5w = phase_window_small()
         stamp()
     if want("3d"):
         log("== 3d. K4, the sharded launch, against its plain version and "
@@ -3114,14 +3659,15 @@ def run_phases(samples):
     if want("6"):
         log("== 6. coupled main path at full size: 1048576 points x 8881 "
             "steps")
-        res6, launches6 = phase_coupled_full(cfg6, RunMetrics(announce=True))
+        res6, launches6, k5_6 = phase_coupled_full(
+            cfg6, RunMetrics(announce=True))
         samples.start(cfg6, res6, coupled=True)
         launched = [a + b for a, b in zip(launched, launches6)]
         del res6
         stamp()
 
     k3_launches = 0
-    if want("3c") or want("7") or want("7b") or want("8"):
+    if want("3c") or want("7") or want("7w") or want("7b") or want("8"):
         log("== 7. setup: the NWP-grid forecast at full size")
         cfg7 = grid_full_setup(metrics)
         stamp()
@@ -3153,6 +3699,11 @@ def run_phases(samples):
                       hold_f32=True, label="7, NWP grid")
         del res7
         torch.cuda.empty_cache()
+        stamp()
+    if want("7w"):
+        log("== 7w. the coupled NWP grid at full size: K5 over point slices "
+            "of the points' prepared window against one launch")
+        k3_launches += phase_grid_coupled(cfg7)[0]
         stamp()
     if want("4c"):
         log("== 4c. the tile-major path, small, against Model.run / "
@@ -3200,12 +3751,13 @@ def run_phases(samples):
         phase_two_processes()
         stamp()
     cli_dir = None
-    if want("9"):
+    if want("9") or want("9d"):
         log("== 9. the runner CLI end to end on the example generators' "
             "inputs")
-        cli_dir, l9 = phase_cli(samples)
-        launched[1] += l9["9a"][0][1]
-        k3_launches += l9["9b"][0][3]
+        cli_dir, l9 = phase_cli(samples, want("9"), want("9d"))
+        launched[1] += l9.get("9a", ((0, 0, 0, 0),))[0][1]
+        launched[1] += l9.get("9d", ((0, 0, 0, 0),))[0][1]
+        k3_launches += l9.get("9b", ((0, 0, 0, 0),))[0][3]
         stamp()
     log("== the 64-point samples of the full-size runs, re-run beside the "
         "phases above")
@@ -3251,8 +3803,15 @@ def run_phases(samples):
           "max_abs_err": max(err_k4_small, k4["err"]), "ms": k4["ms"],
           "plain_ms": k4["plain_ms"], "bound": k4["bound"],
           "replaces": "roadsurf_tpu/parallel/sharding.py:73"}
+    # K5 has no Pallas counterpart: it is the port's counterpart of phase
+    # B's one jit; its time, plain time and bound are phase 3w's (65,536
+    # points, the station table), where the plain version can be timed
+    k5 = {"name": "window_kernel", "launches": MAIN_PATH_K5[0],
+          "max_abs_err": max(k5w["err"], k5_6["err"]), "ms": k5w["ms"],
+          "plain_ms": k5w["plain_ms"], "bound": k5w["bound"],
+          "replaces": "roadsurf_tpu/production.py:2041"}
     kernels = []
-    for k in (k1, k2, k3, k3f, k4):
+    for k in (k1, k2, k3, k3f, k4, k5):
         assert k["launches"] > 0, k
         bound_ms, bound_by = k.pop("bound")
         kernels.append(dict(

@@ -15,9 +15,10 @@ Two engines, as in the JAX package:
    target, run at test sizes.
  * ``run_window_passes`` / ``run_coupled_segmented``, the **iteration-major
    window engine**: phases A and C are plain scans, and the window runs as
-   whole passes (first / re-run / tail) over contiguous rows.  The
-   production run streams A and C through the scan kernel and runs B
-   here, in plain torch on the device.
+   whole passes (first / re-run / tail) over contiguous rows.  It is the
+   eager counterpart of the JAX functions and the parity target of the
+   window kernel K5 (``ops/window_kernel.py``), which runs phase B of the
+   production run, one program counter per point, on the card.
 
 Reference quirks replicated deliberately:
  * the snapshot never saves SrfIcemms -- saveDataForCoupling stores Ice2
@@ -454,6 +455,7 @@ class WindowResult(NamedTuple):
     in_coupling: torch.Tensor  #: [P] flag after the last window step
     reruns: int               #: window re-run passes executed
     rows: int                 #: window rows stepped, over all passes
+    point_reruns: torch.Tensor  #: [P] int32, the passes each point re-ran
 
 
 def window_out_rows(ws: int, we_b: int, out_stride: int):
@@ -615,6 +617,7 @@ def run_window_passes(state: State, provider, valid_win, ws: int, we_b: int,
     rr = torch.zeros((P,), dtype=torch.bool, device=dev)
     vf = torch.zeros((P,), dtype=torch.bool, device=dev)
     nreruns = nrows = 0
+    point_reruns = torch.zeros((P,), dtype=torch.int32, device=dev)
     big = 2 * T + 2
     while mode < M_DONE:
         # pass-narrowing: a re-run pass only needs the chunks covering the
@@ -664,13 +667,14 @@ def run_window_passes(state: State, provider, valid_win, ws: int, we_b: int,
                 sw_cof=w(do_r, w(choice, cv.radcoeff, 1.0), cv.sw_cof),
                 lw_cof=w(do_r, w(choice, 1.0, cv.radcoeff), cv.lw_cof))
             nreruns += 1
+            point_reruns = point_reruns + do_r.to(torch.int32)
         else:
             do_r = torch.zeros_like(rr2)
         rr = do_r
 
     in_cpl_last = coupled & (we_b >= start_i) & (we_b <= end_i)
     return WindowResult(state=st, cv=cv, out=out, in_coupling=in_cpl_last,
-                        reruns=nreruns, rows=nrows)
+                        reruns=nreruns, rows=nrows, point_reruns=point_reruns)
 
 
 def run_coupled_segmented(state: State, prep: Prepared, pts: PointParams,

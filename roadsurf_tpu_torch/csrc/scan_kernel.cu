@@ -61,10 +61,11 @@
 // of the IEEE divide without its quotient refinement and range check.
 // Every floating-point operation of every lane is the one it was, so the
 // results are bit for bit those of the select form in any point order.
-//   Registers: about 64 at <16> (8 blocks of 128 threads an SM, half the
-// warp slots); a minimum of 10 or 12 blocks in __launch_bounds__ caps them
-// at 48 or 40 and spills, so the bound names no minimum (PERF.md,
-// Findings).  The TPU's double-buffered forcing DMA and its inner time
+//   Registers: 64 for K1 and K2 at <16> (8 blocks of 128 threads an SM,
+// half the warp slots), which scan_kernel's launch bound asks of ptxas at
+// that instantiation since the body is shared with K5 (without it: 70, 7
+// blocks, 4-7% slower); a minimum of 10 or 12 blocks caps them at 48 or
+// 40 and spills more (PERF.md, Findings).  The TPU's double-buffered forcing DMA and its inner time
 // chunk are dropped: the point-minor layout already coalesces the reads,
 // and a step's loads are hidden behind the other warps' thousands of
 // cycles of arithmetic.
@@ -652,6 +653,426 @@ __device__ __forceinline__ float surf_ave(const float (&tmp)[LM + 3],
   return (tmp[1] + tmp[2]) / 2.0f;
 }
 
+// A point's packed scalar state (the rows R_TSURF .. R_FAILED), in
+// registers for the whole launch.
+struct PointState {
+  float tsurf, wat, snow, ice, ice2, dep, q2m, t4m, evap, blc, alb, vcold,
+      failed;
+};
+
+__device__ __forceinline__ PointState load_state(const float* scal,
+                                                 int64_t PP, int p) {
+  PointState s;
+  s.tsurf = scal[R_TSURF * PP + p];
+  s.wat = scal[R_WAT * PP + p];
+  s.snow = scal[R_SNOW * PP + p];
+  s.ice = scal[R_ICE * PP + p];
+  s.ice2 = scal[R_ICE2 * PP + p];
+  s.dep = scal[R_DEP * PP + p];
+  s.q2m = scal[R_Q2MELT * PP + p];
+  s.t4m = scal[R_T4MELT * PP + p];
+  s.evap = scal[R_EVAP * PP + p];
+  s.blc = scal[R_BLCOND * PP + p];
+  s.alb = scal[R_ALBEDO * PP + p];
+  s.vcold = scal[R_VERYCOLD * PP + p];
+  s.failed = scal[R_FAILED * PP + p];
+  return s;
+}
+
+// The scalar rows written back; the rows past R_FAILED pass through.
+__device__ __forceinline__ void store_state(const PointState& s,
+                                            const float* scal0, float* scal,
+                                            int64_t PP, int p) {
+  scal[R_TSURF * PP + p] = s.tsurf;
+  scal[R_WAT * PP + p] = s.wat;
+  scal[R_SNOW * PP + p] = s.snow;
+  scal[R_ICE * PP + p] = s.ice;
+  scal[R_ICE2 * PP + p] = s.ice2;
+  scal[R_DEP * PP + p] = s.dep;
+  scal[R_Q2MELT * PP + p] = s.q2m;
+  scal[R_T4MELT * PP + p] = s.t4m;
+  scal[R_EVAP * PP + p] = s.evap;
+  scal[R_BLCOND * PP + p] = s.blc;
+  scal[R_ALBEDO * PP + p] = s.alb;
+  scal[R_VERYCOLD * PP + p] = s.vcold;
+  scal[R_FAILED * PP + p] = s.failed;
+  for (int r = R_FAILED + 1; r < NROWS; ++r) scal[r * PP + p] = scal0[r * PP + p];
+}
+
+// The six output fields of a step, at `o` (field k at o[k * PP]).
+__device__ __forceinline__ void store_fields(const PointState& s, float* o,
+                                             int64_t PP) {
+  o[0] = s.tsurf;
+  o[1 * PP] = s.wat;
+  o[2 * PP] = s.snow;
+  o[3 * PP] = s.ice;
+  o[4 * PP] = s.ice2;
+  o[5 * PP] = s.dep;
+}
+
+// A division by a constant is a multiply by its correctly rounded float32
+// reciprocal, as torch divides by a Python scalar on the card: the three
+// reciprocals the step uses, formed once a thread.
+struct StepRecip {
+  float inv_dt, inv_vk, inv_melt;
+};
+
+__device__ __forceinline__ StepRecip step_recip(const ScanConsts& c) {
+  return StepRecip{1.0f / c.dt, 1.0f / c.vk, 1.0f / c.melt_heat};
+}
+
+// The whole-scan kernel's step inputs (K1, K2, K3 and K3 fused): each
+// channel read from the forcing where the body uses it, or taken from the
+// channels K3 fused prepared in registers; TRF, the radiation coefficients
+// and the coupling obs from the mode's own source.  The body calls these
+// at the places the scan kernel's loop read them.
+template <bool SLIM, bool FUSED>
+struct ScanIn {
+  using K = Ch<SLIM>;
+  const float* f;    // the step's forcing at this point (not FUSED)
+  int64_t fs;        // its channel stride
+  StepIn v;          // FUSED: the prepared channels
+  const float* trf;  // SLIM: the time-only traffic friction
+  int tg, cofs, t_total;
+  float dt, cof_red, a_swc, a_lwc, a_cend, a_obs;
+#define IN_CH(NAME, X, FIELD)                                    \
+  __device__ __forceinline__ float NAME() const {                \
+    return FUSED ? v.FIELD : __ldg(f + K::X * fs);               \
+  }
+  IN_CH(tair, TAIR, tair)
+  IN_CH(vz, VZ, vz)
+  IN_CH(eair, EAIR, eair)
+  IN_CH(rain, RAIN, rain)
+  IN_CH(snow, SNOW, snow)
+  IN_CH(sw, SW, sw)
+  IN_CH(lw, LW, lw)
+  IN_CH(obs, TSURF_OBS, obs)
+  IN_CH(valid, VALID, valid)
+  IN_CH(incpl, INCPL, incpl)
+  IN_CH(airvcap, AIRVCAP, airvcap)
+#undef IN_CH
+  __device__ __forceinline__ float trf_fric() const {
+    return SLIM ? __ldg(trf + tg) : __ldg(f + C_TRF * fs);
+  }
+  __device__ __forceinline__ float cplobs() const {
+    return SLIM ? a_obs : __ldg(f + C_CPLOBS * fs);
+  }
+  __device__ __forceinline__ void rad_cofs(float& sw_cof,
+                                           float& lw_cof) const {
+    if (SLIM) {
+      // K2's coefficients are 1, or with cofs the decay after the window
+      // end (pallas_step.py:475-493): i_eff = tg + 1, but tg at the
+      // lastValues step t_total - 1, compared in float32
+      sw_cof = 1.0f;
+      lw_cof = 1.0f;
+      if (cofs) {
+        const float i_eff =
+            (float)((t_total >= 2 && tg == t_total - 1) ? tg : tg + 1);
+        const float expo = __fdiv_rn(
+            -__fsub_rn(__fmul_rn(dt, i_eff), __fmul_rn(dt, a_cend)), cof_red);
+        const float dec = expf(nmin(expo, 0.0f));
+        if ((i_eff >= a_cend) && (a_cend >= 1.0f)) {
+          sw_cof = __fadd_rn(1.0f, __fmul_rn(a_swc, dec));
+          lw_cof = __fadd_rn(1.0f, __fmul_rn(a_lwc, dec));
+        }
+      }
+      // opaque to the optimiser, like K1's loaded channels: a coefficient
+      // known to be 1 (or a select against 1) would let the products of
+      // the net radiation be folded or split, and round unlike K1's
+      asm("" : "+f"(sw_cof), "+f"(lw_cof));
+    } else {
+      sw_cof = __ldg(f + C_SWCOF * fs);
+      lw_cof = __ldg(f + C_LWCOF * fs);
+    }
+  }
+};
+
+// One step of one point that has not failed (pallas_step.py:411-568), the
+// body every kernel of this file runs: the CheckValues flag, obs forcing,
+// precipitation, the boundary-layer fixed point, latent heat, net
+// radiation, the conduction stencil with HStor, the melting limiter, the
+// storage machine and the commit, on the profile `tmp` and the state `s`
+// in registers.  `in` is the step's input source (ScanIn above, WinIn of
+// the window kernel below).
+template <int LM, bool DEPTH, class In>
+__device__ __forceinline__ void step_body(const ScanConsts& c,
+                                          const StepRecip& k, const In& in,
+                                          float (&tmp)[LM + 3],
+                                          PointState& s) {
+  const int L = c.L;
+  const float dt = c.dt;
+  const float tph = c.tph;
+  const float s2i = (float)(0.25 / 0.45);
+  const float tair = in.tair();
+  const bool abnormal = (s.tsurf < -100.0f) || (s.tsurf > 100.0f);
+  const bool failed = (in.valid() < 0.5f) || abnormal;
+
+  // SetCurrentValues + obs forcing
+  const float obs = in.obs();
+  tmp[0] = tair;
+  if (obs > -100.0f) {
+    tmp[1] = obs;
+    tmp[2] = obs;
+    s.tsurf = surf_ave<LM, DEPTH>(tmp, c);
+  }
+  const float tsurf = s.tsurf;
+
+  // precipitation to storage
+  float wat = s.wat + in.rain();
+  float snow = s.snow + in.snow();
+  float ice = s.ice, ice2 = s.ice2, dep = s.dep;
+
+  // boundary-layer fixed point (pallas_step.py:104-172): each thread
+  // stops at its own convergence, which equals the masked freeze
+  const float vz = in.vz();
+  const float air_vcap = in.airvcap();
+  const float tak = tair + 273.15f;
+  const float dt_ts = tsurf - tair;
+  const float inv_kvz = __frcp_rn(c.vk * vz);
+  const float inv_avt = __frcp_rn(air_vcap * tak);
+  float bl = s.blc, psim = 0.0f, psih = 0.0f;
+  for (int j = 0; j < c.bl_iters; ++j) {
+    const float ustar_inv = (c.log_ustar + psim) * inv_kvz;
+    const float bl_new = air_vcap * c.vk / ((c.log_cond + psih) * ustar_inv);
+    float stab = c.stab_c * bl_new * dt_ts * inv_avt * ustar_inv *
+                 ustar_inv * ustar_inv;
+    stab = nmin(stab, 1.0f);
+    // a branch, not a select: the unstable side's sqrt and log run only
+    // where a lane takes it (a NaN stab is not stable, as the select had)
+    if (stab > 0.0f) {
+      psih = 4.7f * stab;
+      psim = psih;
+    } else {
+      psih = -2.0f *
+             logf((1.0f + sqrtf(nmax(1.0f - 16.0f * stab, 0.0f))) / 2.0f);
+      psim = 0.6f * psih;
+    }
+    const bool newly = (fabsf(bl_new - bl) < 1e-3f) && (j + 1 >= 5);
+    bl = bl_new;
+    if (newly) break;
+  }
+  const float raero = nmin((c.log_mom + psim) * (c.log_heat + psih) *
+                               (inv_kvz * k.inv_vk),
+                           30.0f);
+  const float psych_c = 0.1f * (0.00063f * tak + 0.47496f);
+  const float wat_den = -0.0050f * tsurf * tsurf + 0.0079f * tsurf +
+                        1000.0028f;
+  const float esurf = esat1(tsurf);
+  float le = air_vcap * (esurf - in.eair()) / (psych_c * raero);
+  const float lheat = tsurf >= 0.0f ? c.lvap : c.lfus;
+  float evap = le / (lheat * wat_den) * 1000.0f * dt;
+  if ((le > 0.0f) && (wat <= 0.0f)) {
+    le = 0.0f;
+    evap = 0.0f;
+  }
+
+  // net radiation
+  const float tk = tsurf + 273.15f;
+  const float tk2 = tk * tk;
+  float sw_cof, lw_cof;
+  in.rad_cofs(sw_cof, lw_cof);
+  const float rnet = (1.0f - s.alb) * in.sw() * sw_cof +
+                     c.emiss * in.lw() * lw_cof - c.emiss_sb * tk2 * tk2;
+
+  // conduction stencil + HStor (pallas_step.py:175-208), in place: layer
+  // j's flux uses the old j and j+1, computed before j is overwritten
+  const float t1a = (tmp[1] + 3.0f * tmp[2]) / 4.0f;
+  float g_prev = rnet - le + in.trf_fric() + bl * (tmp[0] - tmp[1]);
+  float hs1 = 0.0f;
+#pragma unroll
+  for (int j = 1; j <= LM; ++j) {
+    if (j <= L) {
+      const float tj = tmp[j];
+      const float t2_ = tj * tj;
+      const float roo =
+          tj < 0.0f ? 920.0f : -0.0050f * t2_ + 0.0079f * tj + 1000.0028f;
+      const float cw = tj < 0.0f
+                           ? 2100.0f
+                           : 0.0000102f * t2_ * t2_ - 0.0017169f * t2_ * tj +
+                                 0.11516f * t2_ - 3.4739f * tj + 4217.2f;
+      const float chwt = roo * cw;
+      const float vsh = (j <= 2 ? c.dry1 : c.dry2) + c.wcont[j - 1] * chwt;
+      if (j == 1) hs1 = vsh * c.dyc[0] * k.inv_dt;
+      // -1/x as the negated correctly rounded reciprocal: the same bits
+      // as the IEEE divide, without its quotient refinement and range
+      // check
+      const float cap_dz = -__frcp_rn(c.dyc[j - 1] * vsh);
+      const float gflux = c.cond_dz[j - 1] * (tmp[j + 1] - tj);
+      tmp[j] = tj + dt * cap_dz * (gflux - g_prev);
+      g_prev = gflux;
+    }
+  }
+  const float tna = (tmp[1] + 3.0f * tmp[2]) / 4.0f;
+  const float hstor = hs1 * (tna - t1a);
+
+  // melting limiter (pallas_step.py:218-241)
+  const float q2m = s.q2m, t4m = s.t4m;
+  const bool has_frozen = (snow > 0.0f) || (ice > 0.0f) || (ice2 > 0.0f);
+  float q2 = has_frozen ? q2m : 0.0f;
+  if (c.melt_change) {
+    const bool in_cpl = in.incpl() > 0.5f;
+    const bool guard = (hstor <= 0.00001f) || (tsurf <= t4m) ||
+                       (q2m <= 0.0f) || (in_cpl && (in.cplobs() < t4m));
+    const bool cold = guard && (tsurf < 0.5f);
+    const bool hot = guard && (tsurf > 2.0f);
+    const float qavail = hs1 * (tmp[1] - t4m);
+    const bool pin = has_frozen && !cold && !hot;
+    const bool all_used = q2m >= qavail;
+    if (pin) {
+      tmp[1] = all_used ? t4m + 0.01f : t4m + (qavail - q2m) / hs1;
+      tmp[2] = t4m + 0.01f;
+    }
+    if (has_frozen && cold) q2 = 0.0f;
+    if (has_frozen && hot) q2 = nmin(q2, qavail);
+    if (pin && all_used) q2 = qavail;
+  }
+  const float tsurf_new = surf_ave<LM, DEPTH>(tmp, c);
+  const float ts = tsurf_new;
+
+  // WearFactors + RoadCond + CalcAlbedo (pallas_step.py:244-350)
+  bool vcold = s.vcold > 0.5f;
+  vcold = vcold && !(vcold && (ts > c.t_lim_cold_h));
+  vcold = vcold || (!vcold && (ts < c.t_lim_cold_l));
+
+  float snow_tran = nmax(0.45f * snow, 0.01f);
+  snow_tran = (snow < 0.2f ? snow_tran * 3.0f : snow_tran) * tph;
+  const float ice_wear = nmax((float)(1.1 * 2.0 * 0.145) * ice, 0.01f) * tph;
+  const float ice_wear2 =
+      nmax((float)(1.1 * 2.0 * 4.0 * 0.290) * ice2, 0.01f) * tph;
+  const float dep_wear =
+      nmax((float)(0.5 * 2.0 * 4.0 * 0.290) * dep, 0.01f) * tph;
+  const float wat_wear = 10.0f * nmax(0.145f * wat, 0.06f) * tph;
+
+  const bool bare =
+      (snow <= 0.0f) && (ice <= 0.0f) && (dep <= 0.0f) && (ts > c.t_lim_dew);
+  const float loss = wat > c.max_por_mms ? evap : c.por_eva_f * evap;
+  if (bare) wat = wat - loss;
+  if (wat > 0.0f) {
+    const float ww = wat < c.w_wear_lim ? 0.0f : wat_wear;
+    const float amt = wat > c.w_wet_lim ? ww : c.damp_wear_f * ww;
+    wat = wat - amt;
+  }
+  if (wat < c.min_wat_mms) wat = 0.0f;
+  wat = nmin(wat, c.max_wat_mms);
+  const float srf_ext = nmax(wat - c.max_por_mms, 0.0f);
+
+  const float rd = srf_ext + snow;
+  const float wsr = rd > 0.001f ? srf_ext / rd : 0.0f;
+  const bool snow_wet = (snow > 0.0f) && (wsr > c.wet_snow_form_r);
+  if (snow > 0.0f) {
+    ice = ice + dep;
+    dep = 0.0f;
+  }
+  const float mm = 1000.0f * (q2 * dt) * k.inv_melt;
+  {
+    const bool has_snow = snow > 0.0f;
+    const bool melt_f = has_snow && c.force_snow;
+    const bool melts =
+        has_snow && !melt_f && (q2 > 0.0f) && (ts >= c.t_lim_melt_snow);
+    if (melt_f) {
+      wat = wat + snow;
+      snow = 0.0f;
+    } else if (melts) {
+      wat = wat + mm;
+      snow = snow - mm;
+    }
+  }
+  if (snow > 0.0f) {
+    snow = snow - snow_tran;
+    ice = ice + s2i * snow_tran;
+    ice2 = ice2 + s2i * snow_tran;
+  }
+  {
+    const bool wet_block = (snow > 0.0f) && snow_wet;
+    if (wet_block && (wsr > c.wet_snow_melt_r)) {
+      wat = wat + snow;
+      snow = 0.0f;
+    }
+    if (wet_block && (ts < c.t_lim_freeze)) {
+      const float amt2 = snow + wat;
+      ice = ice + amt2;
+      ice2 = ice2 + amt2;
+      snow = 0.0f;
+      wat = 0.0f;
+    }
+  }
+  if (snow < c.min_snow_mms) snow = 0.0f;
+  if (snow > c.max_snow_mms) snow = snow - c.half_max_snow;
+
+  if ((ts < c.t_lim_freeze) && (wat > 0.0f)) {
+    ice = ice + wat;
+    ice2 = ice2 + wat;
+    wat = 0.0f;
+  }
+  {
+    const bool meltable = (snow <= 0.0f) && (ice > 0.0f);
+    const bool melt_f = meltable && c.force_ice;
+    const bool melts =
+        meltable && !melt_f && (q2 > 0.0f) && (ts >= c.t_lim_melt_ice);
+    if (melt_f) {
+      wat = wat + ice;
+      ice = 0.0f;
+      ice2 = 0.0f;
+    } else if (melts) {
+      wat = wat + mm;
+      ice = ice - mm;
+      ice2 = ice2 - mm;
+    }
+  }
+  if (ice > 0.0f) ice = ice - ice_wear;
+  if (ice2 > 0.0f) ice2 = ice2 - ice_wear2;
+  if (ice < c.min_ice_mms) ice = 0.0f;
+  ice = nmin(ice, c.max_ice_mms);
+  if (ice2 < c.min_ice_mms) ice2 = 0.0f;
+  ice2 = nmin(ice2, c.max_ice_mms);
+
+  if (evap < 0.0f) dep = dep - evap;
+  if (ts > c.t_lim_melt_dep) {
+    wat = wat + dep;
+    dep = 0.0f;
+  }
+  if ((snow <= 0.0f) && (dep > 0.0f)) dep = dep - dep_wear;
+  if (dep < c.min_dep_mms) dep = 0.0f;
+  if (dep > c.max_dep_mms) wat = wat + dep - c.max_dep_mms;
+  dep = nmin(dep, c.max_dep_mms);
+
+  if (wat < c.min_wat_mms) wat = 0.0f;
+  wat = nmin(wat, c.max_wat_mms);
+
+  float q2n = 0.0f;
+  float t4n = t4m;
+  if (snow > 0.0f) {
+    q2n = c.melt_heat * (snow * (1.0f / 1000.0f)) * k.inv_dt;
+    t4n = c.t_lim_melt_snow;
+  } else if (ice > 0.0f) {
+    q2n = c.melt_heat * (ice * (1.0f / 1000.0f)) * k.inv_dt;
+    t4n = c.t_lim_melt_ice;
+  }
+  q2n = nmax(q2n, 0.0f);
+
+  const float ice_sum = nmax(0.5f * (ice + ice2) + dep, 0.0f);
+  const bool snowy_a = (snow > 0.01f) && (snow > ice);
+  const bool icy_a = (ice > 0.01f) || (dep > 0.01f);
+  const float icy_alb = ice_sum < 1.5f
+                            ? c.alb_dry + (ice_sum * (1.0f / 1.5f)) * c.alb_span
+                            : c.alb_snow;
+
+  // commit (this point was active): the profile was updated in place
+  s.alb = snowy_a ? c.alb_snow : (icy_a ? icy_alb : c.alb_dry);
+  s.tsurf = tsurf_new;
+  s.wat = wat;
+  s.snow = snow;
+  s.ice = ice;
+  s.ice2 = ice2;
+  s.dep = dep;
+  s.q2m = q2n;
+  s.t4m = t4n;
+  s.evap = evap;
+  s.blc = bl;
+  s.vcold = vcold ? 1.0f : 0.0f;
+  s.failed = nmax(failed ? 1.0f : 0.0f, s.failed);
+}
+
 // LM: register capacity for the profile (nlayers <= LM).  tmp[k] holds
 // profile row k for k < L + 3 (row L+1 climatology, row L+2 the first
 // padded row, read only by the depth interpolation's w == 0 edge).
@@ -661,16 +1082,16 @@ __device__ __forceinline__ float surf_ave(const float (&tmp)[LM + 3],
 // read only there).  FUSED (with SLIM): K3 fused, the step's channels
 // prepared in registers from the raw inputs of `fa` (forcing is not read);
 // the segment lines live in dynamic shared memory, BLOCK floats apart.
+//
+// The body is scan_points, which scan_kernel runs.
 template <int LM, bool DEPTH, bool SLIM, bool FUSED>
-__global__ void __launch_bounds__(BLOCK)
-scan_kernel(const ScanConsts c, const FuseArgs fa,
-            const float* __restrict__ tmp0,
-            const float* __restrict__ scal0,
-            const float* __restrict__ forcing,
-            const float* __restrict__ trf, const float* __restrict__ aux,
-            float* __restrict__ tmp_out, float* __restrict__ scal_out,
-            float* __restrict__ out, int P, int tp, int T, int nsteps,
-            int off, int out_base, int cofs, int t_total, float cof_red) {
+__device__ __forceinline__ void scan_points(
+    const ScanConsts& c, const FuseArgs& fa, const float* __restrict__ tmp0,
+    const float* __restrict__ scal0, const float* __restrict__ forcing,
+    const float* __restrict__ trf, const float* __restrict__ aux,
+    float* __restrict__ tmp_out, float* __restrict__ scal_out,
+    float* __restrict__ out, int P, int tp, int T, int nsteps, int off,
+    int out_base, int cofs, int t_total, float cof_red) {
   using K = Ch<SLIM>;
   extern __shared__ float seg_smem[];
   const int p = blockIdx.x * BLOCK + threadIdx.x;
@@ -717,29 +1138,9 @@ scan_kernel(const ScanConsts c, const FuseArgs fa,
 #pragma unroll
   for (int k = 0; k < LM + 3; ++k)
     tmp[k] = (k < c.lpad && k < L + 3) ? tmp0[k * PP + p] : 0.0f;
+  PointState s = load_state(scal0, PP, p);
+  const StepRecip rk = step_recip(c);
 
-  float tsurf = scal0[R_TSURF * PP + p];
-  float wat = scal0[R_WAT * PP + p];
-  float snow = scal0[R_SNOW * PP + p];
-  float ice = scal0[R_ICE * PP + p];
-  float ice2 = scal0[R_ICE2 * PP + p];
-  float dep = scal0[R_DEP * PP + p];
-  float q2m = scal0[R_Q2MELT * PP + p];
-  float t4m = scal0[R_T4MELT * PP + p];
-  float evap_s = scal0[R_EVAP * PP + p];
-  float blc = scal0[R_BLCOND * PP + p];
-  float alb = scal0[R_ALBEDO * PP + p];
-  float vcold_f = scal0[R_VERYCOLD * PP + p];
-  float failed_f = scal0[R_FAILED * PP + p];
-
-  const float dt = c.dt;
-  const float tph = c.tph;
-  // a division by a constant is a multiply by its correctly rounded
-  // float32 reciprocal, as torch divides by a Python scalar on the card
-  const float inv_dt = 1.0f / dt;
-  const float inv_vk = 1.0f / c.vk;
-  const float inv_melt = 1.0f / c.melt_heat;
-  const float s2i = (float)(0.25 / 0.45);
   // the output cadence as a counter: the first step t whose global step
   // off + t is a multiple of out_stride, and its row; each hit moves both
   // on (no integer divide in the loop; unsigned, so the step past the last
@@ -758,7 +1159,7 @@ scan_kernel(const ScanConsts c, const FuseArgs fa,
       t_hit += (unsigned)c.out_stride;
       ++row_hit;
     }
-    const bool failed_prev = failed_f > 0.5f;
+    const bool failed_prev = s.failed > 0.5f;
 
     if (failed_prev) {
       // frozen point: state unchanged, R_FAILED stays set, output poisoned
@@ -773,309 +1174,20 @@ scan_kernel(const ScanConsts c, const FuseArgs fa,
     }
 
     // K3 fused prepares the step's channels here; the other modes read
-    // them from the forcing where they are used
-    StepIn in;
+    // them from the forcing where the body uses them
+    StepIn in = {};
     if (FUSED) in = fused_prep(fa, p, colbase, FS, seg, tr0, tg, sp);
-#define FIN(X, FIELD) (FUSED ? in.FIELD : __ldg(f + K::X * FS))
-    const float tair = FIN(TAIR, tair);
-    const bool abnormal = (tsurf < -100.0f) || (tsurf > 100.0f);
-    const bool failed = (FIN(VALID, valid) < 0.5f) || abnormal;
-
-    // SetCurrentValues + obs forcing
-    const float obs = FIN(TSURF_OBS, obs);
-    tmp[0] = tair;
-    if (obs > -100.0f) {
-      tmp[1] = obs;
-      tmp[2] = obs;
-      tsurf = surf_ave<LM, DEPTH>(tmp, c);
-    }
-
-    // precipitation to storage
-    wat = wat + FIN(RAIN, rain);
-    snow = snow + FIN(SNOW, snow);
-
-    // boundary-layer fixed point (pallas_step.py:104-172): each thread
-    // stops at its own convergence, which equals the masked freeze
-    const float vz = FIN(VZ, vz);
-    const float air_vcap = FIN(AIRVCAP, airvcap);
-    const float tak = tair + 273.15f;
-    const float dt_ts = tsurf - tair;
-    const float inv_kvz = __frcp_rn(c.vk * vz);
-    const float inv_avt = __frcp_rn(air_vcap * tak);
-    float bl = blc, psim = 0.0f, psih = 0.0f;
-    for (int j = 0; j < c.bl_iters; ++j) {
-      const float ustar_inv = (c.log_ustar + psim) * inv_kvz;
-      const float bl_new = air_vcap * c.vk / ((c.log_cond + psih) * ustar_inv);
-      float stab = c.stab_c * bl_new * dt_ts * inv_avt * ustar_inv *
-                   ustar_inv * ustar_inv;
-      stab = nmin(stab, 1.0f);
-      // a branch, not a select: the unstable side's sqrt and log run only
-      // where a lane takes it (a NaN stab is not stable, as the select had)
-      if (stab > 0.0f) {
-        psih = 4.7f * stab;
-        psim = psih;
-      } else {
-        psih = -2.0f *
-               logf((1.0f + sqrtf(nmax(1.0f - 16.0f * stab, 0.0f))) / 2.0f);
-        psim = 0.6f * psih;
-      }
-      const bool newly = (fabsf(bl_new - bl) < 1e-3f) && (j + 1 >= 5);
-      bl = bl_new;
-      if (newly) break;
-    }
-    const float raero = nmin((c.log_mom + psim) * (c.log_heat + psih) *
-                                 (inv_kvz * inv_vk),
-                             30.0f);
-    const float psych_c = 0.1f * (0.00063f * tak + 0.47496f);
-    const float wat_den = -0.0050f * tsurf * tsurf + 0.0079f * tsurf +
-                          1000.0028f;
-    const float esurf = esat1(tsurf);
-    float le = air_vcap * (esurf - FIN(EAIR, eair)) / (psych_c * raero);
-    const float lheat = tsurf >= 0.0f ? c.lvap : c.lfus;
-    float evap = le / (lheat * wat_den) * 1000.0f * dt;
-    if ((le > 0.0f) && (wat <= 0.0f)) {
-      le = 0.0f;
-      evap = 0.0f;
-    }
-
-    // net radiation
-    const float tk = tsurf + 273.15f;
-    const float tk2 = tk * tk;
-    float rnet;
-    if (SLIM) {
-      // K2's coefficients are 1, or with cofs the decay after the window
-      // end (pallas_step.py:475-493): i_eff = tg + 1, but tg at the
-      // lastValues step t_total - 1, compared in float32
-      float sw_cof = 1.0f, lw_cof = 1.0f;
-      if (cofs) {
-        const float i_eff =
-            (float)((t_total >= 2 && tg == t_total - 1) ? tg : tg + 1);
-        const float expo = __fdiv_rn(
-            -__fsub_rn(__fmul_rn(dt, i_eff), __fmul_rn(dt, a_cend)), cof_red);
-        const float dec = expf(nmin(expo, 0.0f));
-        if ((i_eff >= a_cend) && (a_cend >= 1.0f)) {
-          sw_cof = __fadd_rn(1.0f, __fmul_rn(a_swc, dec));
-          lw_cof = __fadd_rn(1.0f, __fmul_rn(a_lwc, dec));
-        }
-      }
-      // opaque to the optimiser, like K1's loaded channels: a coefficient
-      // known to be 1 (or a select against 1) would let the products below
-      // be folded or split, and round unlike K1's expression
-      asm("" : "+f"(sw_cof), "+f"(lw_cof));
-      rnet = (1.0f - alb) * FIN(SW, sw) * sw_cof +
-             c.emiss * FIN(LW, lw) * lw_cof - c.emiss_sb * tk2 * tk2;
-    } else {
-      rnet = (1.0f - alb) * __ldg(f + C_SW * FS) * __ldg(f + C_SWCOF * FS) +
-             c.emiss * __ldg(f + C_LW * FS) * __ldg(f + C_LWCOF * FS) -
-             c.emiss_sb * tk2 * tk2;
-    }
-
-    // conduction stencil + HStor (pallas_step.py:175-208), in place: layer
-    // j's flux uses the old j and j+1, computed before j is overwritten
-    const float t1a = (tmp[1] + 3.0f * tmp[2]) / 4.0f;
-    float g_prev = rnet - le +
-                   (SLIM ? __ldg(trf + tg) : __ldg(f + C_TRF * FS)) +
-                   bl * (tmp[0] - tmp[1]);
-    float hs1 = 0.0f;
-#pragma unroll
-    for (int j = 1; j <= LM; ++j) {
-      if (j <= L) {
-        const float tj = tmp[j];
-        const float t2_ = tj * tj;
-        const float roo =
-            tj < 0.0f ? 920.0f : -0.0050f * t2_ + 0.0079f * tj + 1000.0028f;
-        const float cw = tj < 0.0f
-                             ? 2100.0f
-                             : 0.0000102f * t2_ * t2_ - 0.0017169f * t2_ * tj +
-                                   0.11516f * t2_ - 3.4739f * tj + 4217.2f;
-        const float chwt = roo * cw;
-        const float vsh = (j <= 2 ? c.dry1 : c.dry2) + c.wcont[j - 1] * chwt;
-        if (j == 1) hs1 = vsh * c.dyc[0] * inv_dt;
-        // -1/x as the negated correctly rounded reciprocal: the same bits
-        // as the IEEE divide, without its quotient refinement and range
-        // check
-        const float cap_dz = -__frcp_rn(c.dyc[j - 1] * vsh);
-        const float gflux = c.cond_dz[j - 1] * (tmp[j + 1] - tj);
-        tmp[j] = tj + dt * cap_dz * (gflux - g_prev);
-        g_prev = gflux;
-      }
-    }
-    const float tna = (tmp[1] + 3.0f * tmp[2]) / 4.0f;
-    const float hstor = hs1 * (tna - t1a);
-
-    // melting limiter (pallas_step.py:218-241)
-    const bool has_frozen = (snow > 0.0f) || (ice > 0.0f) || (ice2 > 0.0f);
-    float q2 = has_frozen ? q2m : 0.0f;
-    if (c.melt_change) {
-      const bool in_cpl = FIN(INCPL, incpl) > 0.5f;
-      const bool guard =
-          (hstor <= 0.00001f) || (tsurf <= t4m) || (q2m <= 0.0f) ||
-          (in_cpl && ((SLIM ? a_obs : __ldg(f + C_CPLOBS * FS)) < t4m));
-      const bool cold = guard && (tsurf < 0.5f);
-      const bool hot = guard && (tsurf > 2.0f);
-      const float qavail = hs1 * (tmp[1] - t4m);
-      const bool pin = has_frozen && !cold && !hot;
-      const bool all_used = q2m >= qavail;
-      if (pin) {
-        tmp[1] = all_used ? t4m + 0.01f : t4m + (qavail - q2m) / hs1;
-        tmp[2] = t4m + 0.01f;
-      }
-      if (has_frozen && cold) q2 = 0.0f;
-      if (has_frozen && hot) q2 = nmin(q2, qavail);
-      if (pin && all_used) q2 = qavail;
-    }
-    const float tsurf_new = surf_ave<LM, DEPTH>(tmp, c);
-    const float ts = tsurf_new;
-
-    // WearFactors + RoadCond + CalcAlbedo (pallas_step.py:244-350)
-    bool vcold = vcold_f > 0.5f;
-    vcold = vcold && !(vcold && (ts > c.t_lim_cold_h));
-    vcold = vcold || (!vcold && (ts < c.t_lim_cold_l));
-
-    float snow_tran = nmax(0.45f * snow, 0.01f);
-    snow_tran = (snow < 0.2f ? snow_tran * 3.0f : snow_tran) * tph;
-    const float ice_wear = nmax((float)(1.1 * 2.0 * 0.145) * ice, 0.01f) * tph;
-    const float ice_wear2 =
-        nmax((float)(1.1 * 2.0 * 4.0 * 0.290) * ice2, 0.01f) * tph;
-    const float dep_wear =
-        nmax((float)(0.5 * 2.0 * 4.0 * 0.290) * dep, 0.01f) * tph;
-    const float wat_wear = 10.0f * nmax(0.145f * wat, 0.06f) * tph;
-
-    const bool bare =
-        (snow <= 0.0f) && (ice <= 0.0f) && (dep <= 0.0f) && (ts > c.t_lim_dew);
-    const float loss = wat > c.max_por_mms ? evap : c.por_eva_f * evap;
-    if (bare) wat = wat - loss;
-    if (wat > 0.0f) {
-      const float ww = wat < c.w_wear_lim ? 0.0f : wat_wear;
-      const float amt = wat > c.w_wet_lim ? ww : c.damp_wear_f * ww;
-      wat = wat - amt;
-    }
-    if (wat < c.min_wat_mms) wat = 0.0f;
-    wat = nmin(wat, c.max_wat_mms);
-    const float srf_ext = nmax(wat - c.max_por_mms, 0.0f);
-
-    const float rd = srf_ext + snow;
-    const float wsr = rd > 0.001f ? srf_ext / rd : 0.0f;
-    const bool snow_wet = (snow > 0.0f) && (wsr > c.wet_snow_form_r);
-    if (snow > 0.0f) {
-      ice = ice + dep;
-      dep = 0.0f;
-    }
-    const float mm = 1000.0f * (q2 * dt) * inv_melt;
-    {
-      const bool has_snow = snow > 0.0f;
-      const bool melt_f = has_snow && c.force_snow;
-      const bool melts =
-          has_snow && !melt_f && (q2 > 0.0f) && (ts >= c.t_lim_melt_snow);
-      if (melt_f) {
-        wat = wat + snow;
-        snow = 0.0f;
-      } else if (melts) {
-        wat = wat + mm;
-        snow = snow - mm;
-      }
-    }
-    if (snow > 0.0f) {
-      snow = snow - snow_tran;
-      ice = ice + s2i * snow_tran;
-      ice2 = ice2 + s2i * snow_tran;
-    }
-    {
-      const bool wet_block = (snow > 0.0f) && snow_wet;
-      if (wet_block && (wsr > c.wet_snow_melt_r)) {
-        wat = wat + snow;
-        snow = 0.0f;
-      }
-      if (wet_block && (ts < c.t_lim_freeze)) {
-        const float amt2 = snow + wat;
-        ice = ice + amt2;
-        ice2 = ice2 + amt2;
-        snow = 0.0f;
-        wat = 0.0f;
-      }
-    }
-    if (snow < c.min_snow_mms) snow = 0.0f;
-    if (snow > c.max_snow_mms) snow = snow - c.half_max_snow;
-
-    if ((ts < c.t_lim_freeze) && (wat > 0.0f)) {
-      ice = ice + wat;
-      ice2 = ice2 + wat;
-      wat = 0.0f;
-    }
-    {
-      const bool meltable = (snow <= 0.0f) && (ice > 0.0f);
-      const bool melt_f = meltable && c.force_ice;
-      const bool melts =
-          meltable && !melt_f && (q2 > 0.0f) && (ts >= c.t_lim_melt_ice);
-      if (melt_f) {
-        wat = wat + ice;
-        ice = 0.0f;
-        ice2 = 0.0f;
-      } else if (melts) {
-        wat = wat + mm;
-        ice = ice - mm;
-        ice2 = ice2 - mm;
-      }
-    }
-    if (ice > 0.0f) ice = ice - ice_wear;
-    if (ice2 > 0.0f) ice2 = ice2 - ice_wear2;
-    if (ice < c.min_ice_mms) ice = 0.0f;
-    ice = nmin(ice, c.max_ice_mms);
-    if (ice2 < c.min_ice_mms) ice2 = 0.0f;
-    ice2 = nmin(ice2, c.max_ice_mms);
-
-    if (evap < 0.0f) dep = dep - evap;
-    if (ts > c.t_lim_melt_dep) {
-      wat = wat + dep;
-      dep = 0.0f;
-    }
-    if ((snow <= 0.0f) && (dep > 0.0f)) dep = dep - dep_wear;
-    if (dep < c.min_dep_mms) dep = 0.0f;
-    if (dep > c.max_dep_mms) wat = wat + dep - c.max_dep_mms;
-    dep = nmin(dep, c.max_dep_mms);
-
-    if (wat < c.min_wat_mms) wat = 0.0f;
-    wat = nmin(wat, c.max_wat_mms);
-
-    float q2n = 0.0f;
-    float t4n = t4m;
-    if (snow > 0.0f) {
-      q2n = c.melt_heat * (snow * (1.0f / 1000.0f)) * inv_dt;
-      t4n = c.t_lim_melt_snow;
-    } else if (ice > 0.0f) {
-      q2n = c.melt_heat * (ice * (1.0f / 1000.0f)) * inv_dt;
-      t4n = c.t_lim_melt_ice;
-    }
-    q2n = nmax(q2n, 0.0f);
-
-    const float ice_sum = nmax(0.5f * (ice + ice2) + dep, 0.0f);
-    const bool snowy_a = (snow > 0.01f) && (snow > ice);
-    const bool icy_a = (ice > 0.01f) || (dep > 0.01f);
-    const float icy_alb =
-        ice_sum < 1.5f ? c.alb_dry + (ice_sum * (1.0f / 1.5f)) * c.alb_span : c.alb_snow;
-    alb = snowy_a ? c.alb_snow : (icy_a ? icy_alb : c.alb_dry);
-
-    // commit (this point was active): the profile was updated in place
-    tsurf = tsurf_new;
-    q2m = q2n;
-    t4m = t4n;
-    evap_s = evap;
-    blc = bl;
-    vcold_f = vcold ? 1.0f : 0.0f;
-    failed_f = nmax(failed ? 1.0f : 0.0f, failed_f);
+    const ScanIn<SLIM, FUSED> src{f,      FS,    in,    trf,   tg,
+                                  cofs,   t_total, c.dt, cof_red, a_swc,
+                                  a_lwc,  a_cend, a_obs};
+    step_body<LM, DEPTH>(c, rk, src, tmp, s);
 
     if (hit && row < c.n_out) {
       float* o = out + ((int64_t)row * N_OUT_FIELDS) * PP + p;
-      o[0] = tsurf;
-      o[1 * PP] = wat;
-      o[2 * PP] = snow;
-      o[3 * PP] = ice;
-      o[4 * PP] = ice2;
-      o[5 * PP] = dep;
+      store_fields(s, o, PP);
       o[6 * PP] = 0.0f;
       o[7 * PP] = 0.0f;
     }
-#undef FIN
   }
 
   // write back: rows 0..L from registers, the rest passed through
@@ -1083,21 +1195,32 @@ scan_kernel(const ScanConsts c, const FuseArgs fa,
   for (int k = 0; k <= LM; ++k)
     if (k <= L) tmp_out[k * PP + p] = tmp[k];
   for (int k = L + 1; k < c.lpad; ++k) tmp_out[k * PP + p] = tmp0[k * PP + p];
-  scal_out[R_TSURF * PP + p] = tsurf;
-  scal_out[R_WAT * PP + p] = wat;
-  scal_out[R_SNOW * PP + p] = snow;
-  scal_out[R_ICE * PP + p] = ice;
-  scal_out[R_ICE2 * PP + p] = ice2;
-  scal_out[R_DEP * PP + p] = dep;
-  scal_out[R_Q2MELT * PP + p] = q2m;
-  scal_out[R_T4MELT * PP + p] = t4m;
-  scal_out[R_EVAP * PP + p] = evap_s;
-  scal_out[R_BLCOND * PP + p] = blc;
-  scal_out[R_ALBEDO * PP + p] = alb;
-  scal_out[R_VERYCOLD * PP + p] = vcold_f;
-  scal_out[R_FAILED * PP + p] = failed_f;
-  for (int r = R_FAILED + 1; r < NROWS; ++r)
-    scal_out[r * PP + p] = scal0[r * PP + p];
+  store_state(s, scal0, scal_out, PP, p);
+}
+
+#define SCAN_KERNEL_PARAMS                                                  \
+  const ScanConsts c, const FuseArgs fa, const float* __restrict__ tmp0,    \
+      const float* __restrict__ scal0, const float* __restrict__ forcing,   \
+      const float* __restrict__ trf, const float* __restrict__ aux,         \
+      float* __restrict__ tmp_out, float* __restrict__ scal_out,            \
+      float* __restrict__ out, int P, int tp, int T, int nsteps, int off,   \
+      int out_base, int cofs, int t_total, float cof_red
+#define SCAN_KERNEL_ARGS                                                    \
+  c, fa, tmp0, scal0, forcing, trf, aux, tmp_out, scal_out, out, P, tp, T,  \
+      nsteps, off, out_base, cofs, t_total, cof_red
+
+// K1 and K2 at LM = 16 without an output depth (the station routes) ask
+// ptxas for 8 blocks of 128 threads an SM.  Since the step body is shared
+// with K5 (step_body), ptxas gives them 70 registers without that bound (7
+// blocks an SM, 4-7% slower a station chunk) where the inline body had 64;
+// with it, 64 and a few bytes of spills (PERF.md, Findings).  A minimum
+// of 0 is no minimum: the other instantiations build as with the bound
+// BLOCK alone, registers and SASS alike (a minimum of 1 does not).
+template <int LM, bool DEPTH, bool SLIM, bool FUSED>
+__global__ void __launch_bounds__(BLOCK,
+                                  (LM == 16 && !DEPTH && !FUSED) ? 8 : 0)
+    scan_kernel(SCAN_KERNEL_PARAMS) {
+  scan_points<LM, DEPTH, SLIM, FUSED>(SCAN_KERNEL_ARGS);
 }
 
 // Dispatch on the layer bucket and the output-depth option; returns
@@ -1146,6 +1269,389 @@ static int launch(const ScanConsts* c, const FuseArgs* fa,
     if (c->use_depth) LAUNCH(32, true); else LAUNCH(32, false);
   }
 #undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// ---- K5, the coupling window (phase B of the coupled run) ---------------
+//
+// No Pallas counterpart: the JAX package compiles phase B as one jit
+// (roadsurf_tpu/production.py:2041-2101), coupling.run_window_passes
+// (roadsurf_tpu/coupling.py:466-690) as ONE lax.while_loop with one
+// instance of the step graph, which XLA makes one device program.  This
+// kernel is the port's counterpart of that program.  Plain version with
+// the same semantics: roadsurf_tpu_torch/ops/window_kernel.py:
+// window_reference.
+//
+// What it computes: the global coupling window [ws, we_b] (1-based steps)
+// of every point, exactly what run_window_passes does to that point, from
+// the state after phase A: the first pass (an uncoupled point steps ws..
+// we_b, a coupled one ws..end_i, with the snapshot, the coefficient reset
+// and the coefficient choice at start_i, snowIceCheck inside its window and
+// Coupling_control at end_i), up to 25 rewinds (restore, the coefficients
+// from the choice, a re-run of start_i..end_i whose first step takes the
+// pre-rewind row's CheckValues), and the tail end_i+1..we_b with the
+// decayed coefficients.  Each step is the scan kernel's step_body; each
+// step on an output row writes its slot (a later re-run overwrites it).
+//
+// What bounds it on this card: operations, not bytes.  A point reads its
+// state and its window's forcing once a step it takes and writes its state
+// once; the work is the steps the point actually takes, the first pass
+// plus each re-run plus the tail, each a scan-kernel step.
+//
+// What the design does about it.  The TPU and XLA run the window pass by
+// pass over all points, every point masked through every row of a pass.
+// GPU threads branch on their own, so here each thread runs its own
+// point's program counter (the per-point PC engine of coupling.run_coupled,
+// coupling.py:9-14): the pass and the step index are registers, a pass
+// ends where the point's own range ends, and a point that needs no rewind
+// runs no re-run rows.  Lanes of a warp at different steps, or in
+// different passes, still run the one step body together: a loop trip
+// settles the lane's pass transitions (rewind or tail) and then runs one
+// instance of step_body.  The profile and the state stay in registers as
+// in K2; the snapshot, written once at start_i and read at each rewind,
+// lives in global scratch [L+3+7, n], not in registers.  The forcing is a
+// table [W+1 rows, 16, R] in K1's channel layout read at the point's
+// column fidx: the station-rank prepared channels on the station route
+// (R = S+1, so the expanded window never exists), the prepared window
+// itself elsewhere (R = the slice's points).  Coupling_control is float32
+// and branch-free as torch's (coupling.py:98-184), rounded as torch rounds
+// it on the card.  MAX_RERUNS bounds a lane's rewinds as a guard only: the
+// control fails a point at its 25th iteration, so no lane reaches it; the
+// host reads the re-run counts and raises past it (run_production_coupled).
+
+#define M_FIRST 0
+#define M_RERUN 1
+#define M_TAIL 2
+#define M_DONE 3
+#define MAX_RERUNS 64
+#define K0_F 273.16f   // Coupling_control works in Kelvin (coupling.py:49)
+
+// Mirror of WinArgs in ops/window_kernel.py (pointers, then ints, then the
+// float; checked by size before any launch).  Points [p0, p0 + n) of a
+// block of P: per-point arrays of the block at p, fidx and the snapshot at
+// j = p - p0.
+struct WinArgs {
+  const float* tmp0;            // [lpad, P] profile after phase A
+  const float* scal0;           // [NROWS, P] packed state after phase A
+  const float* table;           // [W1, NCH, R] forcing of rows ws-1 .. we_b
+  const int* fidx;              // [n] each point's column of the table
+  const float* trf;             // [W1] traffic friction of those rows
+  const int* cstart;            // [P] coupling_start
+  const int* cend;              // [P] coupling_end
+  const float* obs;             // [P] coupling obs
+  const unsigned char* flags;   // [P] 1: coupled, 2: sky view active
+  float* tmp_out;               // [lpad, P]
+  float* scal_out;              // [NROWS, P]
+  float* rows;                  // [n_out, 6, P] output rows, pre-filled
+  float* snap;                  // [L+3+7, n] snapshot scratch, zeroed
+  float* sw_corr;               // [P]
+  float* lw_corr;               // [P]
+  unsigned char* cv_failed;     // [P] Coupling_failed
+  int* reruns;                  // [P] rewinds of each point
+  int* steps;                   // [P] steps each point took
+  int P, p0, n, R, W1, ws, we_b, T, out_stride, first_hit, n_out;
+  float cof_red;
+};
+
+// Per-point coupling iteration state (coupling.CouplingVars).
+struct CplVars {
+  float sw_cof, lw_cof, sw_corr, lw_corr, radcoeff, radc_above, radc_below,
+      radc_prev, t_above, t_below, tsurf_end1;
+  int iterations;
+  bool again, failed;
+};
+
+// Coupling_control (src/Coupling.f90:292-481; coupling.coupling_control),
+// applied: each branch of torch's select form as its float32 operations.
+__device__ __forceinline__ void coupling_control(float tsurf_c, float obs_c,
+                                                 CplVars& cv) {
+  const float t = tsurf_c + K0_F;
+  const float ob = obs_c + K0_F;
+  const int it = cv.iterations;
+  const bool b_maxit = it == 25;
+  const bool b_missing = !b_maxit && (ob < (float)(-100.0 + 273.16));
+  const bool b_abn = !b_maxit && !b_missing && ((t < 170.0f) || (t > 400.0f));
+  const bool prior = b_maxit || b_missing || b_abn;
+  const bool b_above = !prior && (t - ob > 0.1f);
+  const bool b_below = !prior && !b_above && (ob - t > 0.1f);
+  const bool b_success = !(prior || b_above || b_below);
+  const float tsurf_end1 = it == 0 ? t : cv.tsurf_end1;
+  bool fail_any = b_maxit || b_missing || b_abn;
+  const bool again_f = b_maxit ? (fabsf(tsurf_end1 - ob) < fabsf(t - ob))
+                               : (b_missing || b_abn);
+  // save-nearest updates (:366-375, :414-424)
+  const bool upd_above =
+      b_above && ((cv.t_above < -100.0f) || (cv.t_above - ob > t - ob));
+  float t_above = upd_above ? t : cv.t_above;
+  const float radc_above = upd_above ? cv.radcoeff : cv.radc_above;
+  const bool upd_below =
+      b_below && ((cv.t_below < -100.0f) || (cv.t_below - ob < t - ob));
+  float t_below = upd_below ? t : cv.t_below;
+  const float radc_below = upd_below ? cv.radcoeff : cv.radc_below;
+  const bool have_both = (t_above > -100.0f) && (t_below > -100.0f);
+  const float d_above = t_above - ob;
+  const float d_below = ob - t_below;
+  // torch compares |d| < 1e-300 in float32, where 1e-300 is 0: never true
+  const float dsum = d_above + d_below;
+  const float denom = fabsf(dsum) < (float)1e-300 ? 1.0f : dsum;
+  const float secant = radc_above - d_above / denom * (radc_above - radc_below);
+  const float rad_above = have_both ? secant : 0.5f * cv.radcoeff;
+  const float rad_below = have_both ? secant : 2.0f * cv.radcoeff;
+  float radcoeff = b_above ? rad_above : (b_below ? rad_below : cv.radcoeff);
+  const bool stuck =
+      (b_above || b_below) && (fabsf(radcoeff - cv.radc_prev) < 0.00005f);
+  if (stuck) {
+    t_above = -9999.0f;
+    t_below = -9999.0f;
+  }
+  const bool too_small = b_above && (radcoeff < 0.01f);   // :400-408
+  fail_any = fail_any || too_small;
+  if (too_small) radcoeff = 1.0f;
+  const float radc_prev = (b_above || b_below) ? radcoeff : cv.radc_prev;
+  // success (:450-474): radcoeff > 3 resets the corrections, not failed
+  const bool big = b_success && (cv.radcoeff > 3.0f);
+  const float sw_cof_s = big ? 1.0f : cv.sw_cof;
+  const float lw_cof_s = big ? 1.0f : cv.lw_cof;
+  CplVars n;
+  n.sw_cof = fail_any ? 1.0f : (b_success ? sw_cof_s : cv.sw_cof);
+  n.lw_cof = fail_any ? 1.0f : (b_success ? lw_cof_s : cv.lw_cof);
+  n.sw_corr = fail_any ? 0.0f : (b_success ? sw_cof_s - 1.0f : cv.sw_corr);
+  n.lw_corr = fail_any ? 0.0f : (b_success ? lw_cof_s - 1.0f : cv.lw_corr);
+  n.radcoeff = (fail_any || b_success) ? 1.0f : radcoeff;
+  n.t_above = b_success ? -9999.0f : t_above;
+  n.t_below = b_success ? -9999.0f : t_below;
+  n.radc_above = b_success ? -9999.0f : radc_above;
+  n.radc_below = b_success ? -9999.0f : radc_below;
+  n.radc_prev = b_success ? 1.0f : radc_prev;
+  n.tsurf_end1 = tsurf_end1;
+  n.iterations = b_success ? 0 : it + 1;
+  n.again = again_f || b_above || b_below;
+  n.failed = (fail_any || (cv.failed && !b_success)) && !b_success;
+  cv = n;
+}
+
+// snowIceCheck (src/Coupling.f90:259-289; physics/storage.snow_ice_check)
+__device__ __forceinline__ void snow_ice_check(const ScanConsts& c, float ob,
+                                               PointState& s) {
+  if ((ob > c.t_lim_melt_snow) && (s.snow > 0.0f)) {
+    s.wat = s.wat + s.snow;
+    s.snow = 0.0f;
+  }
+  const bool warm_ice = ob > c.t_lim_melt_ice;
+  if (warm_ice && (s.ice > 0.0f)) {
+    s.wat = s.wat + s.ice;
+    s.ice = 0.0f;
+  }
+  if (warm_ice && (s.ice2 > 0.0f)) s.ice2 = 0.0f;
+  if ((ob > c.t_lim_melt_dep) && (s.dep > 0.0f)) {
+    s.wat = s.wat + s.dep;
+    s.dep = 0.0f;
+  }
+}
+
+// The window kernel's step inputs: the forcing channels from the table row
+// at the point's column (K1's layout), CheckValues, the coupling-phase
+// flag and the radiation coefficients from the lane's own program, the
+// coupling obs and the row's traffic friction.
+struct WinIn {
+  const float* f;
+  int64_t fs;
+  float valid_v, trf_v, sw_cof, lw_cof, obs_v;
+  bool incpl_v;
+#define IN_CH(NAME, X) \
+  __device__ __forceinline__ float NAME() const { return __ldg(f + X * fs); }
+  IN_CH(tair, C_TAIR)
+  IN_CH(vz, C_VZ)
+  IN_CH(eair, C_EAIR)
+  IN_CH(rain, C_RAIN)
+  IN_CH(snow, C_SNOW)
+  IN_CH(sw, C_SW)
+  IN_CH(lw, C_LW)
+  IN_CH(obs, C_TSURF_OBS)
+  IN_CH(airvcap, C_AIRVCAP)
+#undef IN_CH
+  __device__ __forceinline__ float valid() const { return valid_v; }
+  __device__ __forceinline__ float incpl() const {
+    return incpl_v ? 1.0f : 0.0f;
+  }
+  __device__ __forceinline__ float trf_fric() const { return trf_v; }
+  __device__ __forceinline__ float cplobs() const { return obs_v; }
+  __device__ __forceinline__ void rad_cofs(float& sw, float& lw) const {
+    sw = sw_cof;
+    lw = lw_cof;
+    asm("" : "+f"(sw), "+f"(lw));
+  }
+};
+
+template <int LM, bool DEPTH>
+__global__ void __launch_bounds__(BLOCK)
+window_kernel(const ScanConsts c, const WinArgs a) {
+  const int j = blockIdx.x * BLOCK + threadIdx.x;
+  if (j >= a.n) return;
+  const int p = a.p0 + j;
+  const int64_t PP = a.P, NN = a.n;
+  const int L = c.L;
+  // the profile rows the snapshot holds (rows 0 .. L+2 that exist)
+  const int nsnap = L + 3 < c.lpad ? L + 3 : c.lpad;
+
+  float tmp[LM + 3];
+#pragma unroll
+  for (int k = 0; k < LM + 3; ++k)
+    tmp[k] = (k < c.lpad && k < L + 3) ? a.tmp0[k * PP + p] : 0.0f;
+  PointState s = load_state(a.scal0, PP, p);
+  const StepRecip rk = step_recip(c);
+
+  const int si = a.cstart[p], ei = a.cend[p];
+  const float ob = a.obs[p];
+  const unsigned char fl = a.flags[p];
+  const bool cpl = (fl & 1) != 0, sky = (fl & 2) != 0;
+  const int64_t RS = a.R;                     // channel stride
+  const int64_t row_stride = (int64_t)NCH * RS;
+  const float* col = a.table + __ldg(a.fidx + j);
+  float* snap = a.snap + j;
+  const float dt = c.dt;
+
+  CplVars cv{1.0f, 1.0f, 0.0f, 0.0f, 1.0f, -9999.0f, -9999.0f,
+             1.0f, -9999.0f, -9999.0f, 0.0f, 0, false, ob < -100.0f};
+  bool choice = false, vf = false;
+  int mode = M_FIRST, i = a.ws;
+  int hi = cpl ? (ei < a.we_b ? ei : a.we_b) : a.we_b;
+  int nre = 0, nst = 0;
+
+  for (;;) {
+    // the pass transitions of run_window_passes for this point: past the
+    // end of its pass, rewind (while its control asks) or go to the tail;
+    // a failed point takes no step again
+    while (mode != M_DONE && (i > hi || s.failed > 0.5f)) {
+      if (s.failed > 0.5f || mode == M_TAIL || nre > MAX_RERUNS) {
+        mode = M_DONE;
+      } else if (cv.again && cpl && ei + 1 < a.T) {
+        // CheckValues of the pre-rewind row end_i on the pre-restore state
+        const int vrow = clampi(ei - (a.ws - 1), 0, a.W1 - 1);
+        vf = !(__ldg(col + vrow * row_stride + C_VALID * RS) < 0.5f) &&
+             !((s.tsurf < -100.0f) || (s.tsurf > 100.0f));
+        // uploadDataForCoupling: not ice, not q2melt/t4melt/evap/blcond
+#pragma unroll
+        for (int k = 0; k < LM + 3; ++k)
+          if (k < nsnap) tmp[k] = snap[k * NN];
+        s.tsurf = snap[(L + 3) * NN];
+        s.wat = snap[(L + 4) * NN];
+        s.snow = snap[(L + 5) * NN];
+        s.ice2 = snap[(L + 6) * NN];
+        s.dep = snap[(L + 7) * NN];
+        s.alb = snap[(L + 8) * NN];
+        s.vcold = snap[(L + 9) * NN];
+        cv.again = false;
+        cv.sw_cof = choice ? cv.radcoeff : 1.0f;
+        cv.lw_cof = choice ? 1.0f : cv.radcoeff;
+        ++nre;
+        mode = M_RERUN;
+        i = si > a.ws ? si : a.ws;
+        hi = ei;
+      } else {
+        mode = M_TAIL;
+        i = ei + 1 > a.ws ? ei + 1 : a.ws;
+        hi = cpl ? a.we_b : -1;
+      }
+    }
+    if (mode == M_DONE) break;
+
+    // one step at (mode, i): table row i - ws holds global row i - 1
+    const float* f = col + (int64_t)(i - a.ws) * row_stride;
+    bool incpl;
+    if (mode == M_FIRST) {
+      if (cpl && i == si) {
+        if (cv.iterations == 0) {
+          // saveDataForCoupling and the coefficient reset (:55-64)
+#pragma unroll
+          for (int k = 0; k < LM + 3; ++k)
+            if (k < nsnap) snap[k * NN] = tmp[k];
+          snap[(L + 3) * NN] = s.tsurf;
+          snap[(L + 4) * NN] = s.wat;
+          snap[(L + 5) * NN] = s.snow;
+          snap[(L + 6) * NN] = s.ice2;
+          snap[(L + 7) * NN] = s.dep;
+          snap[(L + 8) * NN] = s.alb;
+          snap[(L + 9) * NN] = s.vcold;
+          cv.sw_cof = 1.0f;
+          cv.lw_cof = 1.0f;
+          cv.sw_corr = 0.0f;
+          cv.lw_corr = 0.0f;
+        }
+        // the coefficient choice (:66-77) at the window-start row
+        choice = (__ldg(f + C_SW * RS) > __ldg(f + C_LW * RS)) && !sky;
+      }
+      incpl = cpl && i >= si && i <= ei;
+    } else {
+      // a re-run's first step ran with the pre-rewind index: flag false
+      incpl = mode == M_RERUN && i > si && i <= ei;
+    }
+    const float valid = (mode == M_RERUN && i == si)
+                            ? (vf ? 1.0f : 0.0f)
+                            : __ldg(f + C_VALID * RS);
+    if (incpl) snow_ice_check(c, ob, s);
+    float swc = cv.sw_cof, lwc = cv.lw_cof;
+    if (mode == M_TAIL) {
+      // the post-window decay (:82-88), IEEE division by the runtime tau
+      const float expo = __fdiv_rn(
+          -__fsub_rn(__fmul_rn(dt, (float)i), __fmul_rn(dt, (float)ei)),
+          a.cof_red);
+      const float dec = expf(nmin(expo, 0.0f));
+      swc = __fadd_rn(1.0f, __fmul_rn(cv.sw_corr, dec));
+      lwc = __fadd_rn(1.0f, __fmul_rn(cv.lw_corr, dec));
+    }
+    const WinIn in{f,   RS,  valid, __ldg(a.trf + (i - a.ws)),
+                   swc, lwc, ob,    incpl};
+    step_body<LM, DEPTH>(c, rk, in, tmp, s);
+
+    // SaveOutput (overwritten by a later re-run of the row)
+    const int r = i - 1;
+    if (r % a.out_stride == 0) {
+      const int slot = (r - a.first_hit) / a.out_stride;
+      if (slot >= 0 && slot < a.n_out)
+        store_fields(s, a.rows + ((int64_t)slot * 6) * PP + p, PP);
+    }
+    // CheckEndCoupling (:98-118), never in the tail
+    if (mode != M_TAIL && cpl && i == ei && !cv.failed && !(s.failed > 0.5f))
+      coupling_control(s.tsurf, ob, cv);
+    ++i;
+    ++nst;
+  }
+
+  // write back: the profile rows the window can change from registers
+  // (the snapshot restores rows 0 .. L+2), the rest passed through
+#pragma unroll
+  for (int k = 0; k < LM + 3; ++k)
+    if (k < nsnap) a.tmp_out[k * PP + p] = tmp[k];
+  for (int k = nsnap; k < c.lpad; ++k)
+    a.tmp_out[k * PP + p] = a.tmp0[k * PP + p];
+  store_state(s, a.scal0, a.scal_out, PP, p);
+  a.sw_corr[p] = cv.sw_corr;
+  a.lw_corr[p] = cv.lw_corr;
+  a.cv_failed[p] = cv.failed ? 1 : 0;
+  a.reruns[p] = nre;
+  a.steps[p] = nst;
+}
+
+// K5 on `stream`: points [a->p0, a->p0 + a->n) of a->P; returns
+// cudaGetLastError() after the launch (0 = ok).
+static int launch_window(const ScanConsts* c, const WinArgs* a,
+                         void* stream) {
+  if (a == nullptr || a->n <= 0 || a->p0 < 0 || a->p0 + a->n > a->P ||
+      a->R <= 0 || a->W1 < 2 || a->ws < 1 || a->we_b < a->ws ||
+      a->we_b - a->ws + 2 != a->W1 || a->we_b > a->T - 1 ||
+      a->out_stride < 1 || a->n_out < 1 || c->L < 1 || c->L > LMAX_ALL ||
+      c->lpad < c->L + 2)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((a->n + BLOCK - 1) / BLOCK);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c->L <= 16) {
+    if (c->use_depth) window_kernel<16, true><<<grid, BLOCK, 0, s>>>(*c, *a);
+    else window_kernel<16, false><<<grid, BLOCK, 0, s>>>(*c, *a);
+  } else {
+    if (c->use_depth) window_kernel<32, true><<<grid, BLOCK, 0, s>>>(*c, *a);
+    else window_kernel<32, false><<<grid, BLOCK, 0, s>>>(*c, *a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1253,10 +1759,16 @@ int roadsurf_scan_sharded(const ScanConsts* c, int n, const int* devices,
   return rc;
 }
 
-// sizeof(ScanConsts) and sizeof(FuseArgs), checked against the ctypes
-// mirrors before any launch
+// K5, the coupling window, on `stream` (WinArgs above).
+int roadsurf_window(const ScanConsts* c, const WinArgs* a, void* stream) {
+  return launch_window(c, a, stream);
+}
+
+// sizeof(ScanConsts), sizeof(FuseArgs) and sizeof(WinArgs), checked
+// against the ctypes mirrors before any launch
 int roadsurf_consts_size(void) { return (int)sizeof(ScanConsts); }
 int roadsurf_fuse_args_size(void) { return (int)sizeof(FuseArgs); }
+int roadsurf_win_args_size(void) { return (int)sizeof(WinArgs); }
 
 const char* roadsurf_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -124,7 +124,17 @@ def load(sources=SOURCES) -> ctypes.CDLL:
     lib.roadsurf_error_string.argtypes = [ci]
     lib.roadsurf_error_string.restype = ctypes.c_char_p
     from .scan_kernel import FuseArgs, ScanConsts
-    for name, mirror in (("consts", ScanConsts), ("fuse_args", FuseArgs)):
+    mirrors = [("consts", ScanConsts), ("fuse_args", FuseArgs)]
+    # K5's entry; a copy of the source from before K5 (a measurement's
+    # variant) has none
+    if hasattr(lib, "roadsurf_window"):
+        from .window_kernel import WinArgs
+        lib.roadsurf_window.argtypes = [vp] * 3
+        lib.roadsurf_window.restype = ci
+        lib.roadsurf_win_args_size.argtypes = []
+        lib.roadsurf_win_args_size.restype = ci
+        mirrors.append(("win_args", WinArgs))
+    for name, mirror in mirrors:
         size = getattr(lib, f"roadsurf_{name}_size")()
         if size != ctypes.sizeof(mirror):
             raise RuntimeError(

@@ -583,6 +583,109 @@ def _decayed_cofs(aux, tg: int, t_total: int, dt: float, cof_red: float):
             torch.where(on, 1.0 + aux[A_LWCORR] * dec, 1.0))
 
 
+def grid_layers(grid: LayerGrid):
+    """``step_rows``' ``layers`` of ``grid``: (dyc, cond_dz, wcont) as
+    float32-rounded Python floats, and the layer count."""
+    f32 = lambda a: tuple(float(v) for v in np.asarray(a, np.float32))
+    return f32(grid.dyc), f32(grid.cond_dz), f32(grid.wcont), grid.nlayers
+
+
+def step_rows(tmp, sc, ch, cofs, trf, cplobs, cfg: StepConfig,
+              p: PhysicsParams, layers, act=None, stats: dict = None):
+    """One step of the kernel's body (``step_body`` of csrc/scan_kernel.cu;
+    pallas_step.py:411-568) on the profile rows ``tmp`` (LPAD [P] rows) and
+    the packed state rows ``sc`` (NROWS [P] rows), updated in place where
+    the point has not failed before the step (and, with ``act``, where
+    ``act`` holds).  ``ch(c)`` is forcing channel ``c`` (K1's channel
+    indices; C_VALID and C_INCPL are read as floats against 0.5), ``cofs``
+    the radiation coefficients (sw, lw), ``trf`` the traffic friction,
+    ``cplobs`` the coupling obs; ``layers`` is (dyc, cond_dz, wcont,
+    nlayers) as float32-rounded Python floats.  Returns the failed mask
+    before the step."""
+    dyc, cond_dz, wcont, nlayers = layers
+    dt = cfg.dt
+    tair = ch(C_TAIR)
+    failed_prev = sc[R_FAILED] > 0.5
+    tsurf = sc[R_TSURF]
+    abnormal = (tsurf < -100.0) | (tsurf > 100.0)
+    failed = failed_prev | (ch(C_VALID) < 0.5) | abnormal
+    active = ~failed_prev if act is None else act & ~failed_prev
+
+    # SetCurrentValues + obs forcing
+    obs = ch(C_TSURF_OBS)
+    force_obs = obs > -100.0
+    cur = list(tmp)
+    cur[0] = tair
+    cur[1] = torch.where(force_obs, obs, tmp[1])
+    cur[2] = torch.where(force_obs, obs, tmp[2])
+    tsurf = torch.where(force_obs, _surf_ave(cur, cfg), tsurf)
+
+    # precipitation to storage
+    wat = sc[R_WAT] + ch(C_RAIN)
+    snow = sc[R_SNOW] + ch(C_SNOW)
+    ice, ice2, dep = sc[R_ICE], sc[R_ICE2], sc[R_DEP]
+
+    # boundary layer + latent heat
+    vz = ch(C_VZ)
+    air_vcap = ch(C_AIRVCAP)
+    bl, psim, psih, inv_kvz, iters = _bl_fixed_point(
+        sc[R_BLCOND], tsurf, tair, vz, air_vcap, p, cfg.bl_max_iter)
+    if stats is not None:
+        lane = torch.where(active, iters, 0.0).to(torch.int64)
+        for key, n in (("point_steps", active.sum()),
+                       ("bl_iters", lane.sum()),
+                       ("bl_warp_iters", _warp_iters(lane))):
+            stats[key] = stats.get(key, 0) + int(n)
+    raero = torch.clamp((p.log_mom + psim) * (p.log_heat + psih)
+                        * (inv_kvz / p.vk_const), max=30.0)
+    tak = tair + 273.15
+    psych_c = 0.1 * (0.00063 * tak + 0.47496)
+    wat_den = -0.0050 * tsurf * tsurf + 0.0079 * tsurf + 1000.0028
+    esurf = _esat(tsurf)
+    le = air_vcap * (esurf - ch(C_EAIR)) / (psych_c * raero)
+    lheat = _sel(tsurf >= 0.0, p.lvap, p.lfus, tsurf)
+    evap = le / (lheat * wat_den) * 1000.0 * dt
+    dry = (le > 0.0) & (wat <= 0.0)
+    le = torch.where(dry, torch.zeros_like(le), le)
+    evap = torch.where(dry, torch.zeros_like(evap), evap)
+
+    # net radiation
+    sw_cof, lw_cof = cofs
+    tk = tsurf + 273.15
+    tk2 = tk * tk
+    rnet = ((1.0 - sc[R_ALBEDO]) * ch(C_SW) * sw_cof
+            + p.emiss * ch(C_LW) * lw_cof
+            - p.emiss * p.sb_const * tk2 * tk2)
+
+    # stencil + melting limiter
+    new_tmp, hs1, hstor = _stencil(cur, bl, rnet, le, trf, dt, p,
+                                   dyc, cond_dz, wcont, nlayers)
+    new_tmp, q2 = _melting(new_tmp, tsurf, snow, ice, ice2,
+                           sc[R_Q2MELT], sc[R_T4MELT], hstor, hs1,
+                           ch(C_INCPL) > 0.5, cplobs, cfg, p)
+    tsurf_new = _surf_ave(new_tmp, cfg)
+
+    # storages
+    (wat, snow, ice, ice2, dep, vcold, q2, t4, albedo) = _road_cond(
+        wat, snow, ice, ice2, dep, tsurf_new, evap, q2, sc[R_T4MELT],
+        sc[R_VERYCOLD] > 0.5, cfg, p)
+
+    # commit (mask by active)
+    sel = lambda n, o: torch.where(active, n, o)
+    tmp[:] = [sel(n, o) for n, o in zip(new_tmp, tmp)]
+    new_rows = {
+        R_TSURF: tsurf_new, R_WAT: wat, R_SNOW: snow, R_ICE: ice,
+        R_ICE2: ice2, R_DEP: dep, R_Q2MELT: q2, R_T4MELT: t4,
+        R_EVAP: evap, R_BLCOND: bl, R_ALBEDO: albedo,
+        R_VERYCOLD: vcold.to(torch.float32)}
+    for r, v in new_rows.items():
+        sc[r] = sel(v, sc[r])
+    new_failed = torch.maximum(failed.to(torch.float32), sc[R_FAILED])
+    sc[R_FAILED] = (new_failed if act is None
+                    else torch.where(act, new_failed, sc[R_FAILED]))
+    return failed_prev
+
+
 def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
                    grid: LayerGrid, out_stride: int = 1, nsteps: int = None,
                    out_offset=None, n_out: int = None, slim_trf=None,
@@ -634,9 +737,7 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     # [n_tiles, T, nch, TP] view: one tile of width P for the point-major
     # layout, so both layouts run the one loop below
     f4 = forcing if forcing.dim() == 4 else forcing.unsqueeze(0)
-    nlayers = grid.nlayers
-    f32 = lambda a: tuple(float(v) for v in np.asarray(a, np.float32))
-    dyc, cond_dz, wcont = f32(grid.dyc), f32(grid.cond_dz), f32(grid.wcont)
+    layers = grid_layers(grid)
     dt = cfg.dt
 
     tmp = [tmp0[j].clone() for j in range(lpad)]
@@ -648,93 +749,19 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
         ch = ((lambda c: f[:, SLIM_POS[c]].reshape(P)) if slim
               else (lambda c: f[:, c].reshape(P)))
         tg = off + t
-        tair = ch(C_TAIR)
-        failed_prev = sc[R_FAILED] > 0.5
-        tsurf = sc[R_TSURF]
-        abnormal = (tsurf < -100.0) | (tsurf > 100.0)
-        failed = failed_prev | (ch(C_VALID) < 0.5) | abnormal
-        active = ~failed_prev
-
-        # SetCurrentValues + obs forcing
-        obs = ch(C_TSURF_OBS)
-        force_obs = obs > -100.0
-        cur = list(tmp)
-        cur[0] = tair
-        cur[1] = torch.where(force_obs, obs, tmp[1])
-        cur[2] = torch.where(force_obs, obs, tmp[2])
-        tsurf = torch.where(force_obs, _surf_ave(cur, cfg), tsurf)
-
-        # precipitation to storage
-        wat = sc[R_WAT] + ch(C_RAIN)
-        snow = sc[R_SNOW] + ch(C_SNOW)
-        ice, ice2, dep = sc[R_ICE], sc[R_ICE2], sc[R_DEP]
-
-        # boundary layer + latent heat
-        vz = ch(C_VZ)
-        air_vcap = ch(C_AIRVCAP)
-        bl, psim, psih, inv_kvz, iters = _bl_fixed_point(
-            sc[R_BLCOND], tsurf, tair, vz, air_vcap, p, cfg.bl_max_iter)
-        if stats is not None:
-            lane = torch.where(active, iters, 0.0).to(torch.int64)
-            for key, n in (("point_steps", active.sum()),
-                           ("bl_iters", lane.sum()),
-                           ("bl_warp_iters", _warp_iters(lane))):
-                stats[key] = stats.get(key, 0) + int(n)
-        raero = torch.clamp((p.log_mom + psim) * (p.log_heat + psih)
-                            * (inv_kvz / p.vk_const), max=30.0)
-        tak = tair + 273.15
-        psych_c = 0.1 * (0.00063 * tak + 0.47496)
-        wat_den = -0.0050 * tsurf * tsurf + 0.0079 * tsurf + 1000.0028
-        esurf = _esat(tsurf)
-        le = air_vcap * (esurf - ch(C_EAIR)) / (psych_c * raero)
-        lheat = _sel(tsurf >= 0.0, p.lvap, p.lfus, tsurf)
-        evap = le / (lheat * wat_den) * 1000.0 * dt
-        dry = (le > 0.0) & (wat <= 0.0)
-        le = torch.where(dry, torch.zeros_like(le), le)
-        evap = torch.where(dry, torch.zeros_like(evap), evap)
-
-        # net radiation; the slim mode's coefficients are 1 (multiplying by
-        # the exact 1.0 reproduces K1's ones channels bit for bit), or the
-        # in-kernel post-coupling decay
+        # net radiation's coefficients: K1's channels; the slim mode's are
+        # 1 (multiplying by the exact 1.0 reproduces K1's ones channels bit
+        # for bit), or the in-kernel post-coupling decay
         if not slim:
-            sw_cof, lw_cof = ch(C_SWCOF), ch(C_LWCOF)
+            cofs = (ch(C_SWCOF), ch(C_LWCOF))
         elif aux_cofs:
-            sw_cof, lw_cof = _decayed_cofs(aux_rows, tg, t_total, dt,
-                                           cof_red)
+            cofs = _decayed_cofs(aux_rows, tg, t_total, dt, cof_red)
         else:
-            sw_cof = lw_cof = 1.0
-        tk = tsurf + 273.15
-        tk2 = tk * tk
-        rnet = ((1.0 - sc[R_ALBEDO]) * ch(C_SW) * sw_cof
-                + p.emiss * ch(C_LW) * lw_cof
-                - p.emiss * p.sb_const * tk2 * tk2)
-
-        # stencil + melting limiter
+            cofs = (1.0, 1.0)
         trf = slim_trf[tg] if slim else ch(C_TRF)
         cplobs = aux_rows[A_CPLOBS] if slim else ch(C_CPLOBS)
-        new_tmp, hs1, hstor = _stencil(cur, bl, rnet, le, trf, dt, p,
-                                       dyc, cond_dz, wcont, nlayers)
-        new_tmp, q2 = _melting(new_tmp, tsurf, snow, ice, ice2,
-                               sc[R_Q2MELT], sc[R_T4MELT], hstor, hs1,
-                               ch(C_INCPL) > 0.5, cplobs, cfg, p)
-        tsurf_new = _surf_ave(new_tmp, cfg)
-
-        # storages
-        (wat, snow, ice, ice2, dep, vcold, q2, t4, albedo) = _road_cond(
-            wat, snow, ice, ice2, dep, tsurf_new, evap, q2, sc[R_T4MELT],
-            sc[R_VERYCOLD] > 0.5, cfg, p)
-
-        # commit (mask by active)
-        sel = lambda n, o: torch.where(active, n, o)
-        tmp = [sel(n, o) for n, o in zip(new_tmp, tmp)]
-        new_rows = {
-            R_TSURF: tsurf_new, R_WAT: wat, R_SNOW: snow, R_ICE: ice,
-            R_ICE2: ice2, R_DEP: dep, R_Q2MELT: q2, R_T4MELT: t4,
-            R_EVAP: evap, R_BLCOND: bl, R_ALBEDO: albedo,
-            R_VERYCOLD: vcold.to(torch.float32)}
-        for r, v in new_rows.items():
-            sc[r] = sel(v, sc[r])
-        sc[R_FAILED] = torch.maximum(failed.to(torch.float32), sc[R_FAILED])
+        failed_prev = step_rows(tmp, sc, ch, cofs, trf, cplobs, cfg, p,
+                                layers, stats=stats)
 
         # output at the GLOBAL stride; the step failing CheckValues still
         # emits, later steps are poisoned (step.py semantics)
@@ -1125,7 +1152,7 @@ def forcing_thermo(tair, rhz):
     return eair, air_hcap * air_dens
 
 
-def _prep_channels(prep):
+def prep_channels(prep):
     """The 11 (station, step)-varying channels of a Prepared ([T, P]
     leaves), float32, keyed by channel index (pallas_step.py:798-821)."""
     f32 = lambda x: x.to(torch.float32)
@@ -1143,7 +1170,7 @@ def pack_forcing(prep, sw_cof, lw_cof, coupling_tsurf):
     T, P = prep.tair.shape
     out = torch.zeros((T, NCH, P), dtype=torch.float32,
                       device=prep.tair.device)
-    for c, x in _prep_channels(prep).items():
+    for c, x in prep_channels(prep).items():
         out[:, c] = x
     out[:, C_TRF] = prep.trf_fric.to(torch.float32)[:, None]
     out[:, C_SWCOF] = sw_cof
@@ -1158,7 +1185,7 @@ def pack_forcing_slim(prep):
     T, P = prep.tair.shape
     out = torch.empty((T, NCH_SLIM, P), dtype=torch.float32,
                       device=prep.tair.device)
-    for c, x in _prep_channels(prep).items():
+    for c, x in prep_channels(prep).items():
         out[:, SLIM_POS[c]] = x
     return out, prep.trf_fric.to(torch.float32).contiguous()
 
@@ -1171,7 +1198,7 @@ def pack_forcing_tm(prep, sw_cof, lw_cof, coupling_tsurf):
     nt, T, tp = prep.tair.shape
     out = torch.zeros((nt, T, NCH, tp), dtype=torch.float32,
                       device=prep.tair.device)
-    for c, x in _prep_channels(prep).items():
+    for c, x in prep_channels(prep).items():
         out[:, :, c] = x
     out[:, :, C_TRF] = prep.trf_fric.to(torch.float32)[None, :, None]
     out[:, :, C_SWCOF] = sw_cof
@@ -1184,7 +1211,7 @@ def pack_forcing_slim_tm(prep):
     """Prepared with tile-major [n_tiles, T, TP] channels -> (forcing
     [n_tiles, T, NCH_SLIM, TP], slim_trf [T]) float32 (K3, slim;
     production.py:1689-1700): one stack, no point-major tensor."""
-    ch = _prep_channels(prep)
+    ch = prep_channels(prep)
     return (torch.stack([ch[c] for c in SLIM_CHANNELS], dim=2),
             prep.trf_fric.to(torch.float32).contiguous())
 

@@ -46,8 +46,10 @@ operational path is an async thread-pool runner over the full data plane
  * the kernel writes only the run-level output-stride rows of each chunk,
    which are drained to the host chunk by chunk;
  * the coupled run streams phases A and C through the kernel and runs the
-   coupling window (phase B) with the iteration-major engine of
-   ``coupling.py`` in plain torch on the device.
+   coupling window (phase B) of each block as one launch of the window
+   kernel K5 (``ops/window_kernel.py``), a program counter per point, its
+   forcing a table of the window's prepared rows (or point slices of it,
+   where the table would not fit the window budget).
 
 ``_Blocks.stream`` pipelines its dispatch ``PIPELINE_DEPTH`` (two) deep, as
 the JAX engine does: per chunk the host issues every block's forcing on the
@@ -77,6 +79,7 @@ from .model import Model
 from .observability import Progress, RunMetrics
 from .physics.sun import sun_time_terms
 from .ops import scan_kernel as sk
+from .ops import window_kernel as wk
 from .state import PointParams, State
 
 OUT_FIELD_ROWS = {"tsurf": sk.R_TSURF, "wat": sk.R_WAT, "snow": sk.R_SNOW,
@@ -477,9 +480,12 @@ class StationExpander:
         return sl.index_select(2, pd["sidx"])
 
     def prepared_window(self, t0: int, tc: int) -> Prepared:
-        """[tc, P] Prepared rows from the station-level prepared channels,
-        for the coupling window (production.py:2044-2067): equal, bit for
-        bit, to prepare_window on the expanded raws."""
+        """[tc, P] Prepared rows from the station-level prepared channels
+        (production.py:2044-2067): equal, bit for bit, to prepare_window on
+        the expanded raws.  The provider of the eager window engine
+        (``coupling.run_window_passes``) on the station route, which K5's
+        station table is held against; the run reads the table itself
+        (``_Engine.window_table``)."""
         pd = self.prep_data
         rows = lambda x: x[t0:t0 + tc].index_select(1, pd["sidx"])
         ch = lambda c: rows(pd["stf"][:, c])
@@ -1565,16 +1571,20 @@ class _Engine:
 
     # -- chunk functions ----------------------------------------------------
 
-    def prepare(self, t0: int, tc: int, tiled: bool = False) -> Prepared:
+    def prepare(self, t0: int, tc: int, tiled: bool = False,
+                points=None) -> Prepared:
         """Per-point forcing prep of global steps [t0, t0 + tc) from the
         expander's raw window: [tc, P] leaves, or with ``tiled`` the tile
-        layout [n_tiles, tc, TP] (production.py:1668-1700, 1717-1726)."""
+        layout [n_tiles, tc, TP] (production.py:1668-1700, 1717-1726).
+        ``points``: a point slice's (expander, pts, anchors), from
+        :meth:`point_slice`, prepared alone ([tc, n] leaves)."""
         if tiled:
             raw = self.expander.window_tm(t0, tc)
             pts, anchors = self.pts_tm, self.anchors_tm
         else:
-            raw = self.expander.window(t0, tc)
-            pts, anchors = self.pts_dev, self.anchors_dev
+            exp, pts, anchors = points or (self.expander, self.pts_dev,
+                                           self.anchors_dev)
+            raw = exp.window(t0, tc)
         return prepare_window(
             raw, pts, self.hour_dev[t0:t0 + tc], self.settings, self.params,
             t_offset=t0, t_total=self.T, anchors=anchors,
@@ -1629,6 +1639,48 @@ class _Engine:
                       aux_cofs=True, t_total=self.T,
                       cof_red=self.settings.coupling_effect_reduction)
         return forc, kw
+
+    def point_slice(self, lo: int, hi: int):
+        """(expander, pts, anchors) of this block's points [lo, hi) for
+        :meth:`prepare`: the expander's block of them (views of its point
+        data where the slice holds whole tiles of its layout) and the
+        per-point arrays cut to them; this block's own for all of them."""
+        if (lo, hi) == (0, self.P_pad):
+            return self.expander, self.pts_dev, self.anchors_dev
+        cut = lambda xs: [x[lo:hi] for x in xs]
+        return (self.expander.block(lo, hi, self.device),
+                PointParams(*cut(self.pts_dev)),
+                None if self.anchors_dev is None
+                else tuple(cut(self.anchors_dev)))
+
+    def window_table(self, span, lo: int, hi: int):
+        """K5's forcing of this block's points [lo, hi) over the window
+        ``span`` (``ops.window_kernel.WindowSpan``): (table [W+1, NCH, R],
+        fidx [hi - lo] int32, trf [W+1]).  On the station fast path the
+        station-rank prepared channels of the window's rows (a view, R =
+        S + 1) at each point's station row; on every other route the
+        prepared window of these points alone (``prepare``, sky view
+        included, chunk by chunk; R = hi - lo, fidx the identity)."""
+        W1, r0 = span.rows, span.ws - 1
+        if self.fast:
+            pd = self.expander.prep_data
+            return (pd["stf"][r0:r0 + W1],
+                    pd["sidx"][lo:hi].to(torch.int32).contiguous(),
+                    pd["trf"][r0:r0 + W1])
+        tc = min(self.chunk_t, span.we_b - span.ws + 1)
+        points = self.point_slice(lo, hi)
+        table = torch.empty((W1, sk.NCH, hi - lo), dtype=torch.float32,
+                            device=self.device)
+        trf = torch.empty(W1, dtype=torch.float32, device=self.device)
+        for k0 in range(0, W1, tc):
+            m = min(tc, W1 - k0)
+            prep = self.prepare(r0 + k0, tc, points=points)
+            part = Prepared(*(x[:m] for x in prep[:-1]),
+                            trf_fric=prep.trf_fric[:m])
+            wk.table_rows(part, table[k0:k0 + m])
+            trf[k0:k0 + m] = part.trf_fric
+        return (table, torch.arange(hi - lo, dtype=torch.int32,
+                                    device=self.device), trf)
 
     def scan_kwargs(self, t0: int, nsteps: int) -> dict:
         """The chunk geometry of the launch at global step t0."""
@@ -2043,6 +2095,40 @@ def run_production(model: Model, expander,
     return run.run_uncoupled(progress)
 
 
+#: the most point slices a block's window runs in (``window_slices``):
+#: a slice holds at least 1/16 of the block, whatever the budget
+WINDOW_SLICES_MAX = 16
+
+
+def window_slices(run: "_Blocks", span, budget: float) -> list:
+    """The point ranges [lo, hi) of each block's K5 launches (block-local):
+    one range where the window tables of a device's blocks fit
+    ``budget`` bytes together, else equal slices whose tables fit it, at
+    most ``WINDOW_SLICES_MAX`` a block, each of whole lanes (of whole
+    tiles of the expander's layout where a slice holds one, so that its
+    block of the expander is a view).  A table is [W+1, NCH, R] float32,
+    R the slice's points; the station fast path's is a view of the
+    station-rank channels and counts nothing."""
+    table_bytes = lambda eng: (0 if eng.fast else
+                               4 * sk.NCH * span.rows * eng.P_pad)
+    per_dev = {}
+    for eng, d in zip(run.engines, run.mesh.devices):
+        per_dev[d] = per_dev.get(d, 0) + table_bytes(eng)
+    out = []
+    for eng, d in zip(run.engines, run.mesh.devices):
+        lanes = eng.P_pad // LANE
+        n_sl = (1 if per_dev[d] <= budget else
+                min(lanes, WINDOW_SLICES_MAX,
+                    -(-per_dev[d] // max(int(budget), 1))))
+        width = -(-lanes // n_sl) * LANE
+        tp = eng.tile_geom[1] if eng.tile_geom else LANE
+        if width >= tp:
+            width = -(-width // tp) * tp
+        out.append([(lo, min(lo + width, eng.P_pad))
+                    for lo in range(0, eng.P_pad, width)])
+    return out
+
+
 def run_production_coupled(model: Model, expander,
                            pts: PointParams, cal: Calendar, state: State, *,
                            anchors=None, devices=None, chunk_t: int = 64,
@@ -2052,30 +2138,38 @@ def run_production_coupled(model: Model, expander,
                            wcache_bytes: float = 4e9,
                            drain: str = "gather") -> ProductionResult:
     """Coupled production run: streamed kernel phases around the
-    iteration-major coupling window (production.py:1966-2129).
+    coupling window, as one program on each block's device
+    (production.py:1966-2129).
 
     Phase split (1-based steps; ws/we_b from the coupling windows of ALL
     points of the run, whatever the blocks and processes):
       A [1, ws-1]    streamed kernel, coefficients 1
-      B [ws, we_b]   per block: unpack -> coupling.run_window_passes (first
-                     / re-runs / tail) in plain torch on its device ->
-                     repack
+      B [ws, we_b]   per block: one launch of the window kernel K5
+                     (``ops.window_kernel.window``) on the block's device
+                     and stream, every point running its own first pass,
+                     re-runs and tail (``coupling.run_window_passes``'s
+                     semantics); its plain version on the CPU
       C [we_b+1, T]  streamed kernel with the post-window coefficient decay
                      (in kernel on K2 and K3, cof_window channels on K1)
 
     With no coupled window the run is the uncoupled stream.  ``devices``
     and ``drain`` as in :func:`run_production`.
-    ``wcache_bytes``: memory budget PER DEVICE for caching the
-    pass-invariant phase-B prepared window forcing (prepared once, read by
-    every pass); 0 prepares it anew in every pass (the same values either
-    way).
-    Counters (this process's blocks): coupling_window_steps,
-    coupling_reruns (the most of any block), coupling_window_rows (rows
-    stepped over all passes and blocks), coupling_window_cached and the
-    coupled / succeeded / failed point counts; phases
+    ``wcache_bytes``: memory budget PER DEVICE for K5's forcing tables
+    (``_Engine.window_table``, built once a block from the route's
+    provider and read by every pass; the station fast path's is a view
+    and counts nothing); where a device's tables exceed it, each block
+    runs K5 over point slices whose tables fit, at most
+    ``WINDOW_SLICES_MAX`` (the same values either way: the points are
+    independent, and each slice prepares its own points' window alone).
+    Phase B syncs with the host once a block, to read its re-run count.
+    Counters (this process's blocks): coupling_window_steps (W),
+    coupling_reruns (the most rewinds of any point), coupling_window_rows
+    (the steps of each block's slowest lane, summed over blocks),
+    coupling_window_cached (1 where every block's table fit, one launch a
+    block) and the coupled / succeeded / failed point counts; phases
     phase_a/phase_b/phase_c.
     """
-    from .coupling import run_window_passes, window_out_rows, window_span
+    from .coupling import window_span
 
     run = _Blocks(model, expander, pts, cal, state, anchors=anchors,
                   devices=devices, chunk_t=chunk_t, out_stride=out_stride,
@@ -2088,48 +2182,27 @@ def run_production_coupled(model: Model, expander,
 
     ws, we_b = span
     W = we_b - ws + 1
-    wck = min(chunk_t, W)
-    rows_b = window_out_rows(ws, we_b, os_)
-    # The window forcing is pass-INVARIANT (only cofs/state change per
-    # re-run pass; the reference snapshots its input radiation slices for
-    # this reason, src/Coupling.f90:172-255): prepare it once for every
-    # pass unless the cache (~38 B/step-point) of a device's blocks would
-    # exceed the budget
-    nv = -(-(W + 1) // wck)
-    per_dev = max(sum(e.P_pad for e, d in zip(run.engines, run.mesh.devices)
-                      if d == dev) for dev in set(run.mesh.devices))
-    cache_win = 38.0 * nv * wck * per_dev <= float(wcache_bytes)
+    wspan = wk.WindowSpan(ws, we_b, T, os_,
+                          settings.coupling_effect_reduction)
+    rows_b = wspan.out_rows
+    slices = window_slices(run, wspan, float(wcache_bytes))
+    one_launch = all(len(s) == 1 for s in slices)
     run.metrics.note(
-        "coupling window forcing cached once (pass-invariant)" if cache_win
-        else f"coupling window forcing prepared per pass (cache would "
-             f"need {38.0 * nv * wck * per_dev / 1e9:.1f} GB a device)")
+        "coupling window through K5, one launch a block" if one_launch
+        else f"coupling window through K5 over point slices "
+             f"({max(len(s) for s in slices)} launches a block) within "
+             f"{float(wcache_bytes) / 1e9:.1f} GB a device")
 
-    def phase_b(eng, tmp, scal):
-        def provider(t0: int) -> Prepared:
-            if eng.fast:
-                # station-level prepared channels: one row gather per chunk
-                return eng.expander.prepared_window(t0, wck)
-            # the expander's [wck, P] window and the per-point prep, sky
-            # view included
-            return eng.prepare(t0, wck)
-
-        st = sk.unpack_state(tmp, scal, eng.grid.nlayers, eng.template)
-        t0s = [ws - 1 + wck * k for k in range(nv)]
-        if cache_win:
-            cached = [provider(t0) for t0 in t0s]
-            valid = [c.valid for c in cached]
-            prov = lambda t0: cached[(t0 - (ws - 1)) // wck]
-        else:
-            valid = [provider(t0).valid for t0 in t0s]
-            prov = provider
-        valid_win = torch.cat(valid)[:W + 1]
-        res = run_window_passes(st, prov, valid_win, ws, we_b, eng.pts_dev,
-                                settings, eng.cfg, eng.grid, eng.params,
-                                out_stride=os_, wchunk=wck)
-        tmp2, scal2 = sk.pack_state(res.state, lpad=tmp.shape[0])
-        return ((tmp2, scal2), res.cv,
-                res.out.permute(0, 2, 1).to(torch.float32), res.reruns,
-                res.rows)
+    def phase_b(eng, ranges, tmp, scal):
+        wpts = wk.window_points(eng.pts_dev, settings)
+        res = None
+        for lo, hi in ranges:
+            table, fidx, trf = eng.window_table(wspan, lo, hi)
+            res = wk.window(tmp, scal, table, fidx, trf, wpts, eng.cfg,
+                            eng.params, eng.grid, wspan, lo=lo, out=res)
+            # a later slice's table reuses the room on this stream
+            del table
+        return res
 
     # phase A's chunks, phase B's rows, phase C's chunks: the drains' order
     plan_b = [list(rows_b)] if len(rows_b) else []
@@ -2142,18 +2215,27 @@ def run_production_coupled(model: Model, expander,
             carry = run.stream(run.carry0(), 0, ws - 1, out,
                                progress=progress)
         with run.metrics.phase("phase_b"):
-            done = [phase_b(eng, *carry[b]) for b, eng in run.scopes()]
-            carry = [d[0] for d in done]
-            cvs = [d[1] for d in done]
+            done = [phase_b(eng, slices[b], *carry[b])
+                    for b, eng in run.scopes()]
+            # the one host sync of each block's phase B, after every
+            # block's launches are issued: its most rewinds and the steps
+            # of its slowest lane
+            counts = [[int(v) for v in torch.stack(
+                [done[b].reruns.max(), done[b].steps.max()]).cpu()]
+                for b, _ in run.scopes()]
+            if max(c[0] for c in counts) > wk.MAX_RERUNS:
+                raise RuntimeError(f"a point of the coupling window passed "
+                                   f"{wk.MAX_RERUNS} re-runs")
+            carry = [(d.tmp, d.scal) for d in done]
             if len(rows_b):
-                run.drain_rows([d[2] for d in done], len(rows_b), out,
+                run.drain_rows([d.rows for d in done], len(rows_b), out,
                                rows_b)
             if progress:
                 progress.update(W)
         with run.metrics.phase("phase_c"):
             carry = run.stream(
                 carry, we_b, T, out,
-                cofs=[(cv.sw_corr, cv.lw_corr) for cv in cvs],
+                cofs=[(d.sw_corr, d.lw_corr) for d in done],
                 progress=progress)
             run.synchronize()
         wall = timelib.perf_counter() - t_start
@@ -2164,11 +2246,11 @@ def run_production_coupled(model: Model, expander,
             np.pad(coupled_np[lo:hi], (0, eng.P_pad - len(coupled_np[lo:hi]))),
             device=eng.device)
         n_cpl += int(cpl.sum())
-        n_failed += int((cpl & eng.to_caller(cvs[b].failed, 0)).sum())
+        n_failed += int((cpl & eng.to_caller(done[b].cv_failed, 0)).sum())
     run.metrics.count("coupling_window_steps", W)
-    run.metrics.count("coupling_reruns", max(d[3] for d in done))
-    run.metrics.count("coupling_window_rows", sum(d[4] for d in done))
-    run.metrics.count("coupling_window_cached", int(cache_win))
+    run.metrics.count("coupling_reruns", max(c[0] for c in counts))
+    run.metrics.count("coupling_window_rows", sum(c[1] for c in counts))
+    run.metrics.count("coupling_window_cached", int(one_launch))
     run.metrics.count("coupling_points", n_cpl)
     run.metrics.count("coupling_failed", n_failed)
     run.metrics.count("coupling_succeeded", n_cpl - n_failed)

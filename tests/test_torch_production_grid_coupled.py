@@ -12,7 +12,8 @@ import torch
 from roadsurf_tpu_torch import interop
 from roadsurf_tpu_torch import model as tmodel
 from roadsurf_tpu_torch import production as tprod
-from test_torch_production_grid import _assert_match, _jax_reference
+from test_torch_production_grid import (_assert_match, _assert_same,
+                                       _jax_reference, _setup)
 
 torch.set_num_threads(1)
 
@@ -32,3 +33,24 @@ def test_port_coupled_grid_matches_jax(out_stride):
         out_stride=out_stride, metrics=metrics)
     assert metrics.counters["coupling_reruns"] > 0
     _assert_match(got, want, out_stride)
+
+
+@pytest.mark.parametrize("config", ["composite", "station_sky"])
+def test_port_coupled_window_slices_equal_one_launch(config):
+    """Phase B over point slices (a window budget of 0: each slice
+    prepares its own points' window, from the expander's block of them)
+    against one launch of the whole block, bit for bit: the grid + station
+    composite and the stations with sky view, the routes whose window
+    table is the points' prepared window."""
+    _, texp, settings, cal, pts, state0 = _setup(
+        config, T=49, use_coupling=True, with_jax=False)
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
+    runs = []
+    for budget in (4e9, 0):
+        metrics = tprod.RunMetrics()
+        runs.append(tprod.run_production_coupled(
+            tm, texp, pts, cal, interop.state(state0, "cpu"), chunk_t=32,
+            metrics=metrics, wcache_bytes=budget))
+        assert metrics.counters["coupling_window_cached"] == (budget > 0)
+        assert metrics.counters["coupling_points"] > 0
+    _assert_same(*runs)
