@@ -2,11 +2,11 @@
 hand-written scan kernel (K1, point-major; K2, slim; K3, tile-major; K3
 fused, tile-major with the forcing prepared in the kernel from the raw
 series: modes of one source), its sharded launch (K4) and the coupling
-window kernel (K5, phase B of the coupled run) from this checkout, holds
-each
-against its plain torch version, drives the station-fed production forecast
-end to end at 1,048,576 points x 8,881 steps (the operational 74-hour run
-at dt 30 s), uncoupled and observation-coupled, and the NWP-grid and
+window kernel (K5, phase B of the coupled run, and K5 fused, its form
+that prepares the window's forcing in the kernel) from this checkout,
+holds each against its plain torch version, drives the station-fed
+production forecast end to end at 1,048,576 points x 8,881 steps (the
+operational 74-hour run at dt 30 s), uncoupled and observation-coupled, and the NWP-grid and
 grid+station forecasts with sky view at the same size, then the same
 forecasts over several point blocks and over two processes, then the
 runner CLI end to end on the example generators' inputs, and prints a
@@ -14,8 +14,12 @@ JSON summary.
 
     python3 chip_smoke.py            # every phase (one card)
     python3 chip_smoke.py 3c 4c      # only the named phases, no summary
-    python3 chip_smoke.py 3w 9d      # K5 alone, and the shipped coupled
-                                     # example1 config through the CLI
+    python3 chip_smoke.py 3w 9d      # K5 and K5 fused alone, and the
+                                     # shipped coupled example1 config
+                                     # through the CLI
+    python3 chip_smoke.py 3w 6 --variant lb8=build/lb8/scan_kernel.cu
+                                     # K5 from an edited copy beside this
+                                     # build, on 3w's and phase 6's inputs
     python3 chip_smoke.py 3d 8 8b    # the sharded launch and paths alone
     python3 chip_smoke.py 3e --variant old=build/old/scan_kernel.cu
                                      # another source of the kernel beside
@@ -69,7 +73,9 @@ the plain version):
     its seconds, the steps of its slowest lane and K5's launches printed;
     K5 timed again on the run's own window inputs, and its plain version
     run on the first 65,536 points of them, against the run's own K5
-    results and the new launch's, bit for bit), with a 64-point
+    results and the new launch's, bit for bit; K5's bound from the run's
+    lane steps at the boundary-layer iterations a step that plain
+    version counted), with a 64-point
     sample of coupled points re-run through Model.run_coupled on the host
     in float32 and float64 under the same bound;
  3w. K5 against window_reference on the card, bit for bit with equal
@@ -81,7 +87,16 @@ the plain version):
     bit); then K5 against the eager run_window_passes on the same card
     and inputs (max |err|, the points whose re-run count differs, bitwise
     or not); the steps of a lane and of its warp (the divergence factor);
-    K5 and its plain version timed, with K5's bound;
+    K5 and its plain version timed, with K5's bound.  Then K5 fused, on the
+    coupled runs of 16,384 points x 140 steps (the timed grid case 65,536)
+    of a grid, a grid + station composite with sky view (without and with
+    relaxation) and stations with sky view, with and without the output
+    depth (16-step windows from step 55, 16-step chunks: six window
+    chunks): each run's phase B
+    goes through one K5 fused launch and builds no window table; K5 fused
+    on the inputs the run handed it, and the run's own results, against
+    its plain version (window_reference on the window's eager table), bit
+    for bit; the grid case timed beside its plain version and its bound;
  3c. K3 against its plain version and against K1 / K2 on the same values,
     bit for bit, at tile widths 128, 1024 and 8192: 65,536 points x 128
     steps, both channel sets, with and without the decay, on an offset
@@ -124,10 +139,13 @@ the plain version):
     is printed (the sun's time terms from the float64 Julian day);
  7w. phase 7's grid coupled at full size (180-minute windows ending in
     the last 20 minutes of a 24 h analysis, obs below the grid's air
-    temperature, every 7th point without): phase B's table is the points'
-    prepared window (about 27 GB), run over the point slices of the
-    default 4 GB budget and in one launch, bit for bit, each run's phase
-    seconds, K5 launches and peak memory printed.
+    temperature, every 7th point without): phase B through K5 fused (no
+    window table, one launch at the default 4 GB budget and at 0) against
+    the table route (the points' prepared window, about 27 GB, through
+    production._Engine.force_window_table) in one launch and over the
+    point slices of the default budget, bit for bit, each run's wall,
+    phase seconds, launches, window tables built and peak memory printed;
+    K5 fused timed again at this size.
 
  3d. K4 against its plain version and against one launch: the offset chunk
     of phases 3b/3c (65,536 points x 128 steps) for K1, K2 with the decay
@@ -203,8 +221,9 @@ the plain version):
 
 ``--variant LABEL=PATH`` (repeatable) builds another source of the kernel
 (an earlier copy, or an edited one, put under the gitignored build/) into a
-library of its own; phase 3e prints its ptxas and SASS counts, holds it to
-this build bit for bit and times it in the same turns.
+library of its own; phases 3e (K1, K2), 3w and 6 (K5) print its ptxas and
+SASS counts, hold it to this build bit for bit and time it in the same
+turns.
 
 Every run_production launch goes through K4 (one sharded launch a chunk,
 whatever the number of blocks), so K4's launches are counted over every
@@ -322,22 +341,27 @@ def reset_counts():
     """Every launch count to 0, just before a main-path run."""
     sk.LAUNCHES = sk.LAUNCHES_SLIM = sk.LAUNCHES_TM = 0
     sk.LAUNCHES_TM_FUSED = sk.LAUNCHES_SHARDED = 0
-    wk.LAUNCHES = 0
+    wk.LAUNCHES = wk.LAUNCHES_FUSED = 0
 
 
-#: K5's launches of the main-path runs (phase 6 and 9d), summed as each run
-#: is read
+#: K5's launches of the main-path runs (phase 6 and 9d) and K5 fused's
+#: (phase 7w's fused runs), summed as each run is read
 MAIN_PATH_K5 = [0]
+MAIN_PATH_K5F = [0]
 
 
-def read_window_count(main_path=False):
-    """K5's launches since reset_counts, just after a coupled run; it fails
-    where the run launched none.  ``main_path``: add them to
-    MAIN_PATH_K5."""
-    n = wk.LAUNCHES
-    assert n > 0, "the coupled run launched no window kernel (K5)"
+def read_window_count(main_path=False, fused=False):
+    """K5's launches (K5 fused's with ``fused``) since reset_counts, just
+    after a coupled run; it fails where the run launched none of them, or
+    any of the other.  ``main_path``: add them to MAIN_PATH_K5 (or
+    MAIN_PATH_K5F)."""
+    n, other = ((wk.LAUNCHES_FUSED, wk.LAUNCHES) if fused
+                else (wk.LAUNCHES, wk.LAUNCHES_FUSED))
+    name = "K5 fused" if fused else "K5"
+    assert n > 0, f"the coupled run launched no window kernel ({name})"
+    assert other == 0, f"the coupled run launched the other window kernel"
     if main_path:
-        MAIN_PATH_K5[0] += n
+        (MAIN_PATH_K5F if fused else MAIN_PATH_K5)[0] += n
     return n
 
 
@@ -370,6 +394,35 @@ class PrepCalls:
 
     def __exit__(self, *exc):
         production.prepare_window = self._orig
+
+
+class WindowTables:
+    """Counts ``_Engine.window_table``'s calls (the window's eager table,
+    which K5 fused never builds) while in the block."""
+
+    def __enter__(self):
+        self.n = 0
+        self._orig = orig = production._Engine.window_table
+
+        def counted(eng, *a, **k):
+            self.n += 1
+            return orig(eng, *a, **k)
+        production._Engine.window_table = counted
+        return self
+
+    def __exit__(self, *exc):
+        production._Engine.window_table = self._orig
+
+
+@contextlib.contextmanager
+def window_table_route():
+    """Phase B of the K3 fused routes on the window's eager table (the
+    reference K5 fused is held to) in the block."""
+    production._Engine.force_window_table = True
+    try:
+        yield
+    finally:
+        production._Engine.force_window_table = False
 
 
 class StreamProbe:
@@ -1115,7 +1168,7 @@ def window_span_of(c, stride):
 
 def window_args(c, table, span):
     m = c["model"]
-    return (c["tmp"], c["scal"], *table, c["wpts"], m.cfg, m.params, m.grid,
+    return (c["tmp"], c["scal"], table, c["wpts"], m.cfg, m.params, m.grid,
             span)
 
 
@@ -1155,16 +1208,16 @@ def window_stats(steps):
 
 def window_bound(c, span, table, stats, n_points):
     """(bound_ms, bound_by) of one K5 call: the bytes it must move (the
-    state and the profile read and written once, the snapshot written and
-    read once, the table's ten read channels and the TRF rows read once,
-    the per-point inputs read and results written once, the output rows
-    written once) over the card's HBM rate, against the float32 operations
+    state and the profile read and written once, the table's ten read
+    channels and the TRF rows read once, the per-point inputs read and
+    results written once, the output rows written once; the snapshot
+    stays in shared memory) over the card's HBM rate, against the float32
+    operations
     of the steps these inputs take (window_reference's stats: each step's
     body, its boundary-layer iterations) over its float32 rate."""
     L = c["model"].grid.nlayers
     tab = table[0]
     n_bytes = (4 * n_points * 2 * (L + 3 + sk.R_FAILED + 1)
-               + 4 * n_points * 2 * (L + 3 + len(wk.SNAP_ROWS))
                + 4 * 10 * tab.shape[0] * tab.shape[2] + 4 * tab.shape[0]
                + n_points * (4 * 4 + 1) + n_points * (4 * 4 + 1)
                + 4 * span.n_out * 6 * n_points)
@@ -1179,15 +1232,16 @@ def window_bound(c, span, table, stats, n_points):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_window_small():
+def phase_window_small(variants=()):
     """Phase 3w: K5 against window_reference on the card (65,536 points, a
     240-step run, 60-step windows ending at staggered steps, some at T-1),
     bit for bit with equal failed masks, at output strides 1 and 7, with
     and without the output depth, on the station table and on the identity
     table (both equal); then K5 against the eager run_window_passes on the
     same card and inputs; lane and warp steps; K5 and its plain version
-    timed.  Returns {"err", "ms", "plain_ms", "bound"}, "err" the largest
-    max |err| of K5 against its plain version."""
+    timed, and beside K5 each of ``variants`` (held to this build bit for
+    bit, in turns).  Returns {"err", "ms", "plain_ms", "bound"}, "err" the
+    largest max |err| of K5 against its plain version."""
     res = {"err": 0.0}
     for depth in (False, True):
         c = window_case(depth)
@@ -1236,6 +1290,9 @@ def phase_window_small():
                 res["bound"] = window_bound(c, span, tab_st, stats, P)
                 log(f"  [{card_line()}] 3w K5 {res['ms']:.3f} ms, plain "
                     f"version {res['plain_ms']:.1f} ms ({P} points)")
+                if variants:
+                    window_variants("3w, K5 on the station table", args, {},
+                                    got, variants, reps=5)
                 # the eager counterpart of the JAX engine on the same card
                 ws, we_b = c["ws"], c["we_b"]
                 t0 = time.perf_counter()
@@ -1274,6 +1331,195 @@ def phase_window_small():
                 assert int(got.reruns.max()) > 0
             del got, got_id, want
         del c, tab_st, tab_id, eng, eng_id
+        torch.cuda.empty_cache()
+    return res
+
+
+#: the built libraries of the ``--variant`` sources, by label
+VARIANT_LIBS = {}
+
+
+def load_variants(variants):
+    """[(label, library)] of ``variants`` (label, sources), each built
+    once and its ptxas and SASS counts printed at its first use."""
+    for label, sources in variants:
+        if label not in VARIANT_LIBS:
+            log_build(label, build.build(sources))
+            VARIANT_LIBS[label] = build.load(sources)
+    return [(label, VARIANT_LIBS[label]) for label, _ in variants]
+
+
+def window_variants(label, args, kw, want, variants, reps):
+    """K5 from each of ``variants`` (label, sources) on ``args``: held to
+    this build's results ``want`` bit for bit, then timed beside this
+    build in turns (this build and each variant, then the reverse)."""
+    libs = [("this build", build.load())] + load_variants(variants)
+    for name, lib in libs[1:]:
+        with kernel_library(lib):
+            got = wk.window_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert_window_bitwise(f"{label}: {name} vs this build", got, want)
+        del got
+    ms = {name: [] for name, _ in libs}
+    for seq in (libs, libs[::-1]):
+        for name, lib in seq:
+            with kernel_library(lib):
+                ms[name].append(cuda_ms(
+                    lambda: wk.window_cuda(*args, **kw), reps=reps))
+    log(f"  [{card_line()}] {label}: K5 ms a launch, in turns: "
+        + json.dumps({k: [round(v, 4) for v in vals]
+                      for k, vals in ms.items()}))
+
+
+#: phase 3w's K5 fused cases: (configuration, relaxation)
+WINDOW_FUSED_CASES = (("grid", False), ("composite", False),
+                      ("station", False), ("composite", True))
+#: phase 3w's wide grid cases (``wide_grid``: 8 channels at SPAN 6, 48 KB
+#: of segment lines a block beside the snapshot's static shared memory),
+#: by ground layers: the default 15 and 20 (the <32> instantiation)
+WINDOW_WIDE_LAYERS = (15, 20)
+
+
+def window_fused_bound(c, forc, span, stats, n_points):
+    """(bound_ms, bound_by) of one K5 fused call: K5's bytes
+    (``window_bound``) with the raw inputs read once in place of the table
+    (the grid part's raw rows of every window chunk, the station part's
+    series rows of the window, the per-point parameters and time
+    machinery, as ``fused_bound`` counts them for a chunk), against the
+    body's float32 operations at the steps these inputs take and the
+    prep's (OPS_*: every prepared row, each entry into a window chunk's
+    segment lines, sky view on its points, relaxation's float64)."""
+    eng = forc.engine
+    a = forc.kernel_args()
+    P, L, W1 = n_points, c["model"].grid.nlayers, span.rows
+    n_g = sum(1 for n in a["g"] if n != "prec_phase")
+    n_s = len(a["s"])
+    sky = np.asarray(eng.pts_dev.sky_view.cpu())
+    sky_share = (float(np.mean((sky < 1.0) & (sky > -0.01)))
+                 if eng.enable_sky else 0.0)
+    n_bytes = (4 * P * 2 * (L + 3 + sk.R_FAILED + 1)
+               + P * (4 * 4 + 1) + P * (4 * 4 + 1)
+               + 4 * span.n_out * 6 * P + 4 * W1)
+    if a["g"]:
+        lo = a["wrows"][:, 1]
+        rows = int(lo.max()) + a["KW"] - int(lo.min())
+        n_bytes += 4 * P * len(a["g"]) * rows + 4 * W1 * 7
+    if n_s:
+        S = eng.fused_parts[1].channels.tair.shape[0]
+        n_bytes += 4 * S * W1 * n_s + 9 * P
+    n_bytes += 4 * P * (4 + (2 if eng.enable_sky else 0)
+                        + (6 if a["relax"] else 0))
+    n_bytes += 4 * W1 * (1 + (4 if eng.enable_sky else 0))
+    preps = stats["window_preps"]
+    if eng.enable_sky and not eng.flat_horizons:
+        n_bytes += 4 * preps * sky_share
+    ops = (stats["point_steps"] * (OPS_STEP + OPS_LAYER * L)
+           + stats["bl_iters"] * OPS_BL_ITER
+           + preps * (OPS_PREP + OPS_GRID_CH * n_g + OPS_SKY * sky_share)
+           + stats["window_segments"] * n_g * a.get("span", 0) * OPS_SEGMENT)
+    ops64 = preps * OPS_RELAX_F64 if a["relax"] else 0
+    t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
+    t_ops = 1e3 * (ops / PEAK_F32_OPS_S + ops64 / PEAK_F64_OPS_S)
+    log(f"  K5 fused bound: {n_bytes / 1e9:.4f} GB -> {t_bytes:.4f} ms at "
+        f"3.35 TB/s; {ops / 1e9:.3f} G f32 + {ops64 / 1e9:.3f} G f64 ops "
+        f"({stats['point_steps']} steps taken, {stats['bl_iters']} "
+        f"boundary-layer iterations, {preps} rows prepared, "
+        f"{stats['window_segments']} window-chunk entries) -> {t_ops:.4f} "
+        f"ms at 67 / 34 TFLOP/s")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_window_fused_small():
+    """Phase 3w's K5 fused cases: the coupled run of each of
+    WINDOW_FUSED_CASES (``fused_small_inputs``: 16,384 points, 140 steps,
+    16-step windows ending at steps drawn from [70, 140), so ws is 55;
+    16-step chunks, so the window spans six window chunks; most points
+    rewind until the control gives up at 25), with and without the output
+    depth, output stride 4: phase B goes through K5
+    fused once, and no window table is built; its inputs, held as the run
+    hands them over, run again through K5 fused and through its plain
+    version (``window_reference`` on the window's eager table), the run's
+    own results and the new launch's equal to it bit for bit.  The grid
+    case without depth runs at 65,536 points and is timed, beside its
+    plain version and its bound (the plain version takes most of the
+    phase's time: the others run at a quarter of the points).  Then the
+    wide grid at each of WINDOW_WIDE_LAYERS, without depth, at 48-step
+    chunks (the window spans two window chunks): the most dynamic shared
+    memory a launch of these cases asks for.  Returns {"err", "ms",
+    "plain_ms", "bound"}."""
+    res = {"err": 0.0}
+    cases = [(config, relax, depth, None)
+             for depth in (False, True) for config, relax in
+             WINDOW_FUSED_CASES]
+    cases += [("grid", False, False, n) for n in WINDOW_WIDE_LAYERS]
+    for config, relax, depth, layers in cases:
+        wide = layers is not None
+        timed = config == "grid" and not depth and not wide
+        chunk_t = 48 if wide else 16
+        c = fused_small_inputs(config, side=256 if timed else 128,
+                               relax=relax, coupled=True, depth=depth,
+                               chunk_t=chunk_t, cend_lo=70, wlen=16,
+                               wide=wide, nlayers=layers)
+        label = (f"3w K5 fused, {config}"
+                 f"{', sky view' if config != 'grid' else ''}"
+                 f"{', relaxation' if relax else ''}"
+                 f"{', output depth' if depth else ''}")
+        if wide:
+            g = c["exp"]
+            assert g.SPAN >= 6 and len(g.var_names) >= 7, (
+                g.SPAN, g.var_names)
+            label += (f", {len(g.var_names)} channels at SPAN "
+                      f"{g.SPAN}, {layers} layers")
+        reset_counts()
+        with WindowTables() as tables, window_calls([]) as kept:
+            production.run_production_coupled(
+                c["model"], c["exp"], c["pts"], c["cal"], c["state0"],
+                anchors=c["anchors"], chunk_t=chunk_t, out_stride=4)
+        n_k5f = read_window_count(fused=True)
+        assert tables.n == 0 and n_k5f == 1, (tables.n, n_k5f)
+        (args, kw, sl, run_part), = kept
+        del kept
+        forc = args[2]
+        assert isinstance(forc, production.FusedWindow)
+        span, P = args[-1], args[0].shape[1]
+        assert sl == slice(0, P)
+        got = wk.window_cuda(*args, **kw)
+        stats = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = wk.window_reference(*args, **kw, stats=stats)
+        ev[1].record()
+        torch.cuda.synchronize()
+        err = max(assert_window_bitwise(f"{label}: the run's K5 fused "
+                                        f"vs window_reference", run_part,
+                                        want),
+                  assert_window_bitwise(f"{label}: K5 fused again vs "
+                                        f"window_reference", got, want))
+        res["err"] = max(res["err"], err)
+        lane, warp, slow = window_stats(got.steps)
+        log(f"  [{card_line()}] {label}: window [{span.ws}, "
+            f"{span.we_b}], {forc.tc}-row window chunks, "
+            f"{P} points; K5 fused == window_reference bit for bit (rows, "
+            f"state, corrections, failed masks, re-runs, steps); no "
+            f"window table, one K5 fused launch; re-runs: most "
+            f"{int(got.reruns.max())}, points re-run "
+            f"{int((got.reruns > 0).sum())}; coupling failed "
+            f"{int(got.cv_failed.sum())}; steps a lane {lane / P:.2f}, "
+            f"issued a lane by its warp {warp / P:.2f} (divergence "
+            f"factor {warp / max(lane, 1):.3f}), slowest lane {slow}; "
+            f"window-chunk entries a point "
+            f"{stats['window_segments'] / P:.2f}")
+        assert int(got.reruns.max()) > 0
+        if timed:
+            res["ms"] = cuda_ms(lambda: wk.window_cuda(*args, **kw),
+                                reps=5)
+            res["plain_ms"] = ev[0].elapsed_time(ev[1])
+            res["bound"] = window_fused_bound(
+                {"model": c["model"]}, forc, span, stats, P)
+            log(f"  [{card_line()}] {label}: K5 fused {res['ms']:.3f} "
+                f"ms, plain version (the eager table and "
+                f"window_reference) {res['plain_ms']:.1f} ms")
+        del got, want, run_part, args, kw, forc, c
         torch.cuda.empty_cache()
     return res
 
@@ -1665,7 +1911,8 @@ def window_calls(kept, n_check=65536):
         out = orig(*a, **k)
         if first:
             lo = k.get("lo", 0)
-            sl = slice(lo, lo + min(n_check, a[3].shape[0]))
+            n = a[0].shape[1] if wk.is_fused(a[2]) else a[2][1].shape[0]
+            sl = slice(lo, lo + min(n_check, n))
             kept.append((args, dict(k), sl, wk.WindowOut(
                 *(x.clone() for x in window_part(out, sl)))))
         return out
@@ -1676,10 +1923,68 @@ def window_calls(kept, n_check=65536):
         wk.window = orig
 
 
-def phase_coupled_full(cfg6, metrics):
+class FusedHead:
+    """The first ``n`` points of the fused window ``forc`` as its plain
+    version reads them (``window_reference`` on a fused window): their
+    eager table (``_Engine.window_table`` of those points, the table
+    route's) in the fused window's chunks, as one tile."""
+
+    def __init__(self, forc, n):
+        self.forc, self.n, self.tc = forc, n, forc.tc
+        self.tile_geom = (1, n)
+
+    def table(self):
+        return self.forc.engine.window_table(self.forc.span, 0, self.n)
+
+
+def fused_head_check(label, args, kw, sl, run_part, again, model):
+    """K5 fused's plain version on the first points ``sl`` of a run's
+    window (``FusedHead``), against the run's own K5 fused results and a
+    new launch's (``again``) on those points, bit for bit; and the bound
+    of the whole launch (``window_fused_bound``): the run's lane steps,
+    each with the boundary-layer iterations, prepared rows and
+    window-chunk entries a lane step that the plain version counted on
+    its points.  Returns {"err", "bound", "plain_s"}."""
+    tmp0, scal0, forc, pts = args[:4]
+    assert sl.start == 0
+    n = sl.stop
+    kw = {k: v for k, v in kw.items() if k not in ("lo", "out")}
+    stats = {}
+    t0 = time.perf_counter()
+    want = wk.window_reference(
+        tmp0[:, :n].contiguous(), scal0[:, :n].contiguous(),
+        FusedHead(forc, n), wk.WindowPoints(*(x[:n] for x in pts)),
+        *args[4:], **kw, stats=stats)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max(assert_window_bitwise(
+        f"{label}: K5 fused of the run vs window_reference on points "
+        f"[0, {n})", run_part, want), assert_window_bitwise(
+        f"{label}: K5 fused again on the run's inputs vs window_reference "
+        f"on points [0, {n})", window_part(again, sl), want))
+    lane = int(again.steps.sum())
+    per_step = {k: v / stats["point_steps"] for k, v in stats.items()}
+    whole = {k: round(v * lane) for k, v in per_step.items()}
+    log(f"  [{card_line()}] {label}: K5 fused == window_reference bit for "
+        f"bit on {n} points of the run's window (rows, state, "
+        f"corrections, failed masks, re-runs: most "
+        f"{int(want.reruns.max())}, steps of the slowest lane "
+        f"{int(want.steps.max())}; plain version {plain_s:.1f} s); a lane "
+        f"step there: {per_step['bl_iters']:.3f} boundary-layer "
+        f"iterations, {per_step['window_preps']:.4f} rows prepared, "
+        f"{per_step['window_segments']:.5f} window-chunk entries")
+    bound = window_fused_bound({"model": model}, forc, args[-1], whole,
+                               again.steps.shape[0])
+    return dict(err=err, bound=bound, plain_s=plain_s)
+
+
+def phase_coupled_full(cfg6, metrics, variants=()):
     """Phase 6: the coupled run at full size, phase B through K5; K5 timed
-    again on the run's own window inputs.  Returns (result, (K1, K2)
-    launches, K5's figures)."""
+    again on the run's own window inputs (beside each of ``variants``, held
+    to this build bit for bit, in turns), its bound from the steps the run
+    took and the boundary-layer iterations a step of its plain version on
+    the first 65,536 points.  Returns (result, (K1, K2) launches, K5's
+    figures)."""
     model, T = cfg6["model"], cfg6["T"]
     torch.cuda.reset_peak_memory_stats(DEV)
     reset_counts()
@@ -1718,9 +2023,11 @@ def phase_coupled_full(cfg6, metrics):
     again = wk.window_cuda(*args, **kw)
     t0 = time.perf_counter()
     lo = kw.get("lo", 0)
-    fidx = args[3][sl.start - lo:sl.stop - lo]
-    want = wk.window_reference(*args[:3], fidx, *args[4:],
-                               lo=sl.start)
+    table, fidx, trf = args[2]
+    stats = {}
+    want = wk.window_reference(
+        *args[:2], (table, fidx[sl.start - lo:sl.stop - lo], trf), *args[3:],
+        lo=sl.start, stats=stats)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     want = window_part(want, sl)
@@ -1738,23 +2045,31 @@ def phase_coupled_full(cfg6, metrics):
     ms = cuda_ms(lambda: wk.window_cuda(*args, **kw), reps=3)
     lane, warp, slow = window_stats(again.steps)
     n = again.steps.shape[0]
-    # the bound with each step's boundary-layer loop at its floor of five
-    # iterations (the window's own iterations are not counted at this size)
+    # the bound: the run's lane steps, each with the boundary-layer
+    # iterations a step that the plain version counted on its points
     L = model.grid.nlayers
-    t_ops = 1e3 * lane * (OPS_STEP + OPS_LAYER * L + 5 * OPS_BL_ITER) \
+    iters = stats["bl_iters"] / stats["point_steps"]
+    t_ops = 1e3 * lane * (OPS_STEP + OPS_LAYER * L + iters * OPS_BL_ITER) \
         / PEAK_F32_OPS_S
     t_bytes = 1e3 * (4 * n * 2 * (L + 3 + sk.R_FAILED + 1)
-                     + 4 * n * 2 * (L + 3 + len(wk.SNAP_ROWS))
-                     + 4 * 10 * args[2].shape[0] * args[2].shape[2]) \
+                     + 4 * 10 * table.shape[0] * table.shape[2]) \
         / PEAK_BYTES_S
+    bound = max(t_ops, t_bytes)
+    floor = 1e3 * lane * (OPS_STEP + OPS_LAYER * L + 5 * OPS_BL_ITER) \
+        / PEAK_F32_OPS_S
     log(f"  [{card_line()}] K5 at this size: {ms:.3f} ms a launch ({n} "
         f"points; steps a lane {lane / n:.2f}, issued a lane by its warp "
         f"{warp / n:.2f}, divergence factor {warp / max(lane, 1):.3f}, "
-        f"slowest lane {slow}); bound {max(t_ops, t_bytes):.3f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}, five "
-        f"boundary-layer iterations a step)")
+        f"slowest lane {slow}); bound {bound:.3f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}: {lane} lane "
+        f"steps at {iters:.3f} boundary-layer iterations a step, measured "
+        f"by the plain version on {sl.stop - sl.start} points; the floor "
+        f"of 5 gave {floor:.3f} ms)")
+    if variants:
+        window_variants("6, K5 on the run's window inputs", args, kw, again,
+                        variants, reps=3)
     del again, args, kw
-    return res, launches, dict(ms=ms, launches=k5, err=err)
+    return res, launches, dict(ms=ms, launches=k5, err=err, bound=bound)
 
 
 # ---------------------------------------------------------------------------
@@ -2353,18 +2668,56 @@ def fused_vs_routes(label, eng, src, kw, geo, stats=None):
     return d["fused vs plain"][0], got
 
 
-def fused_small_case(config, side=256, T=140, chunk_t=128, relax=None,
-                     coupled=None, start_h=10):
-    """An engine of K3 fused at ``side`` x ``side`` points with a 128-step
-    chunk: ``grid``, phase 7's grid on a raster over its box;
-    ``composite``, that grid under the offset chunk's series (the
-    synthetic winter_mix forcing of phases 3b-3d, seed 21, one series a
-    point, every 83rd point without) as station obs, wind and radiation
-    components, as in phase 7b, with sky view, horizons, relaxation and
-    coupling; ``station``, those series alone with sky view.  The run
-    starts at ``start_h`` UTC, 30 s steps, the series on its clock: at 10
-    the sun is up and their shortwave on, at 0 it is night.  Returns
-    (engine, cofs or None)."""
+def fused_small_case(config, chunk_t=128, **kw):
+    """An engine of K3 fused on ``fused_small_inputs``' configuration with
+    a ``chunk_t``-step chunk.  Returns (engine, cofs or None)."""
+    c = fused_small_inputs(config, chunk_t=chunk_t, **kw)
+    eng = production._Engine(c["model"], c["exp"], c["pts"], c["cal"],
+                             c["state0"], anchors=c["anchors"],
+                             chunk_t=chunk_t)
+    assert eng.fused, config
+    return eng, c["cofs"]
+
+
+def wide_grid(times, fields, start_h, minutes=5):
+    """The grid's fields from two hours before ``start_h`` to four after,
+    on a ``minutes`` raw clock (linear in time between the hourly fields),
+    with a dew point (the air temperature less a fifth of the humidity's
+    deficit) and direct shortwave (0.7 of the shortwave) added: 8 channels,
+    whose segment lines span 6 raw rows at 48-step chunks of 30 s steps.
+    Returns (times, fields)."""
+    h = np.arange(start_h - 2, start_h + 5)
+    n = (len(h) - 1) * 60 // minutes + 1
+    t = times[h[0]] + 60 * minutes * np.arange(n, dtype=np.int64)
+    w = (t - times[h[0]]) / 3600.0
+    i = np.minimum(w.astype(np.int64), len(h) - 2)
+    f = (w - i).astype(np.float32)[:, None, None]
+    out = {k: v[h][i] * (1.0 - f) + v[h][i + 1] * f
+           for k, v in fields.items()}
+    out["tdew"] = out["tair"] - (100.0 - out["rhz"]) / 5.0
+    out["sw_dir"] = 0.7 * out["sw"]
+    return t, {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+def fused_small_inputs(config, side=256, T=140, chunk_t=128, relax=None,
+                       coupled=None, start_h=10, depth=False, cend_lo=20,
+                       wlen=31, wide=False, nlayers=None):
+    """A configuration K3 fused takes at ``side`` x ``side`` points, its
+    expanders at ``chunk_t``-step chunks: ``grid``, phase 7's grid on a
+    raster over its box; ``composite``, that grid under the offset chunk's
+    series (the synthetic winter_mix forcing of phases 3b-3d, seed 21, one
+    series a point, every 83rd point without) as station obs, wind and
+    radiation components, as in phase 7b, with sky view, horizons,
+    relaxation and coupling; ``station``, those series alone with sky
+    view.  The run starts at ``start_h`` UTC, 30 s steps, the series on
+    its clock: at 10 the sun is up and their shortwave on, at 0 it is
+    night.  Coupled: each point's ``wlen``-step window ends at a step
+    drawn from [``cend_lo``, T) (every 9th point uncoupled, every 9th from
+    the 2nd at T-1) with an obs target of U(-3, 1) C; ``depth``: a global
+    output depth (the kernels' DEPTH instantiations).  Returns {model,
+    exp, pts, cal, state0, anchors, cofs (coefficient corrections of the
+    decay, or None)}.  ``wide``: the grid's fields as ``wide_grid`` makes
+    them; ``nlayers``: the ground layers (default the settings')."""
     P = side * side
     times, glats, glons, fields = grid_fields_gen_production()
     lat1, lon1, lat2, lon2 = BBOX
@@ -2372,11 +2725,15 @@ def fused_small_case(config, side=256, T=140, chunk_t=128, relax=None,
                              np.linspace(lon1, lon2, side), indexing="ij")
     plat, plon = glat.ravel(), glon.ravel()
     sim = times[0] + 3600 * start_h + 30 * np.arange(T, dtype=np.int64)
+    if wide:
+        times, fields = wide_grid(times, fields, start_h)
     cal = Calendar.from_epochs(sim)
     relax = config == "composite" if relax is None else relax
     coupled = config == "composite" if coupled is None else coupled
-    settings = ModelSettings(sim_len=T, dt=30.0, use_relaxation=relax,
-                             use_coupling=coupled)
+    settings = ModelSettings(
+        sim_len=T, dt=30.0, use_relaxation=relax, use_coupling=coupled,
+        **({"tsurf_output_depth": 0.03} if depth else {}),
+        **({"nlayers": nlayers} if nlayers else {}))
     model = Model(settings, device=DEV)
     raw_st, _ = synthetic_raw(P, T, dt=30.0, seed=21,
                               start_epoch=int(sim[0]),
@@ -2413,11 +2770,12 @@ def fused_small_case(config, side=256, T=140, chunk_t=128, relax=None,
                            vz_relax=anchors[1] + 0.1,
                            rh_relax=anchors[2] - 2.0)
     if coupled:
-        cend = rng.integers(20, T, P)
+        cend = rng.integers(cend_lo, T, P)
         cend[::9] = -99
         cend[1::9] = T - 1
         pts = pts._replace(
-            coupling_start=np.maximum(cend - 30, 1).astype(np.int32),
+            coupling_start=np.maximum(cend - (wlen - 1), 1).astype(
+                np.int32),
             coupling_end=cend.astype(np.int32),
             coupling_tsurf=rng.uniform(-3.0, 1.0, P))
         cofs = tuple(torch.tensor(rng.uniform(-0.4, 0.6, P),
@@ -2426,10 +2784,8 @@ def fused_small_case(config, side=256, T=140, chunk_t=128, relax=None,
     first = RawForcing(**{n: np.asarray(exp.first_host[n])[:, None]
                           for n in RawForcing._fields})
     state0 = model.init(first, cal, dtype=torch.float32, pts=pts)
-    eng = production._Engine(model, exp, pts, cal, state0, anchors=anchors,
-                             chunk_t=chunk_t)
-    assert eng.fused, config
-    return eng, cofs
+    return dict(model=model, exp=exp, pts=pts, cal=cal, state0=state0,
+                anchors=anchors, cofs=cofs)
 
 
 def phase_kernel_fused_small():
@@ -2723,15 +3079,16 @@ def phase_tm_small():
                     finally:
                         production._Engine.force_generic = False
                     launched = read_counts()
-                    if coupled:
-                        read_window_count()
                     k = own if route == "own" else 0
+                    if coupled:
+                        # phase B through K5 fused on the K3 fused route
+                        read_window_count(fused=k == 3)
                     assert launched[k] > 0 and sum(launched) == launched[k], (
                         config, route, launched)
                     TM_SMALL_K3[0] += launched[2]
-                    # K3 fused prepares nothing outside the kernel but
-                    # phase B's window (prepare, [Tc, P])
-                    if k == 3 and not coupled:
+                    # K3 fused, with K5 fused in phase B, prepares nothing
+                    # outside the kernels
+                    if k == 3:
                         assert calls.n == 0, calls.n
                     name = {0: "K1", 2: "K3", 3: "K3 fused"}[k]
                     assert np.array_equal(r.out_steps, want), r.out_steps
@@ -2943,51 +3300,99 @@ def grid_coupled_setup(cfg7, window_min=180, init_h=24, seed=29):
 
 
 def phase_grid_coupled(cfg7):
-    """Phase 7w: the coupled grid at full size, the window's table the
-    points' prepared window (about 27 GB at 1M points): phase B over the
-    point slices of run_production_coupled's default budget against one
-    launch (a budget that holds the whole table), bit for bit.  Returns
-    (K3 fused launches, K5 launches)."""
+    """Phase 7w: the coupled grid at full size.  Phase B through K5 fused
+    (the window's forcing prepared in the kernel) at the default budget
+    and at a budget of 0, against the table route (the reference switch:
+    the points' prepared window, about 27 GB at 1M points) in one launch
+    and over the point slices of the default budget, every run bit for bit
+    equal to the first; each run's wall, phase seconds, launches,
+    window-table calls and peak memory; K5 fused and K5 on the table (one
+    launch) timed again on their runs' window inputs; K5 fused's run at a
+    budget of 0 held to its plain version on its first 65,536 points
+    (``fused_head_check``), which gives the bound of its launch.  Returns
+    (K3 fused launches, K5 fused's figures: err, ms, table_ms, bound)."""
     c = grid_coupled_setup(cfg7)
     T = c["T"]
-    runs, n_k3, n_k5 = {}, 0, 0
-    for label, budget in (("point slices", 4e9), ("one launch", 64e9)):
+    ref, n_k3, fig = None, 0, {"err": 0.0}
+    for label, budget, table in (
+            ("K5 fused", 4e9, False),
+            ("the table route, one launch", 64e9, True),
+            ("the table route, point slices", 4e9, True),
+            ("K5 fused at a budget of 0", 0.0, False)):
         m = RunMetrics(announce=True)
         torch.cuda.reset_peak_memory_stats(DEV)
         reset_counts()
         t0 = time.perf_counter()
-        res = production.run_production_coupled(
-            c["model"], c["exp"], c["pts"], c["cal"], c["state0"],
-            chunk_t=c["chunk_t"], metrics=m, wcache_bytes=budget,
-            progress=Progress(T, every_s=5.0))
+        # the runs timed again keep their window call's inputs (the state
+        # after phase A copied, 0.14 GB at 1M points: in their peak)
+        timed = not budget or budget > 4e9
+        with (window_table_route() if table else contextlib.nullcontext()), \
+                WindowTables() as tables, (
+                    window_calls([], n_check=0 if table else 65536)
+                    if timed else contextlib.nullcontext()) as kept:
+            res = production.run_production_coupled(
+                c["model"], c["exp"], c["pts"], c["cal"], c["state0"],
+                chunk_t=c["chunk_t"], metrics=m, wcache_bytes=budget,
+                progress=Progress(T, every_s=5.0))
         launches = read_counts()
-        k5 = read_window_count(main_path=True)
+        # the table route's K5 launches are the reference's, not the main
+        # path's
+        k5 = read_window_count(main_path=not table, fused=not table)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(DEV)
         check_outputs(res, c)
         cnt, ph = m.counters, m.phases
         assert cnt["coupling_reruns"] > 0, cnt
-        assert cnt["coupling_window_cached"] == (label == "one launch"), cnt
         assert launches[:3] == (0, 0, 0) and launches[3] > 0, launches
+        if table:
+            assert tables.n == k5 and cnt["coupling_window_cached"] == (
+                budget > 4e9), (tables.n, k5, cnt)
+        else:
+            assert tables.n == 0 and k5 == 1, (tables.n, k5)
+            assert cnt["coupling_window_cached"] == 1, cnt
         n_k3 += launches[3]
-        n_k5 += k5
-        log(f"  [{card_line()}] 7w, coupled grid, phase B in {label} "
+        log(f"  [{card_line()}] 7w, coupled grid, phase B through {label} "
             f"({budget / 1e9:.0f} GB a device): wall {wall:.2f} s, phase "
             f"A {ph['phase_a']:.2f} s, phase B {ph['phase_b']:.2f} s, "
             f"phase C {ph['phase_c']:.2f} s; K3 fused launches "
-            f"{launches[3]}, K5 launches {k5}; window steps "
+            f"{launches[3]}, {'K5' if table else 'K5 fused'} launches {k5}, "
+            f"window tables built {tables.n}; window steps "
             f"{cnt['coupling_window_steps']}, most re-runs of a point "
             f"{cnt['coupling_reruns']}, steps of the slowest lane "
             f"{cnt['coupling_window_rows']}; points coupled "
             f"{cnt['coupling_points']}, failed {cnt['coupling_failed']}; "
             f"peak device memory {peak / 2**30:.2f} GiB")
-        runs[label] = res
-        del res
-    assert_same_result("7w, coupled grid: K5 over point slices vs one "
-                       "launch", runs["point slices"], runs["one launch"])
-    del runs
-    torch.cuda.empty_cache()
-    return n_k3, n_k5
+        if ref is None:
+            ref = res
+        else:
+            assert_same_result(f"7w, coupled grid: {label} vs K5 fused",
+                               res, ref)
+        if timed:
+            # the window kernel of this run timed again on its inputs, here
+            # (inputs kept through a later run would count in its peak)
+            args, kw, sl, run_part = kept[0]
+            again = wk.window_cuda(*args, **kw)
+            ms = cuda_ms(lambda: wk.window_cuda(*args, **kw), reps=3)
+            lane, warp, slow = window_stats(again.steps)
+            n = again.steps.shape[0]
+            log(f"  [{card_line()}] 7w: {'K5' if table else 'K5 fused'} at "
+                f"this size {ms:.3f} ms a launch ({n} points; steps a lane "
+                f"{lane / n:.2f}, issued a lane by its warp {warp / n:.2f}, "
+                f"divergence factor {warp / max(lane, 1):.3f}, slowest lane "
+                f"{slow}; {1e9 * ms / max(lane, 1):.2f} ps a lane step)")
+            fig["table_ms" if table else "ms"] = ms
+            if not table:
+                head = fused_head_check("7w", args, kw, sl, run_part, again,
+                                        c["model"])
+                fig["err"], fig["bound"] = head["err"], head["bound"]
+                log(f"  [{card_line()}] 7w: K5 fused {ms:.3f} ms a launch "
+                    f"against its bound {head['bound'][0]:.3f} ms "
+                    f"({head['bound'][1]})")
+            del args, kw, again, run_part
+        del res, kept
+        torch.cuda.empty_cache()
+    del ref
+    return n_k3, fig
 
 
 def composite_sky_setup(cfg7, cfg):
@@ -3579,7 +3984,9 @@ def run_phases(samples):
     if want("3w"):
         log("== 3w. K5, the coupling window, against its plain version and "
             "the eager window engine")
-        k5w = phase_window_small()
+        k5w = phase_window_small(variants)
+        stamp()
+        k5fw = phase_window_fused_small()
         stamp()
     if want("3d"):
         log("== 3d. K4, the sharded launch, against its plain version and "
@@ -3660,7 +4067,7 @@ def run_phases(samples):
         log("== 6. coupled main path at full size: 1048576 points x 8881 "
             "steps")
         res6, launches6, k5_6 = phase_coupled_full(
-            cfg6, RunMetrics(announce=True))
+            cfg6, RunMetrics(announce=True), variants)
         samples.start(cfg6, res6, coupled=True)
         launched = [a + b for a, b in zip(launched, launches6)]
         del res6
@@ -3701,9 +4108,10 @@ def run_phases(samples):
         torch.cuda.empty_cache()
         stamp()
     if want("7w"):
-        log("== 7w. the coupled NWP grid at full size: K5 over point slices "
-            "of the points' prepared window against one launch")
-        k3_launches += phase_grid_coupled(cfg7)[0]
+        log("== 7w. the coupled NWP grid at full size: K5 fused against the "
+            "table route in one launch and over point slices")
+        n7w, k5f7 = phase_grid_coupled(cfg7)
+        k3_launches += n7w
         stamp()
     if want("4c"):
         log("== 4c. the tile-major path, small, against Model.run / "
@@ -3810,8 +4218,16 @@ def run_phases(samples):
           "max_abs_err": max(k5w["err"], k5_6["err"]), "ms": k5w["ms"],
           "plain_ms": k5w["plain_ms"], "bound": k5w["bound"],
           "replaces": "roadsurf_tpu/production.py:2041"}
+    # K5 fused's time, plain time and bound are 3w's grid case (65,536
+    # points, where the plain version runs whole), its launches 7w's K5
+    # fused runs; its error the largest of 3w's cases and of 7w's run held
+    # to its plain version on 65,536 points at the main path's shapes
+    k5f = {"name": "window_kernel_fused", "launches": MAIN_PATH_K5F[0],
+           "max_abs_err": max(k5fw["err"], k5f7["err"]), "ms": k5fw["ms"],
+           "plain_ms": k5fw["plain_ms"], "bound": k5fw["bound"],
+           "replaces": "roadsurf_tpu/production.py:2041"}
     kernels = []
-    for k in (k1, k2, k3, k3f, k4, k5):
+    for k in (k1, k2, k3, k3f, k4, k5, k5f):
         assert k["launches"] > 0, k
         bound_ms, bound_by = k.pop("bound")
         kernels.append(dict(

@@ -295,21 +295,33 @@ __device__ __forceinline__ float rh_from_tdew(float t2m, float td) {
               100.0f);
 }
 
+// The raw rows of the grid window the segment lines were computed on
+// (GridExpander.plan): the raw position of its first step k0, its first
+// raw row lo and its first step's time tr0.  K3 fused's window is its
+// chunk's; K5 fused's is the window chunk of the lane's step.
+struct GridRows {
+  int k0, lo;
+  float tr0;
+};
+
 // The grid part's value of a continuous channel at step tg: its segment's
 // line, or the exact-time valid sample (GridExpander.evaluate).  col: the
 // point's column of the channel's rows (row r at col[r * tp]); seg: the
-// thread's (alpha, beta) of each segment, BLOCK apart.
+// thread's (alpha, beta) of each segment, BLOCK apart, computed on the
+// window w.
 __device__ __forceinline__ float grid_value(const FuseArgs& a,
                                             const float* col, int64_t tp,
                                             const float* seg, int tg,
-                                            float tr0) {
-  const int st = clampi(__ldg(a.pos + tg) - a.k0, 0, a.span - 1);
+                                            const GridRows& w) {
+  const int st = clampi(__ldg(a.pos + tg) - w.k0, 0, a.span - 1);
   const float al = seg[(2 * st) * BLOCK];
   const float be = seg[(2 * st + 1) * BLOCK];
-  float res = __fadd_rn(al, __fmul_rn(__fsub_rn(__ldg(a.trel + tg), tr0), be));
-  const int kg = a.k0 + st;
+  float res =
+      __fadd_rn(al, __fmul_rn(__fsub_rn(__ldg(a.trel + tg), w.tr0), be));
+  const int kg = w.k0 + st;
   if (__ldg(a.tex + tg) && kg < a.K) {
-    const float x = __ldg(col + (int64_t)(a.lo + clampi(kg - a.lo, 0, a.KW - 1)) * tp);
+    const float x =
+        __ldg(col + (int64_t)(w.lo + clampi(kg - w.lo, 0, a.KW - 1)) * tp);
     if (x > -9000.0f) res = x;
   }
   return res;
@@ -320,7 +332,7 @@ __device__ __forceinline__ float grid_value(const FuseArgs& a,
 // through the last valid sample at or before row klm1 and the next valid
 // one at or after row kl, within the gap cap; stored in seg.
 __device__ void grid_segments(const FuseArgs& a, int64_t colbase, int64_t tp,
-                              float* seg, float tr0) {
+                              float* seg, const GridRows& w) {
   const float NEG = -3e38f, POS = 3e38f;
   int ci = 0;
   for (int c = 0; c < F_PPHASE; ++c) {
@@ -328,22 +340,22 @@ __device__ void grid_segments(const FuseArgs& a, int64_t colbase, int64_t tp,
     if (g == nullptr) continue;
     const float* col = g + colbase;
     for (int s = 0; s < a.span; ++s) {
-      const int kg = a.k0 + s;
-      const int kl = clampi(kg - a.lo, 0, a.KW - 1);
-      const int klm1 = clampi(kg - a.lo - 1, 0, a.KW - 1);
+      const int kg = w.k0 + s;
+      const int kl = clampi(kg - w.lo, 0, a.KW - 1);
+      const int klm1 = clampi(kg - w.lo - 1, 0, a.KW - 1);
       float t1 = NEG, v1 = 0.0f, t2 = POS, v2 = 0.0f;
       for (int k = klm1; k >= 0; --k) {
-        const float v = __ldg(col + (int64_t)(a.lo + k) * tp);
+        const float v = __ldg(col + (int64_t)(w.lo + k) * tp);
         if (v > -9000.0f) {
-          t1 = __ldg(a.trw + a.lo + k);
+          t1 = __ldg(a.trw + w.lo + k);
           v1 = v;
           break;
         }
       }
       for (int k = kl; k < a.KW; ++k) {
-        const float v = __ldg(col + (int64_t)(a.lo + k) * tp);
+        const float v = __ldg(col + (int64_t)(w.lo + k) * tp);
         if (v > -9000.0f) {
-          t2 = __ldg(a.trw + a.lo + k);
+          t2 = __ldg(a.trw + w.lo + k);
           v2 = v;
           break;
         }
@@ -354,7 +366,8 @@ __device__ void grid_segments(const FuseArgs& a, int64_t colbase, int64_t tp,
       const float invg = gap > 0.0f ? __frcp_rn(gap) : 0.0f;
       const float b = have ? __fmul_rn(__fsub_rn(v2, v1), invg) : 0.0f;
       seg[(2 * (ci * a.span + s)) * BLOCK] =
-          have ? __fadd_rn(v1, __fmul_rn(__fsub_rn(tr0, t1), b)) : MISSING_F;
+          have ? __fadd_rn(v1, __fmul_rn(__fsub_rn(w.tr0, t1), b))
+               : MISSING_F;
       seg[(2 * (ci * a.span + s) + 1) * BLOCK] = b;
     }
     ++ci;
@@ -367,6 +380,13 @@ struct SunPoint {
   float sin_lat, cos_lat, lonr;
 };
 
+__device__ __forceinline__ SunPoint sun_point(const FuseArgs& a, int p) {
+  const float pi_f = (float)3.14159265358979323846;
+  const float latr = div_s(__fmul_rn(__ldg(a.lat + p), pi_f), 180.0f);
+  return SunPoint{sinf(latr), cosf(latr),
+                  div_s(__fmul_rn(__ldg(a.lon + p), pi_f), 180.0f)};
+}
+
 // The prep of one step of one point, in registers: the raw values of the
 // grid and station parts merged in source order (merge_windows), then
 // forcing.prepare_window's rules and forcing_thermo, each operation
@@ -374,8 +394,9 @@ struct SunPoint {
 // as prepare_window does.
 __device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
                                              int64_t colbase, int64_t tp,
-                                             const float* seg, float tr0,
-                                             int tg, const SunPoint& sp) {
+                                             const float* seg,
+                                             const GridRows& w, int tg,
+                                             const SunPoint& sp) {
   // ---- raw values (GridExpander._raw_window, StationExpander.window_tm)
   float raw[F_PPHASE];
   int pphase = -9999;
@@ -390,7 +411,7 @@ __device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
       gv[c] = MISSING_F;
       if (a.g[c] != nullptr) {
         gv[c] = grid_value(a, a.g[c] + colbase, tp,
-                           seg + 2 * ci * a.span * BLOCK, tg, tr0);
+                           seg + 2 * ci * a.span * BLOCK, tg, w);
         ++ci;
       }
     }
@@ -401,12 +422,12 @@ __device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
       const float* col = a.g[F_PPHASE] + colbase;
       const int pc = __ldg(a.pos + tg);
       const float vex =
-          __ldg(col + (int64_t)(a.lo + clampi(pc - a.lo, 0, a.KW - 1)) * tp);
+          __ldg(col + (int64_t)(w.lo + clampi(pc - w.lo, 0, a.KW - 1)) * tp);
       float res;
       if (__ldg(a.tex + tg) && vex > -9000.0f) {
         res = vex;
       } else if (__ldg(a.havep + tg)) {
-        res = __ldg(col + (int64_t)(a.lo + clampi(__ldg(a.pick + tg) - a.lo,
+        res = __ldg(col + (int64_t)(w.lo + clampi(__ldg(a.pick + tg) - w.lo,
                                                    0, a.KW - 1)) * tp);
       } else {
         res = MISSING_F;
@@ -1109,20 +1130,14 @@ __device__ __forceinline__ void scan_points(
   // first step time, the segment lines and the sun's per-point terms
   const int64_t colbase = tile * (int64_t)fa.K * FS + (p - tile * FS);
   float* seg = seg_smem + threadIdx.x;
-  float tr0 = 0.0f;
+  GridRows gw{fa.k0, fa.lo, 0.0f};
   SunPoint sp{0.0f, 0.0f, 0.0f};
   if (FUSED) {
     if (fa.has_grid) {
-      tr0 = __ldg(fa.trel + off);
-      grid_segments(fa, colbase, FS, seg, tr0);
+      gw.tr0 = __ldg(fa.trel + off);
+      grid_segments(fa, colbase, FS, seg, gw);
     }
-    if (fa.sky_on) {
-      const float pi_f = (float)3.14159265358979323846;
-      const float latr = div_s(__fmul_rn(__ldg(fa.lat + p), pi_f), 180.0f);
-      sp.sin_lat = sinf(latr);
-      sp.cos_lat = cosf(latr);
-      sp.lonr = div_s(__fmul_rn(__ldg(fa.lon + p), pi_f), 180.0f);
-    }
+    if (fa.sky_on) sp = sun_point(fa, p);
   }
 
   // K2's per-point aux rows, read once
@@ -1176,7 +1191,7 @@ __device__ __forceinline__ void scan_points(
     // K3 fused prepares the step's channels here; the other modes read
     // them from the forcing where the body uses them
     StepIn in = {};
-    if (FUSED) in = fused_prep(fa, p, colbase, FS, seg, tr0, tg, sp);
+    if (FUSED) in = fused_prep(fa, p, colbase, FS, seg, gw, tg, sp);
     const ScanIn<SLIM, FUSED> src{f,      FS,    in,    trf,   tg,
                                   cofs,   t_total, c.dt, cof_red, a_swc,
                                   a_lwc,  a_cend, a_obs};
@@ -1309,15 +1324,45 @@ static int launch(const ScanConsts* c, const FuseArgs* fa,
 // settles the lane's pass transitions (rewind or tail) and then runs one
 // instance of step_body.  The profile and the state stay in registers as
 // in K2; the snapshot, written once at start_i and read at each rewind,
-// lives in global scratch [L+3+7, n], not in registers.  The forcing is a
-// table [W+1 rows, 16, R] in K1's channel layout read at the point's
-// column fidx: the station-rank prepared channels on the station route
-// (R = S+1, so the expanded window never exists), the prepared window
-// itself elsewhere (R = the slice's points).  Coupling_control is float32
-// and branch-free as torch's (coupling.py:98-184), rounded as torch rounds
-// it on the card.  MAX_RERUNS bounds a lane's rewinds as a guard only: the
-// control fails a point at its 25th iteration, so no lane reaches it; the
-// host reads the re-run counts and raises past it (run_production_coupled).
+// lives in shared memory, L+10 floats a lane (13 KB a block at LM 16), not
+// in registers: in global scratch its 64-bit addressing cost ptxas 480
+// SASS instructions and 8 bytes of spills, and K5 1-8% more time (PERF.md,
+// PR 10).  It starts zeroed, as the plain version's does: a lane whose
+// window starts before ws never saves it, and a rewind restores zeros.
+// Coupling_control
+// is float32 and branch-free as torch's (coupling.py:98-184), rounded as
+// torch rounds it on the card.  MAX_RERUNS bounds a lane's rewinds as a
+// guard only: the control fails a point at its 25th iteration, so no lane
+// reaches it; the host reads the re-run counts and raises past it
+// (run_production_coupled).
+//
+// Two sources of a step's forcing, the template flag FUSED:
+//  * the table (K5; the station route, and the routes K3 fused does not
+//    take): [W+1 rows, 16, R] in K1's channel layout read at the point's
+//    column fidx: the station-rank prepared channels on the station route
+//    (R = S+1, so the expanded window never exists), the prepared window
+//    itself elsewhere (R = the slice's points);
+//  * K5 fused (the routes whose phases A and C run K3 fused: a grid,
+//    stations with sky view, a grid + station composite): no table.  On
+//    those routes the table was the window's eager prep, 27 GB at 1M
+//    points and most of phase B's time (PERF.md, PR 9), cut into point
+//    slices to fit.  Here each step's channels come from fused_prep, K3
+//    fused's prep in registers from the raw series rows (FuseArgs).  The
+//    table route prepares the window in chunks of wtc rows from row ws-1,
+//    and the grid's float32 interpolation evaluates each segment line from
+//    its chunk's first step, so the lane computes its segment lines
+//    (grid_segments, in dynamic shared memory as K3 fused's) on the raw
+//    rows of the window chunk that holds its step (wrows: each window
+//    chunk's k0 and lo) and again whenever its step enters another one:
+//    forward, or back at a rewind; lanes of a warp at different chunks
+//    never share lines, and the lane equals the table route bit for bit.
+//    The rewind's CheckValues reads the forcing of row end_i, the row after
+//    the pass's last step: the lane prepares it once, in a trip without a
+//    step at its first rewind (its position is end_i + 1 then), and keeps
+//    its valid flag in a register for every later rewind.  What bounds it:
+//    operations, the body's and the prep's; it reads the raw rows of the
+//    window (the grid's KW rows of each window chunk, about 0.3 GB at 1M
+//    points) where K5 read a 27 GB table that eager torch ops had written.
 
 #define M_FIRST 0
 #define M_RERUN 1
@@ -1328,14 +1373,15 @@ static int launch(const ScanConsts* c, const FuseArgs* fa,
 
 // Mirror of WinArgs in ops/window_kernel.py (pointers, then ints, then the
 // float; checked by size before any launch).  Points [p0, p0 + n) of a
-// block of P: per-point arrays of the block at p, fidx and the snapshot at
-// j = p - p0.
+// block of P: per-point arrays of the block at p, fidx at j = p - p0.
+// K5 fused reads no table and no fidx (null) but wrows, tp and wtc, and
+// runs the whole block (p0 = 0, n = P).
 struct WinArgs {
   const float* tmp0;            // [lpad, P] profile after phase A
   const float* scal0;           // [NROWS, P] packed state after phase A
   const float* table;           // [W1, NCH, R] forcing of rows ws-1 .. we_b
   const int* fidx;              // [n] each point's column of the table
-  const float* trf;             // [W1] traffic friction of those rows
+  const float* trf;             // [W1] traffic friction of rows ws-1 .. we_b
   const int* cstart;            // [P] coupling_start
   const int* cend;              // [P] coupling_end
   const float* obs;             // [P] coupling obs
@@ -1343,13 +1389,15 @@ struct WinArgs {
   float* tmp_out;               // [lpad, P]
   float* scal_out;              // [NROWS, P]
   float* rows;                  // [n_out, 6, P] output rows, pre-filled
-  float* snap;                  // [L+3+7, n] snapshot scratch, zeroed
   float* sw_corr;               // [P]
   float* lw_corr;               // [P]
   unsigned char* cv_failed;     // [P] Coupling_failed
   int* reruns;                  // [P] rewinds of each point
   int* steps;                   // [P] steps each point took
+  const int* wrows;             // [ceil(W1 / wtc), 2] each window chunk's
+                                // (k0, lo) of the grid part (K5 fused)
   int P, p0, n, R, W1, ws, we_b, T, out_stride, first_hit, n_out;
+  int tp, wtc;                  // K5 fused: tile width, window chunk rows
   float cof_red;
 };
 
@@ -1450,25 +1498,30 @@ __device__ __forceinline__ void snow_ice_check(const ScanConsts& c, float ob,
 }
 
 // The window kernel's step inputs: the forcing channels from the table row
-// at the point's column (K1's layout), CheckValues, the coupling-phase
-// flag and the radiation coefficients from the lane's own program, the
-// coupling obs and the row's traffic friction.
+// at the point's column (K1's layout), or with FUSED from the channels
+// fused_prep made; CheckValues, the coupling-phase flag and the radiation
+// coefficients from the lane's own program, the coupling obs and the row's
+// traffic friction.
+template <bool FUSED>
 struct WinIn {
   const float* f;
   int64_t fs;
+  StepIn v;
   float valid_v, trf_v, sw_cof, lw_cof, obs_v;
   bool incpl_v;
-#define IN_CH(NAME, X) \
-  __device__ __forceinline__ float NAME() const { return __ldg(f + X * fs); }
-  IN_CH(tair, C_TAIR)
-  IN_CH(vz, C_VZ)
-  IN_CH(eair, C_EAIR)
-  IN_CH(rain, C_RAIN)
-  IN_CH(snow, C_SNOW)
-  IN_CH(sw, C_SW)
-  IN_CH(lw, C_LW)
-  IN_CH(obs, C_TSURF_OBS)
-  IN_CH(airvcap, C_AIRVCAP)
+#define IN_CH(NAME, X, FIELD)                       \
+  __device__ __forceinline__ float NAME() const {   \
+    return FUSED ? v.FIELD : __ldg(f + X * fs);     \
+  }
+  IN_CH(tair, C_TAIR, tair)
+  IN_CH(vz, C_VZ, vz)
+  IN_CH(eair, C_EAIR, eair)
+  IN_CH(rain, C_RAIN, rain)
+  IN_CH(snow, C_SNOW, snow)
+  IN_CH(sw, C_SW, sw)
+  IN_CH(lw, C_LW, lw)
+  IN_CH(obs, C_TSURF_OBS, obs)
+  IN_CH(airvcap, C_AIRVCAP, airvcap)
 #undef IN_CH
   __device__ __forceinline__ float valid() const { return valid_v; }
   __device__ __forceinline__ float incpl() const {
@@ -1483,13 +1536,13 @@ struct WinIn {
   }
 };
 
-template <int LM, bool DEPTH>
+template <int LM, bool DEPTH, bool FUSED>
 __global__ void __launch_bounds__(BLOCK)
-window_kernel(const ScanConsts c, const WinArgs a) {
+window_kernel(const ScanConsts c, const FuseArgs fa, const WinArgs a) {
   const int j = blockIdx.x * BLOCK + threadIdx.x;
   if (j >= a.n) return;
   const int p = a.p0 + j;
-  const int64_t PP = a.P, NN = a.n;
+  const int64_t PP = a.P;
   const int L = c.L;
   // the profile rows the snapshot holds (rows 0 .. L+2 that exist)
   const int nsnap = L + 3 < c.lpad ? L + 3 : c.lpad;
@@ -1507,9 +1560,29 @@ window_kernel(const ScanConsts c, const WinArgs a) {
   const bool cpl = (fl & 1) != 0, sky = (fl & 2) != 0;
   const int64_t RS = a.R;                     // channel stride
   const int64_t row_stride = (int64_t)NCH * RS;
-  const float* col = a.table + __ldg(a.fidx + j);
-  float* snap = a.snap + j;
+  const float* col = FUSED ? nullptr : a.table + __ldg(a.fidx + j);
+  // the snapshot: row k of this lane at snap[k * BLOCK]
+  __shared__ float snap_s[(LM + 10) * BLOCK];
+  float* snap = snap_s + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < LM + 10; ++k) snap[k * BLOCK] = 0.0f;
   const float dt = c.dt;
+
+  // K5 fused: the point's column in the grid's tile rows, its segment
+  // lines (of the window chunk of table rows [w_lo, w_lo + wtc), none yet)
+  // and the sun's per-point terms
+  extern __shared__ float seg_smem[];
+  float* seg = seg_smem + threadIdx.x;
+  const int64_t tile = FUSED ? p / a.tp : 0;
+  const int64_t colbase =
+      FUSED ? tile * (int64_t)fa.K * a.tp + (p - tile * a.tp) : 0;
+  GridRows gw{0, 0, 0.0f};
+  int w_lo = -2 * a.wtc;
+  SunPoint sp{0.0f, 0.0f, 0.0f};
+  if (FUSED && fa.sky_on) sp = sun_point(fa, p);
+  // K5 fused: the forcing's CheckValues of row end_i, once prepared
+  bool have_vrow = false;
+  float vrow = 0.0f;
 
   CplVars cv{1.0f, 1.0f, 0.0f, 0.0f, 1.0f, -9999.0f, -9999.0f,
              1.0f, -9999.0f, -9999.0f, 0.0f, 0, false, ob < -100.0f};
@@ -1522,25 +1595,34 @@ window_kernel(const ScanConsts c, const WinArgs a) {
     // the pass transitions of run_window_passes for this point: past the
     // end of its pass, rewind (while its control asks) or go to the tail;
     // a failed point takes no step again
+    bool prep_only = false;
     while (mode != M_DONE && (i > hi || s.failed > 0.5f)) {
       if (s.failed > 0.5f || mode == M_TAIL || nre > MAX_RERUNS) {
         mode = M_DONE;
       } else if (cv.again && cpl && ei + 1 < a.T) {
+        if (FUSED && !have_vrow) {
+          // row end_i is not prepared yet: a trip that only prepares it
+          // (the lane stands at end_i + 1)
+          prep_only = true;
+          break;
+        }
         // CheckValues of the pre-rewind row end_i on the pre-restore state
-        const int vrow = clampi(ei - (a.ws - 1), 0, a.W1 - 1);
-        vf = !(__ldg(col + vrow * row_stride + C_VALID * RS) < 0.5f) &&
+        const int vr = clampi(ei - (a.ws - 1), 0, a.W1 - 1);
+        const float valid_row =
+            FUSED ? vrow : __ldg(col + vr * row_stride + C_VALID * RS);
+        vf = !(valid_row < 0.5f) &&
              !((s.tsurf < -100.0f) || (s.tsurf > 100.0f));
         // uploadDataForCoupling: not ice, not q2melt/t4melt/evap/blcond
 #pragma unroll
         for (int k = 0; k < LM + 3; ++k)
-          if (k < nsnap) tmp[k] = snap[k * NN];
-        s.tsurf = snap[(L + 3) * NN];
-        s.wat = snap[(L + 4) * NN];
-        s.snow = snap[(L + 5) * NN];
-        s.ice2 = snap[(L + 6) * NN];
-        s.dep = snap[(L + 7) * NN];
-        s.alb = snap[(L + 8) * NN];
-        s.vcold = snap[(L + 9) * NN];
+          if (k < nsnap) tmp[k] = snap[k * BLOCK];
+        s.tsurf = snap[(L + 3) * BLOCK];
+        s.wat = snap[(L + 4) * BLOCK];
+        s.snow = snap[(L + 5) * BLOCK];
+        s.ice2 = snap[(L + 6) * BLOCK];
+        s.dep = snap[(L + 7) * BLOCK];
+        s.alb = snap[(L + 8) * BLOCK];
+        s.vcold = snap[(L + 9) * BLOCK];
         cv.again = false;
         cv.sw_cof = choice ? cv.radcoeff : 1.0f;
         cv.lw_cof = choice ? 1.0f : cv.radcoeff;
@@ -1556,8 +1638,29 @@ window_kernel(const ScanConsts c, const WinArgs a) {
     }
     if (mode == M_DONE) break;
 
+    // K5 fused: the step's channels, prepared on the segment lines of the
+    // window chunk holding table row i - ws (global row i - 1)
+    StepIn in = {};
+    if (FUSED) {
+      const int ri = i - a.ws;
+      if (fa.has_grid && (unsigned)(ri - w_lo) >= (unsigned)a.wtc) {
+        const int k = ri / a.wtc;
+        w_lo = k * a.wtc;
+        gw.k0 = __ldg(a.wrows + 2 * k);
+        gw.lo = __ldg(a.wrows + 2 * k + 1);
+        gw.tr0 = __ldg(fa.trel + (a.ws - 1) + w_lo);
+        grid_segments(fa, colbase, a.tp, seg, gw);
+      }
+      in = fused_prep(fa, p, colbase, a.tp, seg, gw, i - 1, sp);
+      if (prep_only) {
+        vrow = in.valid;
+        have_vrow = true;
+        continue;
+      }
+    }
+
     // one step at (mode, i): table row i - ws holds global row i - 1
-    const float* f = col + (int64_t)(i - a.ws) * row_stride;
+    const float* f = FUSED ? nullptr : col + (int64_t)(i - a.ws) * row_stride;
     bool incpl;
     if (mode == M_FIRST) {
       if (cpl && i == si) {
@@ -1565,21 +1668,23 @@ window_kernel(const ScanConsts c, const WinArgs a) {
           // saveDataForCoupling and the coefficient reset (:55-64)
 #pragma unroll
           for (int k = 0; k < LM + 3; ++k)
-            if (k < nsnap) snap[k * NN] = tmp[k];
-          snap[(L + 3) * NN] = s.tsurf;
-          snap[(L + 4) * NN] = s.wat;
-          snap[(L + 5) * NN] = s.snow;
-          snap[(L + 6) * NN] = s.ice2;
-          snap[(L + 7) * NN] = s.dep;
-          snap[(L + 8) * NN] = s.alb;
-          snap[(L + 9) * NN] = s.vcold;
+            if (k < nsnap) snap[k * BLOCK] = tmp[k];
+          snap[(L + 3) * BLOCK] = s.tsurf;
+          snap[(L + 4) * BLOCK] = s.wat;
+          snap[(L + 5) * BLOCK] = s.snow;
+          snap[(L + 6) * BLOCK] = s.ice2;
+          snap[(L + 7) * BLOCK] = s.dep;
+          snap[(L + 8) * BLOCK] = s.alb;
+          snap[(L + 9) * BLOCK] = s.vcold;
           cv.sw_cof = 1.0f;
           cv.lw_cof = 1.0f;
           cv.sw_corr = 0.0f;
           cv.lw_corr = 0.0f;
         }
         // the coefficient choice (:66-77) at the window-start row
-        choice = (__ldg(f + C_SW * RS) > __ldg(f + C_LW * RS)) && !sky;
+        const float sw = FUSED ? in.sw : __ldg(f + C_SW * RS);
+        const float lw = FUSED ? in.lw : __ldg(f + C_LW * RS);
+        choice = (sw > lw) && !sky;
       }
       incpl = cpl && i >= si && i <= ei;
     } else {
@@ -1588,7 +1693,7 @@ window_kernel(const ScanConsts c, const WinArgs a) {
     }
     const float valid = (mode == M_RERUN && i == si)
                             ? (vf ? 1.0f : 0.0f)
-                            : __ldg(f + C_VALID * RS);
+                            : (FUSED ? in.valid : __ldg(f + C_VALID * RS));
     if (incpl) snow_ice_check(c, ob, s);
     float swc = cv.sw_cof, lwc = cv.lw_cof;
     if (mode == M_TAIL) {
@@ -1600,9 +1705,9 @@ window_kernel(const ScanConsts c, const WinArgs a) {
       swc = __fadd_rn(1.0f, __fmul_rn(cv.sw_corr, dec));
       lwc = __fadd_rn(1.0f, __fmul_rn(cv.lw_corr, dec));
     }
-    const WinIn in{f,   RS,  valid, __ldg(a.trf + (i - a.ws)),
-                   swc, lwc, ob,    incpl};
-    step_body<LM, DEPTH>(c, rk, in, tmp, s);
+    const WinIn<FUSED> win{f,   RS,  in, valid, __ldg(a.trf + (i - a.ws)),
+                           swc, lwc, ob, incpl};
+    step_body<LM, DEPTH>(c, rk, win, tmp, s);
 
     // SaveOutput (overwritten by a later re-run of the row)
     const int r = i - 1;
@@ -1633,25 +1738,56 @@ window_kernel(const ScanConsts c, const WinArgs a) {
   a.steps[p] = nst;
 }
 
-// K5 on `stream`: points [a->p0, a->p0 + a->n) of a->P; returns
-// cudaGetLastError() after the launch (0 = ok).
-static int launch_window(const ScanConsts* c, const WinArgs* a,
-                         void* stream) {
+// K5 (FUSED false: the table) or K5 fused on `stream`: points [a->p0,
+// a->p0 + a->n) of a->P; returns cudaGetLastError() after the launch (0 =
+// ok).  K5 fused takes its inputs from *fa and *a's wrows, runs every
+// point of the block, and its dynamic shared memory holds the segment lines.
+// The default limit of 48 KB a block holds the static snapshot and the
+// dynamic part together, so K5 fused always declares its dynamic part (up
+// to 160 KB at 10 channels and SPAN_MAX, beside the snapshot's 21.5 KB).
+template <bool FUSED>
+static int launch_window(const ScanConsts* c, const FuseArgs* fa,
+                         const WinArgs* a, void* stream) {
   if (a == nullptr || a->n <= 0 || a->p0 < 0 || a->p0 + a->n > a->P ||
-      a->R <= 0 || a->W1 < 2 || a->ws < 1 || a->we_b < a->ws ||
+      a->W1 < 2 || a->ws < 1 || a->we_b < a->ws ||
       a->we_b - a->ws + 2 != a->W1 || a->we_b > a->T - 1 ||
       a->out_stride < 1 || a->n_out < 1 || c->L < 1 || c->L > LMAX_ALL ||
       c->lpad < c->L + 2)
     return (int)cudaErrorInvalidValue;
+  static const FuseArgs none = {};
+  size_t smem = 0;
+  if (FUSED) {
+    if (fa == nullptr || a->p0 != 0 || a->n != a->P || a->tp <= 0 ||
+        a->P % a->tp != 0 || a->tp % BLOCK != 0 || a->wtc < 1 ||
+        (fa->has_grid && (a->wrows == nullptr || fa->span < 1 ||
+                          fa->span > SPAN_MAX)))
+      return (int)cudaErrorInvalidValue;
+    int nch = 0;
+    if (fa->has_grid)
+      for (int k = 0; k < F_PPHASE; ++k) nch += fa->g[k] != nullptr;
+    smem = (size_t)nch * fa->span * 2 * BLOCK * sizeof(float);
+  } else if (a->table == nullptr || a->fidx == nullptr || a->R <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const FuseArgs& args = FUSED ? *fa : none;
   const dim3 grid((a->n + BLOCK - 1) / BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
+#define LAUNCH_W(LM, DEPTH)                                                 \
+  do {                                                                      \
+    auto kern = window_kernel<LM, DEPTH, FUSED>;                            \
+    if (FUSED) {                                                            \
+      cudaError_t e = cudaFuncSetAttribute(                                 \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
+      if (e != cudaSuccess) return (int)e;                                  \
+    }                                                                       \
+    kern<<<grid, BLOCK, smem, s>>>(*c, args, *a);                           \
+  } while (0)
   if (c->L <= 16) {
-    if (c->use_depth) window_kernel<16, true><<<grid, BLOCK, 0, s>>>(*c, *a);
-    else window_kernel<16, false><<<grid, BLOCK, 0, s>>>(*c, *a);
+    if (c->use_depth) LAUNCH_W(16, true); else LAUNCH_W(16, false);
   } else {
-    if (c->use_depth) window_kernel<32, true><<<grid, BLOCK, 0, s>>>(*c, *a);
-    else window_kernel<32, false><<<grid, BLOCK, 0, s>>>(*c, *a);
+    if (c->use_depth) LAUNCH_W(32, true); else LAUNCH_W(32, false);
   }
+#undef LAUNCH_W
   return (int)cudaGetLastError();
 }
 
@@ -1761,7 +1897,14 @@ int roadsurf_scan_sharded(const ScanConsts* c, int n, const int* devices,
 
 // K5, the coupling window, on `stream` (WinArgs above).
 int roadsurf_window(const ScanConsts* c, const WinArgs* a, void* stream) {
-  return launch_window(c, a, stream);
+  return launch_window<false>(c, nullptr, a, stream);
+}
+
+// K5 fused on `stream`: the window of a whole block with each step's
+// channels prepared in the kernel from the raw inputs of *fa.
+int roadsurf_window_fused(const ScanConsts* c, const FuseArgs* fa,
+                          const WinArgs* a, void* stream) {
+  return launch_window<true>(c, fa, a, stream);
 }
 
 // sizeof(ScanConsts), sizeof(FuseArgs) and sizeof(WinArgs), checked

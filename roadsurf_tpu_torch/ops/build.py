@@ -125,12 +125,15 @@ def load(sources=SOURCES) -> ctypes.CDLL:
     lib.roadsurf_error_string.restype = ctypes.c_char_p
     from .scan_kernel import FuseArgs, ScanConsts
     mirrors = [("consts", ScanConsts), ("fuse_args", FuseArgs)]
-    # K5's entry; a copy of the source from before K5 (a measurement's
-    # variant) has none
+    # K5's entries; a copy of the source from before K5 (a measurement's
+    # variant) has none, one from before K5 fused no fused entry
     if hasattr(lib, "roadsurf_window"):
         from .window_kernel import WinArgs
         lib.roadsurf_window.argtypes = [vp] * 3
         lib.roadsurf_window.restype = ci
+        if hasattr(lib, "roadsurf_window_fused"):
+            lib.roadsurf_window_fused.argtypes = [vp] * 4
+            lib.roadsurf_window_fused.restype = ci
         lib.roadsurf_win_args_size.argtypes = []
         lib.roadsurf_win_args_size.restype = ci
         mirrors.append(("win_args", WinArgs))

@@ -9,10 +9,14 @@ has no Pallas kernel for it.  The port's counterpart of that program is K5,
 ``roadsurf_window``): one CUDA thread per point runs its own program counter
 over the window (the per-point PC engine of ``coupling.run_coupled``), with
 the scan kernel's step body, the state in registers and the snapshot in
-global scratch.  :func:`window` dispatches on the tensors' device: CPU
+shared memory.  :func:`window` dispatches on the tensors' device: CPU
 tensors take :func:`window_reference`, CUDA tensors launch the kernel (or
 raise); nothing falls back, neither to the plain version nor to the eager
-``coupling.run_window_passes``, which stays the parity target.
+``coupling.run_window_passes``, which stays the parity target.  K5 fused
+(``window_kernel<LM, DEPTH, true>``, entry ``roadsurf_window_fused``) is
+the same program on the routes whose phases A and C run K3 fused: each
+step's forcing is prepared in the kernel from the raw series rows, as K3
+fused prepares a chunk's, so no table exists.
 
 What one point does is exactly what ``run_window_passes`` does to it:
 the first pass (an uncoupled point steps ws..we_b, a coupled one
@@ -27,14 +31,21 @@ decayed coefficients.  Every step at an output row writes its slot; a
 later re-run overwrites it; a point that failed before the window writes
 none (its rows stay -9999).
 
-Inputs: the packed state after phase A; a forcing table ``[W+1, NCH, R]``
-in K1's channel layout (``ops.scan_kernel``) of the global rows ws-1 ..
-we_b, read at each point's column ``fidx``; the rows' traffic friction
-``[W+1]``; per point ``WindowPoints``.  Only the channels C_TAIR, C_VZ,
-C_EAIR, C_RAIN, C_SNOW, C_SW, C_LW, C_TSURF_OBS, C_VALID and C_AIRVCAP are
-read.  A call runs the points [lo, lo + len(fidx)) of the block into
-``out`` (made by :func:`new_out` when None), so a block can be run in point
-slices, each exact: points are independent.
+Inputs: the packed state after phase A; the window's forcing ``forc``;
+per point ``WindowPoints``.  ``forc`` is either a table triple ``(table,
+fidx, trf)``: a forcing table ``[W+1, NCH, R]`` in K1's channel layout
+(``ops.scan_kernel``) of the global rows ws-1 .. we_b, read at each point's
+column ``fidx``, and the rows' traffic friction ``[W+1]``; only the
+channels C_TAIR, C_VZ, C_EAIR, C_RAIN, C_SNOW, C_SW, C_LW, C_TSURF_OBS,
+C_VALID and C_AIRVCAP are read.  Or a fused window
+(``production.FusedWindow``) of the whole block: ``table()`` gives the
+triple its plain version reads (the window's eager prep), ``kernel_args()``
+K5 fused's raw inputs (``ops.scan_kernel.fuse_args``' fields, each window
+chunk's grid rows ``wrows``, the chunk length ``wtc``, ``trf``), ``tc`` the
+window chunk's rows and ``tile_geom`` the block's tile layout.  A table
+call runs the points [lo, lo + len(fidx)) of the block into ``out`` (made
+by :func:`new_out` when None), so a block can be run in point slices, each
+exact: points are independent; a fused call runs every point of the block.
 """
 from __future__ import annotations
 
@@ -52,9 +63,10 @@ from ..physics import storage
 from ..step import OUT_MISSING, StepConfig
 from . import scan_kernel as sk
 
-#: kernel launches of K5 by :func:`window_cuda` in this process; the plain
-#: version does not count
+#: kernel launches of K5 (on a table) and of K5 fused by
+#: :func:`window_cuda` in this process; the plain version does not count
 LAUNCHES = 0
+LAUNCHES_FUSED = 0
 
 #: the kernel's bound on a point's rewinds (``MAX_RERUNS`` in
 #: csrc/scan_kernel.cu), a guard only: the control fails a point at its
@@ -162,13 +174,37 @@ def new_out(tmp0, scal0, span: WindowSpan) -> WindowOut:
         steps=empty(torch.int32))
 
 
-def _check_call(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
-                grid: LayerGrid, span: WindowSpan, lo: int, out):
+def is_fused(forc) -> bool:
+    """Whether ``forc`` is a fused window (K5 fused's raw inputs), not a
+    table triple."""
+    return not isinstance(forc, tuple)
+
+
+def _check_call(tmp0, scal0, forc, pts: WindowPoints, grid: LayerGrid,
+                span: WindowSpan, lo: int, out):
     """Check one call's tensors and geometry; returns (P, n)."""
     lpad, P = tmp0.shape
-    n = fidx.shape[0] if fidx.dim() == 1 else -1
     dev = tmp0.device
-    W1 = span.rows
+    want = {"tmp0": (tmp0, torch.float32, (lpad, P)),
+            "scal0": (scal0, torch.float32, (sk.NROWS, P)),
+            "cstart": (pts.cstart, torch.int32, (P,)),
+            "cend": (pts.cend, torch.int32, (P,)),
+            "obs": (pts.obs, torch.float32, (P,)),
+            "flags": (pts.flags, torch.uint8, (P,))}
+    if is_fused(forc):
+        n = P
+        nt, tp = forc.tile_geom
+        if lo != 0 or nt * tp != P or tp % sk.LANE:
+            raise ValueError(f"a fused window runs the whole block of {P} "
+                             f"points in whole {sk.LANE}-point tiles, got "
+                             f"lo {lo} and tiles {forc.tile_geom}")
+    else:
+        table, fidx, trf = forc
+        n = fidx.shape[0] if fidx.dim() == 1 else -1
+        want.update(table=(table, torch.float32,
+                           (span.rows, sk.NCH, table.shape[-1])),
+                    fidx=(fidx, torch.int32, (n,)),
+                    trf=(trf, torch.float32, (span.rows,)))
     if not (1 <= span.ws <= span.we_b <= span.T - 1):
         raise ValueError(f"bad window [{span.ws}, {span.we_b}] for "
                          f"T={span.T}")
@@ -179,15 +215,6 @@ def _check_call(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
                          f"outside the kernel's range")
     if n < 1 or lo < 0 or lo + n > P:
         raise ValueError(f"points [{lo}, {lo + n}) outside the block of {P}")
-    want = {"tmp0": (tmp0, torch.float32, (lpad, P)),
-            "scal0": (scal0, torch.float32, (sk.NROWS, P)),
-            "table": (table, torch.float32, (W1, sk.NCH, table.shape[-1])),
-            "fidx": (fidx, torch.int32, (n,)),
-            "trf": (trf, torch.float32, (W1,)),
-            "cstart": (pts.cstart, torch.int32, (P,)),
-            "cend": (pts.cend, torch.int32, (P,)),
-            "obs": (pts.obs, torch.float32, (P,)),
-            "flags": (pts.flags, torch.uint8, (P,))}
     for name, (x, dt, shape) in want.items():
         if (x.device != dev or x.dtype != dt or tuple(x.shape) != shape
                 or not x.is_contiguous()):
@@ -205,20 +232,26 @@ def _check_call(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
 # the plain torch version
 # ---------------------------------------------------------------------------
 
-def window_reference(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
+def window_reference(tmp0, scal0, forc, pts: WindowPoints,
                      cfg: StepConfig, p: PhysicsParams, grid: LayerGrid,
                      span: WindowSpan, lo: int = 0, out: WindowOut = None,
                      stats: dict = None) -> WindowOut:
-    """K5's semantics in plain torch ops, on any device: the arguments and
-    results of :func:`window`.  Vectorised over the points with a per-point
-    pass and step index: each trip of the loop settles every point's pass
-    transitions, then runs one step (``ops.scan_kernel.step_rows``, the
-    scan kernel's body) for every point not done, so each point takes
-    exactly the steps its thread takes in the kernel.  ``stats`` (optional
-    dict) accumulates the steps taken and their boundary-layer iterations
-    as ``scan_reference``'s do."""
-    P, n = _check_call(tmp0, scal0, table, fidx, trf, pts, grid, span, lo,
-                       out)
+    """K5's and K5 fused's semantics in plain torch ops, on any device: the
+    arguments and results of :func:`window`; a fused window runs on the
+    table its ``table()`` prepares eagerly.  Vectorised over the points
+    with a per-point pass and step index: each trip of the loop settles
+    every point's pass transitions, then runs one step
+    (``ops.scan_kernel.step_rows``, the scan kernel's body) for every point
+    not done, so each point takes exactly the steps its thread takes in the
+    kernel.  ``stats`` (optional dict) accumulates the steps taken and their
+    boundary-layer iterations as ``scan_reference``'s do; for a fused
+    window also K5 fused's prepared rows (``window_preps``: each step's,
+    and row end_i's once a point that rewinds) and the times a point's
+    prepared row enters another window chunk (``window_segments``: the
+    kernel computes the segment lines anew)."""
+    P, n = _check_call(tmp0, scal0, forc, pts, grid, span, lo, out)
+    fused = is_fused(forc)
+    table, fidx, trf = forc.table() if fused else forc
     if out is None:
         out = new_out(tmp0, scal0, span)
     dev, f32 = tmp0.device, torch.float32
@@ -252,6 +285,19 @@ def window_reference(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
     nre = torch.zeros(n, dtype=torch.int32, device=dev)
     nst = torch.zeros(n, dtype=torch.int32, device=dev)
     abnormal = lambda t: (t < -100.0) | (t > 100.0)
+    wc = torch.full((n,), -1, dtype=torch.int64, device=dev)
+
+    def prepared(mask, row):
+        """K5 fused prepares table row ``row`` at the points of ``mask``."""
+        nonlocal wc
+        if not (fused and stats is not None):
+            return
+        k = row // forc.tc
+        stats["window_preps"] = (stats.get("window_preps", 0)
+                                 + int(mask.sum()))
+        stats["window_segments"] = (stats.get("window_segments", 0)
+                                    + int((mask & (k != wc)).sum()))
+        wc = torch.where(mask, k, wc)
 
     while True:
         # the pass transitions of every point past the end of its pass
@@ -264,6 +310,7 @@ def window_reference(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
             rw = need & ~done & cv.again & cpl & (ei + 1 < T)
             tail = need & ~done & ~rw
             vrow = torch.clamp(ei - (ws - 1), 0, W1 - 1)
+            prepared(rw & (nre == 0), vrow)
             vf = w(rw, ~(table[vrow, sk.C_VALID, col] < 0.5)
                    & ~abnormal(sc[sk.R_TSURF]), vf)
             for k in range(nsnap):
@@ -285,6 +332,7 @@ def window_reference(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
 
         # one step at each point's (pass, i): table row i - ws
         row = torch.clamp(i - ws, 0, W1 - 1)
+        prepared(act, row)
         first = act & (mode == M_FIRST)
         rerun = act & (mode == M_RERUN)
         in_tail = act & (mode == M_TAIL)
@@ -347,10 +395,10 @@ def window_reference(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
 
 _VP = ctypes.c_void_p
 _WIN_PTRS = ("tmp0", "scal0", "table", "fidx", "trf", "cstart", "cend",
-             "obs", "flags", "tmp_out", "scal_out", "rows", "snap",
-             "sw_corr", "lw_corr", "cv_failed", "reruns", "steps")
+             "obs", "flags", "tmp_out", "scal_out", "rows", "sw_corr",
+             "lw_corr", "cv_failed", "reruns", "steps", "wrows")
 _WIN_INTS = ("P", "p0", "n", "R", "W1", "ws", "we_b", "T", "out_stride",
-             "first_hit", "n_out")
+             "first_hit", "n_out", "tp", "wtc")
 
 
 class WinArgs(ctypes.Structure):
@@ -360,59 +408,85 @@ class WinArgs(ctypes.Structure):
                 + [("cof_red", ctypes.c_float)])
 
 
-def window_cuda(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
-                cfg: StepConfig, p: PhysicsParams, grid: LayerGrid,
-                span: WindowSpan, lo: int = 0,
-                out: WindowOut = None) -> WindowOut:
-    """Launch K5 (``roadsurf_window``) on CUDA tensors: the arguments and
-    results of :func:`window_reference`.  ``fidx`` must index columns of
-    ``table``.  Runs on the current stream, does not synchronise, and
-    raises if the launch is refused."""
-    global LAUNCHES
+def window_cuda(tmp0, scal0, forc, pts: WindowPoints, cfg: StepConfig,
+                p: PhysicsParams, grid: LayerGrid, span: WindowSpan,
+                lo: int = 0, out: WindowOut = None) -> WindowOut:
+    """Launch K5 (``roadsurf_window``) on a table, or K5 fused
+    (``roadsurf_window_fused``) on a fused window, on CUDA tensors: the
+    arguments and results of :func:`window_reference`.  A table's ``fidx``
+    must index its columns.  Runs on the current stream, does not
+    synchronise, and raises if the launch is refused."""
+    global LAUNCHES, LAUNCHES_FUSED
     from . import build
 
     if tmp0.device.type != "cuda":
         raise ValueError(f"the window kernel needs CUDA tensors, got "
                          f"{tmp0.device}")
-    P, n = _check_call(tmp0, scal0, table, fidx, trf, pts, grid, span, lo,
-                       out)
+    P, n = _check_call(tmp0, scal0, forc, pts, grid, span, lo, out)
+    fused = is_fused(forc)
     if out is None:
         out = new_out(tmp0, scal0, span)
     lpad = tmp0.shape[0]
     consts = sk.make_consts(cfg, p, grid, lpad, span.out_stride, span.n_out)
-    snap = torch.zeros((grid.nlayers + 3 + len(SNAP_ROWS), n),
-                       dtype=torch.float32, device=tmp0.device)
-    ptrs = dict(tmp0=tmp0, scal0=scal0, table=table, fidx=fidx, trf=trf,
-                cstart=pts.cstart, cend=pts.cend, obs=pts.obs,
-                flags=pts.flags, tmp_out=out.tmp, scal_out=out.scal,
-                rows=out.rows, snap=snap, sw_corr=out.sw_corr,
+    ptrs = dict(tmp0=tmp0, scal0=scal0, cstart=pts.cstart, cend=pts.cend,
+                obs=pts.obs, flags=pts.flags, tmp_out=out.tmp,
+                scal_out=out.scal, rows=out.rows, sw_corr=out.sw_corr,
                 lw_corr=out.lw_corr, cv_failed=out.cv_failed,
                 reruns=out.reruns, steps=out.steps)
+    if fused:
+        fa = sk.fuse_args(forc, tmp0.device)
+        ka = forc.kernel_args()
+        for name, dt in (("wrows", torch.int32), ("trf", torch.float32)):
+            x = ka[name]
+            if (x.device != tmp0.device or x.dtype != dt
+                    or not x.is_contiguous()):
+                raise ValueError(f"fused window input {name}: {x.dtype} on "
+                                 f"{x.device}; need contiguous {dt} on "
+                                 f"{tmp0.device}")
+        if (tuple(ka["trf"].shape) != (span.rows,)
+                or tuple(ka["wrows"].shape)
+                != (-(-span.rows // ka["wtc"]), 2)):
+            raise ValueError("fused window: trf or wrows do not cover the "
+                             "window's rows")
+        ptrs.update(wrows=ka["wrows"], trf=ka["trf"])
+        geo = dict(R=0, tp=forc.tile_geom[1], wtc=int(ka["wtc"]))
+    else:
+        table, fidx, trf = forc
+        ptrs.update(table=table, fidx=fidx, trf=trf)
+        geo = dict(R=table.shape[2])
     args = WinArgs(**{k: v.data_ptr() for k, v in ptrs.items()},
-                   P=P, p0=lo, n=n, R=table.shape[2], W1=span.rows,
-                   ws=span.ws, we_b=span.we_b, T=span.T,
-                   out_stride=span.out_stride, first_hit=span.first_hit,
-                   n_out=span.n_out, cof_red=span.cof_red)
+                   P=P, p0=lo, n=n, W1=span.rows, ws=span.ws,
+                   we_b=span.we_b, T=span.T, out_stride=span.out_stride,
+                   first_hit=span.first_hit, n_out=span.n_out,
+                   cof_red=span.cof_red, **geo)
     lib = build.load()
     stream = torch.cuda.current_stream(tmp0.device).cuda_stream
     with torch.cuda.device(tmp0.device):
-        rc = lib.roadsurf_window(ctypes.addressof(consts),
-                                 ctypes.addressof(args), stream)
+        if fused:
+            rc = lib.roadsurf_window_fused(
+                ctypes.addressof(consts), ctypes.addressof(fa),
+                ctypes.addressof(args), stream)
+        else:
+            rc = lib.roadsurf_window(ctypes.addressof(consts),
+                                     ctypes.addressof(args), stream)
     if rc != 0:
         raise RuntimeError(f"window kernel launch failed: CUDA error {rc} "
                            f"({build.error_string(rc)})")
-    LAUNCHES += 1
+    if fused:
+        LAUNCHES_FUSED += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
-def window(tmp0, scal0, table, fidx, trf, pts: WindowPoints,
-           cfg: StepConfig, p: PhysicsParams, grid: LayerGrid,
-           span: WindowSpan, lo: int = 0,
+def window(tmp0, scal0, forc, pts: WindowPoints, cfg: StepConfig,
+           p: PhysicsParams, grid: LayerGrid, span: WindowSpan, lo: int = 0,
            out: WindowOut = None) -> WindowOut:
-    """Phase B of the coupled run on one block's points [lo, lo +
-    len(fidx)): CPU tensors run :func:`window_reference`, CUDA tensors the
-    kernel (``roadsurf_window``)."""
-    args = (tmp0, scal0, table, fidx, trf, pts, cfg, p, grid, span, lo, out)
+    """Phase B of the coupled run on one block's points (a table's [lo, lo
+    + len(fidx)), a fused window's every point): CPU tensors run
+    :func:`window_reference`, CUDA tensors the kernel (``roadsurf_window``
+    on a table, ``roadsurf_window_fused`` on a fused window)."""
+    args = (tmp0, scal0, forc, pts, cfg, p, grid, span, lo, out)
     if tmp0.device.type == "cpu":
         return window_reference(*args)
     if tmp0.device.type == "cuda":

@@ -1252,6 +1252,38 @@ class FusedChunk:
         return args
 
 
+class FusedWindow:
+    """The raw inputs of one block's coupling window for K5 fused (the
+    kernel prepares each step's channels from them in registers, as K3
+    fused does a chunk's): ``table()`` is the window's eager table, which
+    the kernel's plain version reads, and ``kernel_args()`` the kernel's
+    pointers and numbers.  The table route prepares the window in chunks
+    of ``tc`` rows from global row ws-1 (``_Engine.window_table``), and the
+    grid evaluates each segment line from its chunk's first step, so the
+    kernel is given each window chunk's grid rows (``wrows``)."""
+
+    def __init__(self, engine: "_Engine", span):
+        self.engine, self.span = engine, span
+        self.tc = tc = engine.window_chunk(span)
+        self.tile_geom = engine.tile_geom
+        r0, W1 = span.ws - 1, span.rows
+        grid = engine.fused_parts[0]
+        rows = [grid.window_rows(r0 + k) if grid is not None else (0, 0)
+                for k in range(0, W1, tc)]
+        self._args = dict(engine.fuse_base, wtc=tc,
+                          wrows=torch.tensor(rows, dtype=torch.int32,
+                                             device=engine.device),
+                          trf=engine.trf_dev[r0:r0 + W1])
+
+    def table(self):
+        """The table triple of every point of the block
+        (``_Engine.window_table``)."""
+        return self.engine.window_table(self.span, 0, self.engine.P_pad)
+
+    def kernel_args(self) -> dict:
+        return self._args
+
+
 class ProductionResult(NamedTuple):
     state: State                 #: final prognostic state (unpadded, host)
     out_steps: np.ndarray        #: [n_out] global 0-based step indices
@@ -1285,6 +1317,10 @@ class _Engine:
     #: reference the tile-major route is held to in the tests and on the
     #: card)
     force_generic = False
+    #: True runs phase B of a K3 fused route on the window's eager table
+    #: (K5, over point slices past ``wcache_bytes``): the reference K5
+    #: fused is held to in the tests and on the card
+    force_window_table = False
 
     def __init__(self, model: Model, expander,
                  pts: PointParams, cal: Calendar, state: State, *,
@@ -1407,6 +1443,8 @@ class _Engine:
         self.fused_parts = (fused_parts(expander) if self.tile_major
                             else None)
         self.fused = self.fused_parts is not None
+        # phase B through K5 fused (no window table)
+        self.window_fused = self.fused and not self.force_window_table
         sky_note = ", incl. sky view" if self.enable_sky else ""
         if self.fast:
             self._check_fast_contract(expander, pts)
@@ -1531,18 +1569,22 @@ class _Engine:
         got = lambda n: np.asarray(getattr(pts, n),
                                    np.float64)[:self.n_real]
 
-        def fail(name, mask):
+        def fail(check, mask, *names):
+            """Raise at the first point of ``mask`` where ``check`` fails,
+            with the point's values of the fields ``names`` it reads (a
+            joint check reads several) and its station row's."""
             bad = int(np.argmax(mask))
+            vals = lambda f: ", ".join(f"{n} {f(n)[bad]!r}" for n in names)
             raise ValueError(
                 f"station-level fast path contract violated at point {bad} "
-                f"({name}: per-point {got(name)[bad]!r} vs st_pts"
-                f"[{sidx[bad]}] {gat(name)[bad]!r}); the prep_ctx expander "
-                f"requires param i == st_pts[st_idx[i]] for every "
-                f"prep-relevant field (build pts by gathering st_pts, or "
-                f"drop prep_ctx to use the generic path)")
+                f"({check}: per-point {vals(got)} vs st_pts[{sidx[bad]}] "
+                f"{vals(gat)}); the prep_ctx expander requires param i == "
+                f"st_pts[st_idx[i]] for every prep-relevant field (build "
+                f"pts by gathering st_pts, or drop prep_ctx to use the "
+                f"generic path)")
 
         if not np.array_equal(gat("init_len"), got("init_len")):
-            fail("init_len", gat("init_len") != got("init_len"))
+            fail("init_len", gat("init_len") != got("init_len"), "init_len")
         # relaxation validity is joint over the three fields; where OFF on
         # both sides the raw sentinels may differ
         def relax_on(t, v, r):
@@ -1552,22 +1594,23 @@ class _Engine:
         on_w = relax_on(*(gat(n) for n in names))
         on_g = relax_on(*(got(n) for n in names))
         if not np.array_equal(on_w, on_g):
-            fail("relax validity", on_w != on_g)
+            fail("relax validity", on_w != on_g, *names)
         for n in names:
             bad = on_w & (gat(n).astype(got(n).dtype) != got(n))
             if bad.any():
-                fail(n, bad)
+                fail(n, bad, n)
         # coupling activity (prepare_window's coupling flags)
         def cpl_on(end, obs):
             return (end >= 1) & (obs > -100.0)
         cw = cpl_on(gat("coupling_end"), gat("coupling_tsurf"))
         cg = cpl_on(got("coupling_end"), got("coupling_tsurf"))
         if not np.array_equal(cw, cg):
-            fail("coupling activity", cw != cg)
+            fail("coupling activity", cw != cg, "coupling_end",
+                 "coupling_tsurf")
         for n in ("coupling_start", "coupling_end", "coupling_tsurf"):
             bad = cw & (gat(n).astype(got(n).dtype) != got(n))
             if bad.any():
-                fail(n, bad)
+                fail(n, bad, n)
 
     # -- chunk functions ----------------------------------------------------
 
@@ -1653,8 +1696,21 @@ class _Engine:
                 None if self.anchors_dev is None
                 else tuple(cut(self.anchors_dev)))
 
-    def window_table(self, span, lo: int, hi: int):
+    def window_chunk(self, span) -> int:
+        """The rows of each chunk the window of ``span`` is prepared in
+        (``window_table``), the most the expander's chunk allows."""
+        return min(self.chunk_t, span.we_b - span.ws + 1)
+
+    def window_input(self, span, lo: int, hi: int):
         """K5's forcing of this block's points [lo, hi) over the window
+        ``span``: a ``FusedWindow`` (every point) where phase B runs K5
+        fused, else ``window_table``'s."""
+        if self.window_fused:
+            return FusedWindow(self, span)
+        return self.window_table(span, lo, hi)
+
+    def window_table(self, span, lo: int, hi: int):
+        """K5's forcing table of this block's points [lo, hi) over the window
         ``span`` (``ops.window_kernel.WindowSpan``): (table [W+1, NCH, R],
         fidx [hi - lo] int32, trf [W+1]).  On the station fast path the
         station-rank prepared channels of the window's rows (a view, R =
@@ -1667,7 +1723,7 @@ class _Engine:
             return (pd["stf"][r0:r0 + W1],
                     pd["sidx"][lo:hi].to(torch.int32).contiguous(),
                     pd["trf"][r0:r0 + W1])
-        tc = min(self.chunk_t, span.we_b - span.ws + 1)
+        tc = self.window_chunk(span)
         points = self.point_slice(lo, hi)
         table = torch.empty((W1, sk.NCH, hi - lo), dtype=torch.float32,
                             device=self.device)
@@ -2108,14 +2164,19 @@ def window_slices(run: "_Blocks", span, budget: float) -> list:
     tiles of the expander's layout where a slice holds one, so that its
     block of the expander is a view).  A table is [W+1, NCH, R] float32,
     R the slice's points; the station fast path's is a view of the
-    station-rank channels and counts nothing."""
-    table_bytes = lambda eng: (0 if eng.fast else
+    station-rank channels and counts nothing, and K5 fused reads none:
+    those blocks take one range whatever the budget."""
+    no_table = lambda eng: eng.fast or eng.window_fused
+    table_bytes = lambda eng: (0 if no_table(eng) else
                                4 * sk.NCH * span.rows * eng.P_pad)
     per_dev = {}
     for eng, d in zip(run.engines, run.mesh.devices):
         per_dev[d] = per_dev.get(d, 0) + table_bytes(eng)
     out = []
     for eng, d in zip(run.engines, run.mesh.devices):
+        if no_table(eng):
+            out.append([(0, eng.P_pad)])
+            continue
         lanes = eng.P_pad // LANE
         n_sl = (1 if per_dev[d] <= budget else
                 min(lanes, WINDOW_SLICES_MAX,
@@ -2148,7 +2209,10 @@ def run_production_coupled(model: Model, expander,
                      (``ops.window_kernel.window``) on the block's device
                      and stream, every point running its own first pass,
                      re-runs and tail (``coupling.run_window_passes``'s
-                     semantics); its plain version on the CPU
+                     semantics); K5 fused on the routes whose phases A
+                     and C run K3 fused (the window's forcing prepared in
+                     the kernel, ``FusedWindow``); the plain version on
+                     the CPU
       C [we_b+1, T]  streamed kernel with the post-window coefficient decay
                      (in kernel on K2 and K3, cof_window channels on K1)
 
@@ -2157,17 +2221,17 @@ def run_production_coupled(model: Model, expander,
     ``wcache_bytes``: memory budget PER DEVICE for K5's forcing tables
     (``_Engine.window_table``, built once a block from the route's
     provider and read by every pass; the station fast path's is a view
-    and counts nothing); where a device's tables exceed it, each block
-    runs K5 over point slices whose tables fit, at most
-    ``WINDOW_SLICES_MAX`` (the same values either way: the points are
+    and counts nothing, and K5 fused reads none); where a device's tables
+    exceed it, each block runs K5 over point slices whose tables fit, at
+    most ``WINDOW_SLICES_MAX`` (the same values either way: the points are
     independent, and each slice prepares its own points' window alone).
     Phase B syncs with the host once a block, to read its re-run count.
     Counters (this process's blocks): coupling_window_steps (W),
     coupling_reruns (the most rewinds of any point), coupling_window_rows
     (the steps of each block's slowest lane, summed over blocks),
-    coupling_window_cached (1 where every block's table fit, one launch a
-    block) and the coupled / succeeded / failed point counts; phases
-    phase_a/phase_b/phase_c.
+    coupling_window_cached (1 where every block ran one launch: its table
+    fit, it had none, or it reads a view) and the coupled / succeeded /
+    failed point counts; phases phase_a/phase_b/phase_c.
     """
     from .coupling import window_span
 
@@ -2187,9 +2251,11 @@ def run_production_coupled(model: Model, expander,
     rows_b = wspan.out_rows
     slices = window_slices(run, wspan, float(wcache_bytes))
     one_launch = all(len(s) == 1 for s in slices)
+    k5 = ("K5 fused (the forcing prepared in the kernel)"
+          if run.engines[0].window_fused else "K5")
     run.metrics.note(
-        "coupling window through K5, one launch a block" if one_launch
-        else f"coupling window through K5 over point slices "
+        f"coupling window through {k5}, one launch a block" if one_launch
+        else f"coupling window through {k5} over point slices "
              f"({max(len(s) for s in slices)} launches a block) within "
              f"{float(wcache_bytes) / 1e9:.1f} GB a device")
 
@@ -2197,11 +2263,11 @@ def run_production_coupled(model: Model, expander,
         wpts = wk.window_points(eng.pts_dev, settings)
         res = None
         for lo, hi in ranges:
-            table, fidx, trf = eng.window_table(wspan, lo, hi)
-            res = wk.window(tmp, scal, table, fidx, trf, wpts, eng.cfg,
-                            eng.params, eng.grid, wspan, lo=lo, out=res)
+            forc = eng.window_input(wspan, lo, hi)
+            res = wk.window(tmp, scal, forc, wpts, eng.cfg, eng.params,
+                            eng.grid, wspan, lo=lo, out=res)
             # a later slice's table reuses the room on this stream
-            del table
+            del forc
         return res
 
     # phase A's chunks, phase B's rows, phase C's chunks: the drains' order

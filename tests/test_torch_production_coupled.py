@@ -166,16 +166,50 @@ def test_port_fast_provider_matches_generic_bitwise():
     _assert_same(packed, gen)
 
 
-def test_port_window_cache_is_transparent():
+def test_port_window_cache_is_transparent(monkeypatch):
     """The window's forcing table in one piece and in point slices (a
-    budget of 0) give the same run, on the generic route, whose table the
-    budget holds (the fast path's is a view of the station channels)."""
+    budget of 0) give the same run, off the fast path (K3 fused's route,
+    phase B on the window's eager table through the reference switch),
+    whose table the budget holds (the fast path's is a view of the station
+    channels, and K5 fused reads none)."""
+    monkeypatch.setattr(tprod._Engine, "force_window_table", True)
     setup = _coupled_setup()
     on, m_on = _port_run(setup, fast=False)
     off, m_off = _port_run(setup, fast=False, wcache_bytes=0)
     assert m_on.counters["coupling_window_cached"] == 1
     assert m_off.counters["coupling_window_cached"] == 0
     _assert_same(on, off)
+
+
+@pytest.mark.parametrize("check", ["coupling activity", "relax validity"])
+def test_fast_contract_names_the_point(check):
+    """A station fast-path expander whose points break a joint part of the
+    contract (coupling activity: coupling_end and coupling_tsurf; relax
+    validity: the three relaxation fields) raises the ValueError that names
+    the point, its station row and the fields' values on both sides."""
+    settings, raw_st, raw_pt, cal, pts, st_idx, ctx = _coupled_setup()
+    bad = int(np.flatnonzero((st_idx >= 0) & (st_idx != 2))[3])
+    if check == "coupling activity":
+        obs = np.asarray(pts.coupling_tsurf).copy()
+        obs[bad] = -9999.9                 # its station has obs
+        pts = pts._replace(coupling_tsurf=obs)
+        fields = ("coupling_end", "coupling_tsurf")
+    else:
+        fields = ("tair_relax", "vz_relax", "rh_relax")
+        pts = pts._replace(**{
+            n: np.where(np.arange(len(st_idx)) == bad, v,
+                        np.asarray(getattr(pts, n), np.float64))
+            for n, v in zip(fields, (1.0, 2.0, 80.0))})
+    tm = tmodel.Model(interop.settings(settings), device="cpu")
+    exp = tprod.StationExpander(raw_st, _padded(st_idx), "cpu", chunk_t=32,
+                                prep_ctx=_port_ctx(ctx))
+    state0 = tm.init(raw_pt, cal, dtype=torch.float32, pts=pts)
+    with pytest.raises(ValueError) as err:
+        tprod.run_production_coupled(tm, exp, pts, cal, state0, chunk_t=32)
+    msg = str(err.value)
+    assert f"at point {bad} ({check}:" in msg, msg
+    assert f"st_pts[{st_idx[bad]}]" in msg, msg
+    assert all(msg.count(n) == 2 for n in fields), msg
 
 
 def test_port_no_window_falls_back():

@@ -114,7 +114,7 @@ def _run(c, table=None, lo=0, hi=None, out=None):
     eng, tm = c["eng"], c["tm"]
     hi = eng.P_pad if hi is None else hi
     tab = table or eng.window_table(c["span"], lo, hi)
-    return wk.window(c["tmp"], c["scal"], *tab, c["wpts"], tm.cfg, tm.params,
+    return wk.window(c["tmp"], c["scal"], tab, c["wpts"], tm.cfg, tm.params,
                      tm.grid, c["span"], lo=lo, out=out)
 
 
@@ -246,9 +246,10 @@ def test_point_slices_equal_one_call_bitwise():
 
 def test_window_slices():
     """The slices of a block's window: the station fast path's table (a
-    view of the station channels) counts nothing; elsewhere equal slices
-    of whole lanes within the budget, at most WINDOW_SLICES_MAX, of whole
-    tiles where a slice holds one."""
+    view of the station channels) counts nothing, and K5 fused reads no
+    table: one range at any budget; elsewhere equal slices of whole lanes
+    within the budget, at most WINDOW_SLICES_MAX, of whole tiles where a
+    slice holds one."""
     c, _ = _window()
     span = c["span"]
     run = lambda *engs: SimpleNamespace(
@@ -256,6 +257,10 @@ def test_window_slices():
     generic = copy.copy(c["eng"])
     generic.fast = False
     assert tprod.window_slices(run(c["eng"]), span, 0) == [[(0, 256)]]
+    fused = copy.copy(generic)
+    fused.window_fused = True
+    assert tprod.window_slices(run(fused, generic), span, 0) == [
+        [(0, 256)], [(0, 128), (128, 256)]]
     assert tprod.window_slices(run(generic), span, 0) == [[(0, 128),
                                                            (128, 256)]]
     table = 4 * sk.NCH * span.rows * 256
@@ -265,7 +270,8 @@ def test_window_slices():
         [(0, 128), (128, 256)]] * 2
     # 1,048,576 points in 1024-point tiles: 25 GB of table in 4 GB slices
     # (7 of whole tiles), and at most WINDOW_SLICES_MAX however small
-    big = SimpleNamespace(fast=False, P_pad=1 << 20, tile_geom=(1024, 1024))
+    big = SimpleNamespace(fast=False, window_fused=False, P_pad=1 << 20,
+                          tile_geom=(1024, 1024))
     span_big = span._replace(ws=2521, we_b=2900, T=8881)
     for budget, n in ((4e9, 7), (0, tprod.WINDOW_SLICES_MAX)):
         sl, = tprod.window_slices(run(big), span_big, budget)
@@ -289,7 +295,7 @@ def test_window_kernel_matches_plain_on_the_card():
         tm = c["tm"]
         for table in (None, _identity_table(c)):
             tab = table or c["eng"].window_table(c["span"], 0, 256)
-            args = (c["tmp"], c["scal"], *tab, c["wpts"], tm.cfg, tm.params,
+            args = (c["tmp"], c["scal"], tab, c["wpts"], tm.cfg, tm.params,
                     tm.grid, c["span"])
             got = wk.window_cuda(*args)
             want = wk.window_reference(*args)
