@@ -17,6 +17,8 @@ JSON summary.
     python3 chip_smoke.py 3w 9d      # K5 and K5 fused alone, and the
                                      # shipped coupled example1 config
                                      # through the CLI
+    python3 chip_smoke.py 3f 3w 7s   # the fused kernels at 16,384 points
+                                     # and a sub-hourly grid at full width
     python3 chip_smoke.py 3w 6 --variant lb8=build/lb8/scan_kernel.cu
                                      # K5 from an edited copy beside this
                                      # build, on 3w's and phase 6's inputs
@@ -79,8 +81,8 @@ the plain version):
     sample of coupled points re-run through Model.run_coupled on the host
     in float32 and float64 under the same bound;
  3w. K5 against window_reference on the card, bit for bit with equal
-    failed masks: 65,536 points in station order over a 240-step run,
-    60-step windows ending at staggered steps (every 5th at the last), obs
+    failed masks: 32,768 points in station order over a 240-step run,
+    30-step windows ending at staggered steps (every 5th at the last), obs
     below the air temperature so the control iterates, every 7th point
     without obs; output strides 1 and 7, with and without the output
     depth, on the station table and on the identity table (equal bit for
@@ -91,8 +93,11 @@ the plain version):
     coupled runs of 16,384 points x 140 steps (the timed grid case 65,536)
     of a grid, a grid + station composite with sky view (without and with
     relaxation) and stations with sky view, with and without the output
-    depth (16-step windows from step 55, 16-step chunks: six window
-    chunks): each run's phase B
+    depth (8-step windows from step 63, 16-step chunks: five window
+    chunks), and the 8-channel grid on a 5-minute clock at 15 and 20
+    layers, at 48-step chunks (SPAN 6) and at 192-step chunks over 360
+    steps (SPAN above sk.SEG_STAGE, the window over two window chunks, the
+    first holding two stages of segment lines): each run's phase B
     goes through one K5 fused launch and builds no window table; K5 fused
     on the inputs the run handed it, and the run's own results, against
     its plain version (window_reference on the window's eager table), bit
@@ -105,13 +110,16 @@ the plain version):
     timed beside K2 on the same values.  K3 fused against the unfused route
     (the eager prep into K3) and its plain version (the eager prep into
     scan_reference), at the kernel tolerances with equal failed masks,
-    each case reported bitwise or not: 65,536 points, a 128-step chunk at
+    each case reported bitwise or not: 16,384 points, a 128-step chunk at
     offset 40 with 100 steps and the run's last step, phase 7's grid with
     relaxation, phase 7b's composite (the offset chunk's series as its
     stations) with sky view, coupling and the decay, without and with
-    relaxation, the stations alone with sky view at night and by day;
-    then one 1,048,576 x 64 chunk of phase 7's grid, timed beside the
-    unfused route's prep and K3 with K3 fused's bound;
+    relaxation, the stations alone with sky view at night and by day
+    (3f, which runs alone when named), and the 8-channel grid on a 5-minute
+    clock, 16,384 points at 256-step chunks (SPAN above sk.SEG_STAGE: the
+    segment lines in stages) at 15 and 20 layers, bit for bit; then one
+    1,048,576 x 64 chunk of phase 7's grid, timed beside the unfused
+    route's prep and K3 with K3 fused's bound;
  4c. the tile-major production path small on the card: 8,192 points, 97
     steps, (chunk_t, out_stride) = (32, 6) and (16, 7), for a grid, a
     grid+station composite and a station expander with sky view (each
@@ -146,6 +154,17 @@ the plain version):
     point slices of the default budget, bit for bit, each run's wall,
     phase seconds, launches, window tables built and peak memory printed;
     K5 fused timed again at this size.
+ 7s. a sub-hourly NWP feed at full width: phase 7's grid resampled to a
+    5-minute clock (8 channels, as 3w's wide grid) over 2,048 steps from
+    08:00 UTC at 512-step chunks (SPAN above sk.SEG_STAGE, printed),
+    1,048,576 points: the uncoupled run through K3 fused (one launch a
+    chunk, no prepare_window call; wall, stream, peak memory), its second
+    chunk's K3 fused launch timed beside its bound and its first 65,536
+    points held to the plain version bit for bit; then the coupled run of
+    7w's window shape ending a 16 h analysis at midnight, phase B through
+    one K5 fused launch at a budget of 0 (no window table; phase B, wall,
+    peak), K5 fused timed again beside its bound and held to
+    window_reference on its first 65,536 points bit for bit.
 
  3d. K4 against its plain version and against one launch: the offset chunk
     of phases 3b/3c (65,536 points x 128 steps) for K1, K2 with the decay
@@ -199,8 +218,9 @@ the plain version):
     --analysis 24 --forecast 50, grid_config.json with a 1024 x 1024
     points.grid and no mask, through K3 fused and K4; each with its
     runner phases, point-steps/s, time to first chunk, peak device memory
-    and auto chunk length, at PIPELINE_DEPTH 1 and 2 as phase 5's runs
-    (the two runs' outputs and final states bit for bit), and a 64-point
+    and auto chunk length, 9a at PIPELINE_DEPTH 1 and 2 as phase 5's runs
+    (the two runs' outputs and final states bit for bit; 9b at depth 2,
+    whose route phase 7 holds at both), and a 64-point
     sample of the depth-2 run re-run through the
     runner's scan engine on the card (a points.coordinates config of those
     points) in float32 and float64, under phase 5's bound; 9c the same
@@ -221,14 +241,16 @@ the plain version):
 
 ``--variant LABEL=PATH`` (repeatable) builds another source of the kernel
 (an earlier copy, or an edited one, put under the gitignored build/) into a
-library of its own; phases 3e (K1, K2), 3w and 6 (K5) print its ptxas and
+library of its own; phases 3e (K1, K2), 3w and 6 (K5), 3c's grid chunk
+(K3 fused), 7w (K5 fused) and 7s (K3 fused, K5 fused) print its ptxas and
 SASS counts, hold it to this build bit for bit and time it in the same
 turns.
 
 Every run_production launch goes through K4 (one sharded launch a chunk,
 whatever the number of blocks), so K4's launches are counted over every
 main-path run.  Phases run in the order 1, 2, 3, 3e, 3b, 3w, 3d, 4, 4b,
-5, 6, 7 (with 3c before its run), 4c, 7b, 8, (9t,) 8b, 9 (9d first).  The 64-point sample
+5, 6, 7 (with 3c and 3f before its run), 7w, 4c, 7b, 8, (9t,) 8b, 9
+(9d first), 7s.  The 64-point sample
 re-runs of phases 5, 6, 7 and 7b are plain torch on the host, phase 9's
 the scan engine on the card: each starts in worker processes when its
 full-size run ends, runs beside the phases that follow, and is checked at
@@ -1109,7 +1131,7 @@ def phase_station_order(cfg, variants=()):
 # K5, the coupling window (phase 3w)
 # ---------------------------------------------------------------------------
 
-def window_case(depth, npoints=65536, T=240, S=512, wlen=60, seed=19):
+def window_case(depth, npoints=32768, T=240, S=512, wlen=30, seed=19):
     """Phase 3w's inputs: ``S`` stations' synthetic winter_mix forcing over
     ``T`` steps, coupling on, relaxation off (with ``depth`` a global
     output depth, the kernel's DEPTH instantiation); ``npoints`` points in
@@ -1233,8 +1255,8 @@ def window_bound(c, span, table, stats, n_points):
 
 
 def phase_window_small(variants=()):
-    """Phase 3w: K5 against window_reference on the card (65,536 points, a
-    240-step run, 60-step windows ending at staggered steps, some at T-1),
+    """Phase 3w: K5 against window_reference on the card (32,768 points, a
+    240-step run, 30-step windows ending at staggered steps, some at T-1),
     bit for bit with equal failed masks, at output strides 1 and 7, with
     and without the output depth, on the station table and on the identity
     table (both equal); then K5 against the eager run_window_passes on the
@@ -1375,8 +1397,9 @@ def window_variants(label, args, kw, want, variants, reps):
 WINDOW_FUSED_CASES = (("grid", False), ("composite", False),
                       ("station", False), ("composite", True))
 #: phase 3w's wide grid cases (``wide_grid``: 8 channels at SPAN 6, 48 KB
-#: of segment lines a block beside the snapshot's static shared memory),
-#: by ground layers: the default 15 and 20 (the <32> instantiation)
+#: of segment lines a block beside the snapshot's static shared memory;
+#: and at SPAN above sk.SEG_STAGE, the lines in stages) and 3f's, by ground
+#: layers: the default 15 and 20 (the <32> instantiation)
 WINDOW_WIDE_LAYERS = (15, 20)
 
 
@@ -1387,8 +1410,9 @@ def window_fused_bound(c, forc, span, stats, n_points):
     series rows of the window, the per-point parameters and time
     machinery, as ``fused_bound`` counts them for a chunk), against the
     body's float32 operations at the steps these inputs take and the
-    prep's (OPS_*: every prepared row, each entry into a window chunk's
-    segment lines, sky view on its points, relaxation's float64)."""
+    prep's (OPS_*: every prepared row, the segment lines of each stage a
+    lane enters, ``window_lines`` a channel, sky view on its points,
+    relaxation's float64)."""
     eng = forc.engine
     a = forc.kernel_args()
     P, L, W1 = n_points, c["model"].grid.nlayers, span.rows
@@ -1416,7 +1440,7 @@ def window_fused_bound(c, forc, span, stats, n_points):
     ops = (stats["point_steps"] * (OPS_STEP + OPS_LAYER * L)
            + stats["bl_iters"] * OPS_BL_ITER
            + preps * (OPS_PREP + OPS_GRID_CH * n_g + OPS_SKY * sky_share)
-           + stats["window_segments"] * n_g * a.get("span", 0) * OPS_SEGMENT)
+           + stats["window_lines"] * n_g * OPS_SEGMENT)
     ops64 = preps * OPS_RELAX_F64 if a["relax"] else 0
     t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
     t_ops = 1e3 * (ops / PEAK_F32_OPS_S + ops64 / PEAK_F64_OPS_S)
@@ -1424,16 +1448,17 @@ def window_fused_bound(c, forc, span, stats, n_points):
         f"3.35 TB/s; {ops / 1e9:.3f} G f32 + {ops64 / 1e9:.3f} G f64 ops "
         f"({stats['point_steps']} steps taken, {stats['bl_iters']} "
         f"boundary-layer iterations, {preps} rows prepared, "
-        f"{stats['window_segments']} window-chunk entries) -> {t_ops:.4f} "
-        f"ms at 67 / 34 TFLOP/s")
+        f"{stats['window_segments']} stage entries, "
+        f"{stats['window_lines']} segment lines a channel, SPAN "
+        f"{a.get('span', 0)}) -> {t_ops:.4f} ms at 67 / 34 TFLOP/s")
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_window_fused_small():
     """Phase 3w's K5 fused cases: the coupled run of each of
     WINDOW_FUSED_CASES (``fused_small_inputs``: 16,384 points, 140 steps,
-    16-step windows ending at steps drawn from [70, 140), so ws is 55;
-    16-step chunks, so the window spans six window chunks; most points
+    8-step windows ending at steps drawn from [70, 140), so ws is 63;
+    16-step chunks, so the window spans five window chunks; most points
     rewind until the control gives up at 25), with and without the output
     depth, output stride 4: phase B goes through K5
     fused once, and no window table is built; its inputs, held as the run
@@ -1445,20 +1470,25 @@ def phase_window_fused_small():
     phase's time: the others run at a quarter of the points).  Then the
     wide grid at each of WINDOW_WIDE_LAYERS, without depth, at 48-step
     chunks (the window spans two window chunks): the most dynamic shared
-    memory a launch of these cases asks for.  Returns {"err", "ms",
-    "plain_ms", "bound"}."""
+    memory a launch of these cases asks for; and at 192-step chunks over
+    360 steps, 8-step windows ending at steps drawn from [170, 360), so ws
+    is 163: SPAN above sk.SEG_STAGE, the window over two window chunks, the
+    first holding two stages of segment lines, rewinds across both.
+    Returns {"err", "ms", "plain_ms", "bound"}."""
     res = {"err": 0.0}
-    cases = [(config, relax, depth, None)
+    cases = [(config, relax, depth, None, False)
              for depth in (False, True) for config, relax in
              WINDOW_FUSED_CASES]
-    cases += [("grid", False, False, n) for n in WINDOW_WIDE_LAYERS]
-    for config, relax, depth, layers in cases:
+    cases += [("grid", False, False, n, staged) for staged in (False, True)
+              for n in WINDOW_WIDE_LAYERS]
+    for config, relax, depth, layers, staged in cases:
         wide = layers is not None
         timed = config == "grid" and not depth and not wide
-        chunk_t = 48 if wide else 16
+        chunk_t = 192 if staged else 48 if wide else 16
         c = fused_small_inputs(config, side=256 if timed else 128,
                                relax=relax, coupled=True, depth=depth,
-                               chunk_t=chunk_t, cend_lo=70, wlen=16,
+                               chunk_t=chunk_t, T=360 if staged else 140,
+                               cend_lo=170 if staged else 70, wlen=8,
                                wide=wide, nlayers=layers)
         label = (f"3w K5 fused, {config}"
                  f"{', sky view' if config != 'grid' else ''}"
@@ -1468,6 +1498,7 @@ def phase_window_fused_small():
             g = c["exp"]
             assert g.SPAN >= 6 and len(g.var_names) >= 7, (
                 g.SPAN, g.var_names)
+            assert (g.SPAN > sk.SEG_STAGE) == staged, g.SPAN
             label += (f", {len(g.var_names)} channels at SPAN "
                       f"{g.SPAN}, {layers} layers")
         reset_counts()
@@ -1507,9 +1538,18 @@ def phase_window_fused_small():
             f"{int(got.cv_failed.sum())}; steps a lane {lane / P:.2f}, "
             f"issued a lane by its warp {warp / P:.2f} (divergence "
             f"factor {warp / max(lane, 1):.3f}), slowest lane {slow}; "
-            f"window-chunk entries a point "
-            f"{stats['window_segments'] / P:.2f}")
+            f"stage entries a point {stats['window_segments'] / P:.2f}, "
+            f"segment lines a point a channel "
+            f"{stats['window_lines'] / P:.2f}")
         assert int(got.reruns.max()) > 0
+        if staged:
+            assert span.rows > forc.tc, (span.rows, forc.tc)
+            ms = cuda_ms(lambda: wk.window_cuda(*args, **kw), reps=3)
+            bound = window_fused_bound({"model": c["model"]}, forc, span,
+                                       stats, P)
+            log(f"  [{card_line()}] {label}: K5 fused {ms:.3f} ms against "
+                f"its bound {bound[0]:.4f} ms ({bound[1]}), plain version "
+                f"{ev[0].elapsed_time(ev[1]):.1f} ms")
         if timed:
             res["ms"] = cuda_ms(lambda: wk.window_cuda(*args, **kw),
                                 reps=5)
@@ -1932,6 +1972,7 @@ class FusedHead:
     def __init__(self, forc, n):
         self.forc, self.n, self.tc = forc, n, forc.tc
         self.tile_geom = (1, n)
+        self.kernel_args = forc.kernel_args
 
     def table(self):
         return self.forc.engine.window_table(self.forc.span, 0, self.n)
@@ -1942,9 +1983,9 @@ def fused_head_check(label, args, kw, sl, run_part, again, model):
     window (``FusedHead``), against the run's own K5 fused results and a
     new launch's (``again``) on those points, bit for bit; and the bound
     of the whole launch (``window_fused_bound``): the run's lane steps,
-    each with the boundary-layer iterations, prepared rows and
-    window-chunk entries a lane step that the plain version counted on
-    its points.  Returns {"err", "bound", "plain_s"}."""
+    each with the boundary-layer iterations, prepared rows, stage entries
+    and segment lines a lane step that the plain version counted on its
+    points.  Returns {"err", "bound", "plain_s"}."""
     tmp0, scal0, forc, pts = args[:4]
     assert sl.start == 0
     n = sl.stop
@@ -1972,7 +2013,8 @@ def fused_head_check(label, args, kw, sl, run_part, again, model):
         f"{int(want.steps.max())}; plain version {plain_s:.1f} s); a lane "
         f"step there: {per_step['bl_iters']:.3f} boundary-layer "
         f"iterations, {per_step['window_preps']:.4f} rows prepared, "
-        f"{per_step['window_segments']:.5f} window-chunk entries")
+        f"{per_step['window_segments']:.5f} stage entries, "
+        f"{per_step['window_lines']:.5f} segment lines a channel")
     bound = window_fused_bound({"model": model}, forc, args[-1], whole,
                                again.steps.shape[0])
     return dict(err=err, bound=bound, plain_s=plain_s)
@@ -2572,6 +2614,20 @@ def chunk_pieces(eng, t0, label):
     return forc, kw, geo, (prep_ms, kern_ms, drain_ms)
 
 
+def chunk_lines(a, off, nsteps):
+    """The segment lines a lane of K3 fused computes for each grid channel
+    on the chunk of kernel arguments ``a`` at global step ``off``: those of
+    its first stage before the first step, then those of each stage of
+    ``sk.SEG_STAGE`` segments a step enters (the steps run forward)."""
+    span = a.get("span", 0)
+    if not span:
+        return 0
+    pos = a["pos"][off:off + nsteps].long().cpu().numpy()
+    st = np.clip(pos - a["k0"], 0, span - 1)
+    stages = set((st // sk.SEG_STAGE * sk.SEG_STAGE).tolist()) | {0}
+    return sum(min(sk.SEG_STAGE, span - s0) for s0 in stages)
+
+
 def fused_bound(eng, src, geo, stats):
     """(bound_ms, bound_by) of one K3 fused call: the larger of the bytes it
     must read and write once over the card's HBM rate and its operations
@@ -2582,13 +2638,15 @@ def fused_bound(eng, src, geo, stats):
     reads (the horizon table only at the entries this chunk's sky-active
     point-steps need), the sun terms, hour and TRF of the chunk, and the
     state, profile, aux rows and outputs as ``scan_bound``.  Operations:
-    the body's (``stats`` from the plain version) and the prep's (OPS_*)."""
+    the body's (``stats`` from the plain version) and the prep's (OPS_*;
+    the segment lines of each stage the chunk enters, ``chunk_lines``)."""
     a = src.kernel_args()
     P = eng.P_pad
     nsteps, off, stride = geo["nsteps"], geo["out_offset"], geo["out_stride"]
     L = eng.grid.nlayers
     rows = len(range(-(-off // stride) * stride, off + nsteps, stride))
     n_g = sum(1 for n, x in a["g"].items() if n != "prec_phase")
+    lines = chunk_lines(a, off, nsteps)
     g_all = len(a["g"])
     n_s = len(a["s"])
     sky = np.asarray(eng.pts_dev.sky_view.cpu())
@@ -2608,13 +2666,14 @@ def fused_bound(eng, src, geo, stats):
                                    + OPS_GRID_CH * n_g
                                    + OPS_SKY * sky_share)
            + stats["bl_iters"] * OPS_BL_ITER
-           + P * n_g * a.get("span", 0) * OPS_SEGMENT)
+           + P * n_g * lines * OPS_SEGMENT)
     ops64 = stats["point_steps"] * OPS_RELAX_F64 if a["relax"] else 0
     t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
     t_ops = 1e3 * (ops / PEAK_F32_OPS_S + ops64 / PEAK_F64_OPS_S)
     log(f"  K3 fused bound: {n_bytes / 1e9:.3f} GB -> {t_bytes:.3f} ms at "
         f"3.35 TB/s; {ops / 1e9:.2f} G f32 + {ops64 / 1e9:.2f} G f64 ops "
-        f"({iterations(stats)}) -> {t_ops:.3f} ms at 67 / 34 TFLOP/s")
+        f"({iterations(stats)}; {lines} segment lines a lane a channel, "
+        f"SPAN {a.get('span', 0)}) -> {t_ops:.3f} ms at 67 / 34 TFLOP/s")
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2641,12 +2700,13 @@ def scan_diff(got, want, nlayers):
                                        want[1][sk.R_FAILED])
 
 
-def fused_vs_routes(label, eng, src, kw, geo, stats=None):
+def fused_vs_routes(label, eng, src, kw, geo, stats=None, bitwise=False):
     """K3 fused on ``src`` against the unfused route (the eager prep into
     K3) and its plain version (the same eager prep into scan_reference, on
     the card), each at the kernel tolerances with equal failed masks;
     whether each is bitwise, and the unfused route against the plain
-    version beside them.  Returns (max |err| against the plain version,
+    version beside them; ``bitwise``: K3 fused must equal its plain
+    version bit for bit.  Returns (max |err| against the plain version,
     the fused results)."""
     args = (eng.tmp0, eng.scal0)
     rest = (eng.cfg, eng.params, eng.grid)
@@ -2665,6 +2725,7 @@ def fused_vs_routes(label, eng, src, kw, geo, stats=None):
         f"{v[2]}, failed masks equal {v[3]}" for k, v in d.items()))
     for k, v in d.items():
         assert v[1] == 0 and v[3], (label, k, v)
+    assert d["fused vs plain"][2] or not bitwise, (label, d["fused vs plain"])
     return d["fused vs plain"][0], got
 
 
@@ -2679,14 +2740,15 @@ def fused_small_case(config, chunk_t=128, **kw):
     return eng, c["cofs"]
 
 
-def wide_grid(times, fields, start_h, minutes=5):
-    """The grid's fields from two hours before ``start_h`` to four after,
-    on a ``minutes`` raw clock (linear in time between the hourly fields),
-    with a dew point (the air temperature less a fifth of the humidity's
+def wide_grid(times, fields, h_lo, h_hi, minutes=5):
+    """The grid's fields from its hour ``h_lo`` to its hour ``h_hi``, on a
+    ``minutes`` raw clock (linear in time between the hourly fields), with
+    a dew point (the air temperature less a fifth of the humidity's
     deficit) and direct shortwave (0.7 of the shortwave) added: 8 channels,
-    whose segment lines span 6 raw rows at 48-step chunks of 30 s steps.
-    Returns (times, fields)."""
-    h = np.arange(start_h - 2, start_h + 5)
+    whose segment lines span 6 raw rows at 48-step chunks of 30 s steps
+    and more than sk.SEG_STAGE from 256-step chunks on.  Returns (times,
+    fields)."""
+    h = np.arange(h_lo, h_hi + 1)
     n = (len(h) - 1) * 60 // minutes + 1
     t = times[h[0]] + 60 * minutes * np.arange(n, dtype=np.int64)
     w = (t - times[h[0]]) / 3600.0
@@ -2717,7 +2779,8 @@ def fused_small_inputs(config, side=256, T=140, chunk_t=128, relax=None,
     output depth (the kernels' DEPTH instantiations).  Returns {model,
     exp, pts, cal, state0, anchors, cofs (coefficient corrections of the
     decay, or None)}.  ``wide``: the grid's fields as ``wide_grid`` makes
-    them; ``nlayers``: the ground layers (default the settings')."""
+    them, two hours before the start to four after; ``nlayers``: the
+    ground layers (default the settings')."""
     P = side * side
     times, glats, glons, fields = grid_fields_gen_production()
     lat1, lon1, lat2, lon2 = BBOX
@@ -2726,7 +2789,7 @@ def fused_small_inputs(config, side=256, T=140, chunk_t=128, relax=None,
     plat, plon = glat.ravel(), glon.ravel()
     sim = times[0] + 3600 * start_h + 30 * np.arange(T, dtype=np.int64)
     if wide:
-        times, fields = wide_grid(times, fields, start_h)
+        times, fields = wide_grid(times, fields, start_h - 2, start_h + 4)
     cal = Calendar.from_epochs(sim)
     relax = config == "composite" if relax is None else relax
     coupled = config == "composite" if coupled is None else coupled
@@ -2789,7 +2852,7 @@ def fused_small_inputs(config, side=256, T=140, chunk_t=128, relax=None,
 
 
 def phase_kernel_fused_small():
-    """K3 fused on 65,536 points (``fused_small_case``), the 128-step chunk
+    """K3 fused on 16,384 points (``fused_small_case``), the 128-step chunk
     at global offset 40 with 100 steps (nsteps < the chunk, the run's
     lastValues step 139 in it), output stride 4, against the unfused route
     and its plain version: the grid with relaxation; the composite with sky
@@ -2797,38 +2860,57 @@ def phase_kernel_fused_small():
     the station source with sky view at night and by day (the sun's branch
     with shortwave, where snow melts out: a storage run-out event that
     rounding decides, so only a body that rounds as the plain version does
-    holds there)."""
+    holds there).  Then the wide grid (``wide_grid``: 8 channels on a
+    5-minute clock) on 16,384 points at 256-step chunks over 300 steps,
+    SPAN above sk.SEG_STAGE, at each of WINDOW_WIDE_LAYERS, the 256-step
+    chunk at offset 40: its steps cross from the first stage of segment
+    lines into the next, and K3 fused must equal its plain version bit for
+    bit."""
     max_err = 0.0
-    off, nsteps, stride = 40, 100, 4
-    geo = dict(out_stride=stride, nsteps=nsteps, out_offset=off,
-               n_out=len(range(-(-off // stride) * stride, off + nsteps,
-                               stride)))
-    for config, relax, coupled, start_h in (
-            ("grid", True, False, 10),
-            ("composite", False, True, 10),
-            ("composite", True, True, 10),
-            ("station", False, False, 0),
-            ("station", False, False, 10)):
-        eng, cofs = fused_small_case(config, relax=relax, coupled=coupled,
-                                     start_h=start_h)
+    cases = [(config, relax, coupled, start_h, None)
+             for config, relax, coupled, start_h in (
+                 ("grid", True, False, 10),
+                 ("composite", False, True, 10),
+                 ("composite", True, True, 10),
+                 ("station", False, False, 0),
+                 ("station", False, False, 10))]
+    cases += [("grid", False, False, 10, n) for n in WINDOW_WIDE_LAYERS]
+    for config, relax, coupled, start_h, layers in cases:
+        wide = layers is not None
+        off, nsteps, stride = 40, 256 if wide else 100, 4
+        geo = dict(out_stride=stride, nsteps=nsteps, out_offset=off,
+                   n_out=len(range(-(-off // stride) * stride, off + nsteps,
+                                   stride)))
+        eng, cofs = fused_small_case(
+            config, side=128, relax=relax, coupled=coupled, start_h=start_h,
+            **(dict(chunk_t=256, T=300, wide=True, nlayers=layers)
+               if wide else {}))
         src, kw = eng.kernel_inputs(off, cofs)
+        span = src.kernel_args().get("span", "-")
+        lines = chunk_lines(src.kernel_args(), off, nsteps)
+        extra = (f", {layers} layers, {lines} segment lines a lane a "
+                 f"channel" if wide else "")
         label = (f"{config}{', sky view' if eng.enable_sky else ''}"
                  f"{', relaxation' if relax else ''}"
                  f"{', coupling, decay' if cofs else ''}, from {start_h:02d}"
-                 f":00 UTC, {eng.P_pad} x 128 (offset {off}, {nsteps} "
-                 f"steps, SPAN {src.kernel_args().get('span', '-')})")
-        err, _ = fused_vs_routes(label, eng, src, kw, geo)
+                 f":00 UTC, {eng.P_pad} x {eng.chunk_t} (offset {off}, "
+                 f"{nsteps} steps, SPAN {span}{extra})")
+        if wide:
+            assert span > sk.SEG_STAGE and len(eng.fused_parts[0]
+                                               .var_names) >= 8, span
+        err, _ = fused_vs_routes(label, eng, src, kw, geo, bitwise=wide)
         max_err = max(max_err, err)
         del eng, src
         torch.cuda.empty_cache()
     return max_err
 
 
-def phase_fused_chunk(cfg, label):
+def phase_fused_chunk(cfg, label, variants=()):
     """One 1,048,576 x 64 chunk (offset 448) of a full-size tile-major
     configuration: K3 fused against its plain version and the unfused
     route, and timed beside that route's pieces (the eager prep with its
-    stack, and K3 on the result) with the fused bound."""
+    stack, and K3 on the result) with the fused bound; each of
+    ``variants`` held to K3 fused bit for bit and timed beside it."""
     eng = production._Engine(cfg["model"], cfg["exp"], cfg["pts"],
                              cfg["cal"], cfg["state0"],
                              chunk_t=cfg["chunk_t"])
@@ -2850,6 +2932,8 @@ def phase_fused_chunk(cfg, label):
     for turn in ("fused", "prep", "K3", "K3", "prep", "fused"):
         fn = {"fused": fused, "prep": prep, "K3": k3}[turn]
         ms[turn].append(cuda_ms(fn, reps=3 if turn == "prep" else 10))
+    if variants:
+        fused_variants(f"{label} chunk", fused, variants, reps=10)
     plain_ms = cuda_ms(lambda: sk.scan_fused_reference(
         *args, src, *rest, **geo, **kw), reps=1)
     log(f"  [{card_line()}] {label} chunk (1M x 64, offset {t0}): K3 fused "
@@ -3272,9 +3356,10 @@ def phase_grid_full(cfg, metrics, label, depth=None):
 def grid_coupled_setup(cfg7, window_min=180, init_h=24, seed=29):
     """Phase 7w's configuration: phase 7's grid and raster with coupling on
     (relaxation off): each point's 180-minute window ends at a step drawn
-    from the last 20 minutes of a 24 h analysis, its obs the grid's air
-    temperature 40 steps before the analysis ends minus U(0.5, 2.5) K (so
-    the control iterates), none on every 7th point."""
+    from the last 20 minutes of an ``init_h`` analysis (24 h; 7s's 16 h),
+    its obs the grid's air temperature 40 steps before the analysis ends
+    minus U(0.5, 2.5) K (so the control iterates), none on every 7th
+    point."""
     T = cfg7["T"]
     settings = ModelSettings(sim_len=T, dt=30.0, output_step_minutes=60,
                              use_relaxation=False, use_coupling=True,
@@ -3299,7 +3384,15 @@ def grid_coupled_setup(cfg7, window_min=180, init_h=24, seed=29):
     return dict(cfg7, model=model, pts=pts, state0=state0)
 
 
-def phase_grid_coupled(cfg7):
+#: phase 7w's runs of phase B: (label, window budget, the table route)
+GRID_COUPLED_RUNS = (("K5 fused", 4e9, False),
+                     ("the table route, one launch", 64e9, True),
+                     ("the table route, point slices", 4e9, True),
+                     ("K5 fused at a budget of 0", 0.0, False))
+
+
+def phase_grid_coupled(cfg7, runs=GRID_COUPLED_RUNS, init_h=24, ph="7w",
+                       variants=()):
     """Phase 7w: the coupled grid at full size.  Phase B through K5 fused
     (the window's forcing prepared in the kernel) at the default budget
     and at a budget of 0, against the table route (the reference switch:
@@ -3309,16 +3402,16 @@ def phase_grid_coupled(cfg7):
     window-table calls and peak memory; K5 fused and K5 on the table (one
     launch) timed again on their runs' window inputs; K5 fused's run at a
     budget of 0 held to its plain version on its first 65,536 points
-    (``fused_head_check``), which gives the bound of its launch.  Returns
-    (K3 fused launches, K5 fused's figures: err, ms, table_ms, bound)."""
-    c = grid_coupled_setup(cfg7)
+    (``fused_head_check``), which gives the bound of its launch.  Phase
+    7s runs only the last, on its own grid (``runs``, the analysis's end
+    ``init_h`` and the phase's name ``ph``); each of ``variants`` is held
+    to K5 fused and timed beside it.  Returns (K3 fused launches,
+    K5 fused's figures: err, ms, table_ms, bound, and the last run's wall,
+    phase B seconds and peak bytes)."""
+    c = grid_coupled_setup(cfg7, init_h=init_h)
     T = c["T"]
     ref, n_k3, fig = None, 0, {"err": 0.0}
-    for label, budget, table in (
-            ("K5 fused", 4e9, False),
-            ("the table route, one launch", 64e9, True),
-            ("the table route, point slices", 4e9, True),
-            ("K5 fused at a budget of 0", 0.0, False)):
+    for label, budget, table in runs:
         m = RunMetrics(announce=True)
         torch.cuda.reset_peak_memory_stats(DEV)
         reset_counts()
@@ -3341,7 +3434,7 @@ def phase_grid_coupled(cfg7):
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(DEV)
         check_outputs(res, c)
-        cnt, ph = m.counters, m.phases
+        cnt, phs = m.counters, m.phases
         assert cnt["coupling_reruns"] > 0, cnt
         assert launches[:3] == (0, 0, 0) and launches[3] > 0, launches
         if table:
@@ -3351,10 +3444,10 @@ def phase_grid_coupled(cfg7):
             assert tables.n == 0 and k5 == 1, (tables.n, k5)
             assert cnt["coupling_window_cached"] == 1, cnt
         n_k3 += launches[3]
-        log(f"  [{card_line()}] 7w, coupled grid, phase B through {label} "
+        log(f"  [{card_line()}] {ph}, coupled grid, phase B through {label} "
             f"({budget / 1e9:.0f} GB a device): wall {wall:.2f} s, phase "
-            f"A {ph['phase_a']:.2f} s, phase B {ph['phase_b']:.2f} s, "
-            f"phase C {ph['phase_c']:.2f} s; K3 fused launches "
+            f"A {phs['phase_a']:.2f} s, phase B {phs['phase_b']:.2f} s, "
+            f"phase C {phs['phase_c']:.2f} s; K3 fused launches "
             f"{launches[3]}, {'K5' if table else 'K5 fused'} launches {k5}, "
             f"window tables built {tables.n}; window steps "
             f"{cnt['coupling_window_steps']}, most re-runs of a point "
@@ -3362,10 +3455,11 @@ def phase_grid_coupled(cfg7):
             f"{cnt['coupling_window_rows']}; points coupled "
             f"{cnt['coupling_points']}, failed {cnt['coupling_failed']}; "
             f"peak device memory {peak / 2**30:.2f} GiB")
+        fig.update(wall=wall, phase_b=phs["phase_b"], peak=peak)
         if ref is None:
             ref = res
         else:
-            assert_same_result(f"7w, coupled grid: {label} vs K5 fused",
+            assert_same_result(f"{ph}, coupled grid: {label} vs K5 fused",
                                res, ref)
         if timed:
             # the window kernel of this run timed again on its inputs, here
@@ -3375,17 +3469,21 @@ def phase_grid_coupled(cfg7):
             ms = cuda_ms(lambda: wk.window_cuda(*args, **kw), reps=3)
             lane, warp, slow = window_stats(again.steps)
             n = again.steps.shape[0]
-            log(f"  [{card_line()}] 7w: {'K5' if table else 'K5 fused'} at "
+            log(f"  [{card_line()}] {ph}: {'K5' if table else 'K5 fused'} at "
                 f"this size {ms:.3f} ms a launch ({n} points; steps a lane "
                 f"{lane / n:.2f}, issued a lane by its warp {warp / n:.2f}, "
                 f"divergence factor {warp / max(lane, 1):.3f}, slowest lane "
                 f"{slow}; {1e9 * ms / max(lane, 1):.2f} ps a lane step)")
             fig["table_ms" if table else "ms"] = ms
             if not table:
-                head = fused_head_check("7w", args, kw, sl, run_part, again,
+                head = fused_head_check(ph, args, kw, sl, run_part, again,
                                         c["model"])
                 fig["err"], fig["bound"] = head["err"], head["bound"]
-                log(f"  [{card_line()}] 7w: K5 fused {ms:.3f} ms a launch "
+                if variants:
+                    window_variants(f"{ph}, K5 fused on the run's window "
+                                    f"inputs", args, kw, again, variants,
+                                    reps=3)
+                log(f"  [{card_line()}] {ph}: K5 fused {ms:.3f} ms a launch "
                     f"against its bound {head['bound'][0]:.3f} ms "
                     f"({head['bound'][1]})")
             del args, kw, again, run_part
@@ -3393,6 +3491,145 @@ def phase_grid_coupled(cfg7):
         torch.cuda.empty_cache()
     del ref
     return n_k3, fig
+
+
+def subhourly_setup(metrics, side=1024, T=2048, chunk_t=512, minutes=5,
+                    start_h=8):
+    """Phase 7s's configuration, a sub-hourly NWP feed (a 15-minute
+    nowcast's kind, at a 5-minute clock): phase 7's grid resampled to a
+    ``minutes`` raw clock over the run's hours (``wide_grid``: 8 channels),
+    1,048,576 points on phase 7's raster, ``T`` steps of 30 s from the
+    grid's hour ``start_h`` (so a 16 h analysis ends at midnight, as 7w's
+    24 h one does), hourly output, ``chunk_t``-step chunks: SPAN above
+    sk.SEG_STAGE, so each lane computes its segment lines in stages."""
+    t0 = time.perf_counter()
+    times, glats, glons, fields = grid_fields_gen_production()
+    times, fields = wide_grid(times, fields, start_h,
+                              start_h + -(-T * 30 // 3600) + 1, minutes)
+    lat1, lon1, lat2, lon2 = BBOX
+    glat, glon = np.meshgrid(np.linspace(lat1, lat2, side),
+                             np.linspace(lon1, lon2, side), indexing="ij")
+    plat, plon = glat.ravel(), glon.ravel()
+    sim = times[0] + 30 * np.arange(T, dtype=np.int64)
+    cal = Calendar.from_epochs(sim)
+    settings = ModelSettings(sim_len=T, dt=30.0, output_step_minutes=60,
+                             use_relaxation=False, use_coupling=False)
+    model = Model(settings, device=DEV)
+    with metrics.phase("subhourly_setup"):
+        exp = production.GridExpander(times, glats, glons, fields, plat,
+                                      plon, sim, DEV, chunk_t=chunk_t)
+        torch.cuda.synchronize()
+    rows_gb = 4 * exp.K * len(plat) * len(exp.var_names) / 1e9
+    log(f"  [{card_line()}] sub-hourly grid {fields['tair'].shape} on a "
+        f"{minutes}-minute clock, {len(exp.var_names)} channels, the "
+        f"{side} x {side} raster: setup {time.perf_counter() - t0:.1f} s; "
+        f"K {exp.K}, KW {exp.KW}, SPAN {exp.SPAN} at {chunk_t}-step "
+        f"chunks (grid_span {production.grid_span(times, sim, chunk_t)}), "
+        f"raw rows on the card {rows_gb:.2f} GB")
+    assert exp.SPAN > sk.SEG_STAGE, exp.SPAN
+    pts = default_point_params(len(plat))._replace(lat=plat, lon=plon)
+    first = RawForcing(**{n: np.asarray(exp.first_host[n])[:, None]
+                          for n in RawForcing._fields})
+    state0 = model.init(first, cal, dtype=torch.float32)
+    return dict(model=model, exp=exp, pts=pts, cal=cal, state0=state0,
+                T=T, npoints=len(plat), chunk_t=chunk_t)
+
+
+def fused_variants(label, fused, variants, reps):
+    """K3 fused (``fused()`` launches it) from each of ``variants`` (label,
+    sources): held to this build's profile and state bit for bit, then
+    timed beside this build in turns (this build and each variant, then
+    the reverse)."""
+    libs = [("this build", build.load())] + load_variants(variants)
+    want = fused()
+    for name, lib in libs[1:]:
+        with kernel_library(lib):
+            got = fused()
+        torch.cuda.synchronize()
+        assert all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got[:2], want[:2])), (label, name)
+        del got
+    ms = {name: [] for name, _ in libs}
+    for seq in (libs, libs[::-1]):
+        for name, lib in seq:
+            with kernel_library(lib):
+                ms[name].append(cuda_ms(fused, reps=reps))
+    log(f"  [{card_line()}] {label}: K3 fused ms a launch, in turns: "
+        + json.dumps({k: [round(v, 4) for v in vals]
+                      for k, vals in ms.items()}))
+
+
+def subhourly_chunk(c, n=65536, variants=()):
+    """7s's second chunk (its steps cross stages of segment lines) through
+    K3 fused at full width, timed, with its bound; its first ``n`` points
+    against the plain version (the eager prep of those points, from an
+    engine of their block, into scan_reference), bit for bit; each of
+    ``variants`` (label, sources) held to this build bit for bit and timed
+    beside it in turns.  Returns {"err", "ms", "plain_ms", "bound"}."""
+    eng = production._Engine(c["model"], c["exp"], c["pts"], c["cal"],
+                             c["state0"], chunk_t=c["chunk_t"])
+    assert eng.fused
+    t0, tc = c["chunk_t"], c["chunk_t"]
+    src, kw = eng.kernel_inputs(t0)
+    geo = eng.scan_kwargs(t0, tc)
+    rest = (eng.cfg, eng.params, eng.grid)
+    fused = lambda: sk.scan_cuda_fused(eng.tmp0, eng.scal0, src, *rest,
+                                       **geo, **kw)
+    got = fused()
+    ms = cuda_ms(fused, reps=5)
+    if variants:
+        fused_variants(f"7s, the 1M x {tc} chunk", fused, variants, reps=3)
+    sub = production._Engine(
+        c["model"], c["exp"].block(0, n, DEV),
+        PointParams(*(np.asarray(x)[:n] for x in c["pts"])), c["cal"],
+        State(*(x[:n] for x in c["state0"])), chunk_t=c["chunk_t"])
+    ssrc, skw = sub.kernel_inputs(t0)
+    stats = {}
+    e0 = time.perf_counter()
+    want = sk.scan_fused_reference(sub.tmp0, sub.scal0, ssrc, *rest,
+                                   **geo, **skw, stats=stats)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - e0)
+    rows = len(range(-(-t0 // eng.os_) * eng.os_, t0 + tc, eng.os_))
+    part = (got[0][:, :n], got[1][:, :n], got[2][:rows, :6, :n])
+    ref = (want[0], want[1], want[2][:rows, :6])
+    for g, w in zip(part, ref):
+        assert torch.equal(g.contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32)), \
+            "7s: K3 fused vs its plain version"
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(part, ref))
+    scale = eng.P_pad / n
+    bound = fused_bound(eng, src, geo, {k: v * scale
+                                        for k, v in stats.items()})
+    log(f"  [{card_line()}] 7s K3 fused, 1M x {tc} chunk at offset {t0} "
+        f"(SPAN {src.kernel_args()['span']}, "
+        f"{chunk_lines(src.kernel_args(), t0, tc)} segment lines a lane a "
+        f"channel): {ms:.3f} ms against its bound {bound[0]:.3f} ms "
+        f"({bound[1]}; the plain version's counts on {n} points, scaled); "
+        f"== its plain version bit for bit on points [0, {n}) (profile, "
+        f"state, output rows; plain version {plain_ms:.1f} ms)")
+    del got, want, eng, sub, src, ssrc
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
+
+def phase_subhourly(metrics, variants=()):
+    """Phase 7s (see the module docstring); ``variants`` are timed beside
+    K3 fused and K5 fused.  Returns (K3 fused launches, {"k3":
+    subhourly_chunk's figures, "k5": phase_grid_coupled's})."""
+    c = subhourly_setup(metrics)
+    res, n_k3, fig = phase_grid_full(c, RunMetrics(announce=True),
+                                     "7s, sub-hourly grid")
+    STREAMS["7s, sub-hourly grid", production.PIPELINE_DEPTH] = fig
+    del res
+    torch.cuda.empty_cache()
+    k3 = subhourly_chunk(c, variants=variants)
+    n_cpl, k5 = phase_grid_coupled(c, runs=GRID_COUPLED_RUNS[-1:],
+                                   init_h=16, ph="7s", variants=variants)
+    del c
+    torch.cuda.empty_cache()
+    return n_k3 + n_cpl, {"k3": k3, "k5": k5}
 
 
 def composite_sky_setup(cfg7, cfg):
@@ -3526,17 +3763,18 @@ def run_cli(argv, metrics):
     return kept["res"], kept["first"] - t0
 
 
-def phase_cli_full(label, cfg, outdir, samples, route):
+def phase_cli_full(label, cfg, outdir, samples, route, depths=(1, 2)):
     """The CLI at full size: ``runner.main(["-c", cfg, "-t", CLI_TIME])``
-    as an operator types it, at PIPELINE_DEPTH 1 and then 2 (held to each
-    other bit for bit), with each run's launches counted (K2 or K3 fused by
-    ``route``, K4 once a chunk); a 64-point sample of the depth-2 run re-run
-    through the scan engine on the card (``start_cli``).  Returns the
-    launches of both runs (K1, K2, K3, K3 fused) and their K4 launches."""
+    as an operator types it, at each PIPELINE_DEPTH of ``depths`` (1 and
+    then 2, held to each other bit for bit), with each run's launches
+    counted (K2 or K3 fused by ``route``, K4 once a chunk); a 64-point
+    sample of the last run re-run through the scan engine on the card
+    (``start_cli``).  Returns the launches of the runs (K1, K2, K3, K3
+    fused) and their K4 launches."""
     cfg_path = write_json(cfg, os.path.join(outdir, f"{label}.json"))
     P, T = CLI_SIDE * CLI_SIDE, 8881
     total, k4_total, kept = [0, 0, 0, 0], 0, None
-    for depth in (1, 2):
+    for depth in depths:
         m = RunMetrics(announce=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(DEV)
@@ -3576,20 +3814,21 @@ def phase_cli_full(label, cfg, outdir, samples, route):
         log(f"  [{card_line()}] {label} phases (s): " + json.dumps(ph))
         STREAMS[f"9, {label}", depth] = stream_line(
             f"9, {label}", depth, m, probe, peak, wall)
-        if kept is None:
+        if kept is None and depth != depths[-1]:
             kept = (state, fields)
             del state, fields
     bits = lambda a: np.ascontiguousarray(a).view(np.int32)
-    for name in production.OUT_FIELD_ROWS:
-        if not np.array_equal(bits(fields[name]), bits(kept[1][name])):
-            raise AssertionError(f"9, {label}: {name} differs between "
-                                 f"PIPELINE_DEPTH 2 and 1")
-    for name, g, w in zip(state._fields, state, kept[0]):
-        if not torch.equal(g, w):
-            raise AssertionError(f"9, {label}: final state {name} differs "
-                                 f"between PIPELINE_DEPTH 2 and 1")
-    log(f"  9, {label}: PIPELINE_DEPTH 2 vs 1 equal bit for bit (every "
-        f"output row and the final state)")
+    if kept is not None:
+        for name in production.OUT_FIELD_ROWS:
+            if not np.array_equal(bits(fields[name]), bits(kept[1][name])):
+                raise AssertionError(f"9, {label}: {name} differs between "
+                                     f"PIPELINE_DEPTH 2 and 1")
+        for name, g, w in zip(state._fields, state, kept[0]):
+            if not torch.equal(g, w):
+                raise AssertionError(f"9, {label}: final state {name} "
+                                     f"differs between PIPELINE_DEPTH 2 and 1")
+        log(f"  9, {label}: PIPELINE_DEPTH 2 vs 1 equal bit for bit (every "
+            f"output row and the final state)")
     del kept
 
     # the sample: a points.coordinates config of 64 of the raster's points
@@ -3916,8 +4155,10 @@ def phase_cli(samples, run9=True, run9d=False):
     torch.cuda.empty_cache()
     log("== 9b. the CLI at full size, NWP grid + station obs (example2): "
         "1048576 points x 8881 steps")
+    # 9b at depth 2 only: phase 7 holds the K3 fused route's depths to each
+    # other, 9a the CLI's
     launched["9b"] = phase_cli_full("example2 raster", ex2_config(ex2_dir),
-                                    ex2_dir, samples, "K3 fused")
+                                    ex2_dir, samples, "K3 fused", depths=(2,))
     torch.cuda.empty_cache()
     log("== 9c. the CLI's configurations small on the card, kernel engine "
         "against scan engine")
@@ -3933,8 +4174,8 @@ def main():
 def run_phases(samples):
     args, variants = parse_variants(sys.argv[1:])
     sel = set(args)
-    known = {"3", "3b", "3c", "3d", "3e", "3w", "4", "4b", "4c", "5", "6",
-             "7", "7b", "7w", "8", "8b", "9", "9d", "9t"}
+    known = {"3", "3b", "3c", "3d", "3e", "3f", "3w", "4", "4b", "4c", "5",
+             "6", "7", "7b", "7s", "7w", "8", "8b", "9", "9d", "9t"}
     if sel - known:
         raise SystemExit(f"unknown phases {sorted(sel - known)}; "
                          f"phases: {sorted(known)}")
@@ -4074,7 +4315,7 @@ def run_phases(samples):
         stamp()
 
     k3_launches = 0
-    if want("3c") or want("7") or want("7w") or want("7b") or want("8"):
+    if any(want(ph) for ph in ("3c", "7", "7w", "7b", "8")):
         log("== 7. setup: the NWP-grid forecast at full size")
         cfg7 = grid_full_setup(metrics)
         stamp()
@@ -4083,10 +4324,12 @@ def run_phases(samples):
         err_tm_small = phase_kernel_tm_small()
         tm = phase_kernel_tm_chunk(cfg7)
         stamp()
-        log("== 3c. K3 fused against its plain version and the unfused "
-            "route")
+        fz7 = phase_fused_chunk(cfg7, "NWP grid", variants)
+        stamp()
+    if want("3c") or named("3f"):
+        log("== 3f. K3 fused against its plain version and the unfused "
+            "route, 16,384 points")
         err_fused_small = phase_kernel_fused_small()
-        fz7 = phase_fused_chunk(cfg7, "NWP grid")
         stamp()
     if want("7"):
         log("== 7. the NWP-grid forecast at full size through K3: "
@@ -4110,7 +4353,7 @@ def run_phases(samples):
     if want("7w"):
         log("== 7w. the coupled NWP grid at full size: K5 fused against the "
             "table route in one launch and over point slices")
-        n7w, k5f7 = phase_grid_coupled(cfg7)
+        n7w, k5f7 = phase_grid_coupled(cfg7, variants=variants)
         k3_launches += n7w
         stamp()
     if want("4c"):
@@ -4167,6 +4410,13 @@ def run_phases(samples):
         launched[1] += l9.get("9d", ((0, 0, 0, 0),))[0][1]
         k3_launches += l9.get("9b", ((0, 0, 0, 0),))[0][3]
         stamp()
+    # last: its host set-up and plain checks overlap the sample re-runs
+    if want("7s"):
+        log("== 7s. a sub-hourly grid at full width, SPAN above one stage "
+            "of segment lines: K3 fused and K5 fused")
+        n7s, fig7s = phase_subhourly(metrics, variants)
+        k3_launches += n7s
+        stamp()
     log("== the 64-point samples of the full-size runs, re-run beside the "
         "phases above")
     samples.finish()
@@ -4202,7 +4452,8 @@ def run_phases(samples):
           "max_abs_err": max(err_tm_small, tm["err"]), "ms": tm["ms"],
           "plain_ms": tm["plain_ms"], "bound": tm["bound"]}
     k3f = {"name": "scan_kernel_tm_fused", "launches": k3_launches,
-           "max_abs_err": max(err_fused_small, fz7["err"], fz7b["err"]),
+           "max_abs_err": max(err_fused_small, fz7["err"], fz7b["err"],
+                              fig7s["k3"]["err"]),
            "ms": fz7["ms"], "plain_ms": fz7["plain_ms"],
            "bound": fz7["bound"]}
     # K4's time is its 4-block launch of the K2 chunk; its bound is K2's on
@@ -4212,18 +4463,20 @@ def run_phases(samples):
           "plain_ms": k4["plain_ms"], "bound": k4["bound"],
           "replaces": "roadsurf_tpu/parallel/sharding.py:73"}
     # K5 has no Pallas counterpart: it is the port's counterpart of phase
-    # B's one jit; its time, plain time and bound are phase 3w's (65,536
+    # B's one jit; its time, plain time and bound are phase 3w's (32,768
     # points, the station table), where the plain version can be timed
     k5 = {"name": "window_kernel", "launches": MAIN_PATH_K5[0],
           "max_abs_err": max(k5w["err"], k5_6["err"]), "ms": k5w["ms"],
           "plain_ms": k5w["plain_ms"], "bound": k5w["bound"],
           "replaces": "roadsurf_tpu/production.py:2041"}
     # K5 fused's time, plain time and bound are 3w's grid case (65,536
-    # points, where the plain version runs whole), its launches 7w's K5
-    # fused runs; its error the largest of 3w's cases and of 7w's run held
-    # to its plain version on 65,536 points at the main path's shapes
+    # points, where the plain version runs whole), its launches 7w's and
+    # 7s's K5 fused runs; its error the largest of 3w's cases and of 7w's
+    # and 7s's runs held to its plain version on 65,536 points at the main
+    # path's shapes
     k5f = {"name": "window_kernel_fused", "launches": MAIN_PATH_K5F[0],
-           "max_abs_err": max(k5fw["err"], k5f7["err"]), "ms": k5fw["ms"],
+           "max_abs_err": max(k5fw["err"], k5f7["err"], fig7s["k5"]["err"]),
+           "ms": k5fw["ms"],
            "plain_ms": k5fw["plain_ms"], "bound": k5fw["bound"],
            "replaces": "roadsurf_tpu/production.py:2041"}
     kernels = []

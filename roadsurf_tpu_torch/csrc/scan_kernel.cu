@@ -97,8 +97,9 @@
 // Every rule of the prep is elementwise per point and step, so here each
 // thread builds its step's 11 channels in registers right before the step
 // uses them: the grid part's gap-capped interpolation from the raw series
-// rows (the segment lines of the chunk computed once a chunk into dynamic
-// shared memory, 2 floats a segment a channel a thread, SPAN <= SPAN_MAX),
+// rows (the segment lines of the chunk in dynamic shared memory, 2 floats
+// a segment a channel a thread, SEG_STAGE segments at a time: each line
+// computed once a chunk, when the chunk's steps enter its stage),
 // the station part's value by a gather at the point's station, the
 // source-order merge, CheckValues, the wind floors, sky view (the sun's
 // per-point part from time terms formed in float64 on the host, the
@@ -203,7 +204,14 @@ __device__ __forceinline__ float esat1(float t) {
 // RawForcing fields (forcing.py), the order of FuseArgs' pointer arrays
 enum { F_TAIR = 0, F_TDEW, F_VZ, F_RHZ, F_PREC, F_SW, F_LW, F_SWDIR, F_LWNET,
        F_TSOBS, F_PPHASE, NRAW };
-#define SPAN_MAX 16
+// The segment lines a lane holds in shared memory at once: a stage of
+// SEG_STAGE consecutive segments of the window's SPAN (all of them when
+// SPAN <= SEG_STAGE).  A line depends only on its own segment and window
+// (grid_segments), so a stage computed when a step enters it holds the
+// same bits as the whole window's lines computed at once, and a grid of
+// any SPAN asks for at most nch * SEG_STAGE * 2 * BLOCK floats a block.
+#define SEG_STAGE 16
+static_assert((SEG_STAGE & (SEG_STAGE - 1)) == 0, "a power of two");
 #define MISSING_F (-9999.9f)
 
 // Mirror of FuseArgs in ops/scan_kernel.py (pointers, then ints, then
@@ -304,18 +312,36 @@ struct GridRows {
   float tr0;
 };
 
+// The segments a stage holds for each channel (its channel stride): the
+// whole SPAN when it fits in one stage, so such a grid keeps one layout.
+__host__ __device__ __forceinline__ int seg_cols(const FuseArgs& a) {
+  return a.span < SEG_STAGE ? a.span : SEG_STAGE;
+}
+
+// Step tg's segment on window w (GridExpander.plan's s_t).
+__device__ __forceinline__ int grid_seg(const FuseArgs& a, int tg,
+                                        const GridRows& w) {
+  return clampi(__ldg(a.pos + tg) - w.k0, 0, a.span - 1);
+}
+
+// The first segment of the stage holding segment st (st >= 0).
+__device__ __forceinline__ int stage_of(int st) {
+  return st & ~(SEG_STAGE - 1);
+}
+
 // The grid part's value of a continuous channel at step tg: its segment's
 // line, or the exact-time valid sample (GridExpander.evaluate).  col: the
 // point's column of the channel's rows (row r at col[r * tp]); seg: the
-// thread's (alpha, beta) of each segment, BLOCK apart, computed on the
-// window w.
+// thread's (alpha, beta) of each segment of the stage holding step tg's
+// segment, BLOCK apart, computed on the window w.
 __device__ __forceinline__ float grid_value(const FuseArgs& a,
                                             const float* col, int64_t tp,
                                             const float* seg, int tg,
                                             const GridRows& w) {
-  const int st = clampi(__ldg(a.pos + tg) - w.k0, 0, a.span - 1);
-  const float al = seg[(2 * st) * BLOCK];
-  const float be = seg[(2 * st + 1) * BLOCK];
+  const int st = grid_seg(a, tg, w);
+  const int j = st - stage_of(st);
+  const float al = seg[(2 * j) * BLOCK];
+  const float be = seg[(2 * j + 1) * BLOCK];
   float res =
       __fadd_rn(al, __fmul_rn(__fsub_rn(__ldg(a.trel + tg), w.tr0), be));
   const int kg = w.k0 + st;
@@ -327,19 +353,22 @@ __device__ __forceinline__ float grid_value(const FuseArgs& a,
   return res;
 }
 
-// The segment stage of one point (GridExpander.segments): for each
-// continuous channel the grid carries and each segment s, the line
-// through the last valid sample at or before row klm1 and the next valid
-// one at or after row kl, within the gap cap; stored in seg.
+// The segment stage of one point (GridExpander.segments), for the
+// segments s of the stage from s0: for each continuous channel the grid
+// carries, the line through the last valid sample at or before row klm1
+// and the next valid one at or after row kl, within the gap cap; stored in
+// seg, segment s of channel ci at column ci * seg_cols + s - s0.
 __device__ void grid_segments(const FuseArgs& a, int64_t colbase, int64_t tp,
-                              float* seg, const GridRows& w) {
+                              float* seg, const GridRows& w, int s0) {
   const float NEG = -3e38f, POS = 3e38f;
+  const int cols = seg_cols(a);
+  const int s_end = s0 + cols < a.span ? s0 + cols : a.span;
   int ci = 0;
   for (int c = 0; c < F_PPHASE; ++c) {
     const float* g = a.g[c];
     if (g == nullptr) continue;
     const float* col = g + colbase;
-    for (int s = 0; s < a.span; ++s) {
+    for (int s = s0; s < s_end; ++s) {
       const int kg = w.k0 + s;
       const int kl = clampi(kg - w.lo, 0, a.KW - 1);
       const int klm1 = clampi(kg - w.lo - 1, 0, a.KW - 1);
@@ -365,10 +394,11 @@ __device__ void grid_segments(const FuseArgs& a, int64_t colbase, int64_t tp,
                         (gap <= a.max_gap) && (0 < kg) && (kg < a.K);
       const float invg = gap > 0.0f ? __frcp_rn(gap) : 0.0f;
       const float b = have ? __fmul_rn(__fsub_rn(v2, v1), invg) : 0.0f;
-      seg[(2 * (ci * a.span + s)) * BLOCK] =
+      const int j = ci * cols + s - s0;
+      seg[(2 * j) * BLOCK] =
           have ? __fadd_rn(v1, __fmul_rn(__fsub_rn(w.tr0, t1), b))
                : MISSING_F;
-      seg[(2 * (ci * a.span + s) + 1) * BLOCK] = b;
+      seg[(2 * j + 1) * BLOCK] = b;
     }
     ++ci;
   }
@@ -411,7 +441,7 @@ __device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
       gv[c] = MISSING_F;
       if (a.g[c] != nullptr) {
         gv[c] = grid_value(a, a.g[c] + colbase, tp,
-                           seg + 2 * ci * a.span * BLOCK, tg, w);
+                           seg + 2 * ci * seg_cols(a) * BLOCK, tg, w);
         ++ci;
       }
     }
@@ -1127,15 +1157,18 @@ __device__ __forceinline__ void scan_points(
       FUSED ? nullptr
             : forcing + tile * (int64_t)T * K::N * FS + (p - tile * FS);
   // K3 fused: the point's column in the grid's tile rows, the chunk's
-  // first step time, the segment lines and the sun's per-point terms
+  // first step time, the segment lines of the first stage and the sun's
+  // per-point terms
   const int64_t colbase = tile * (int64_t)fa.K * FS + (p - tile * FS);
   float* seg = seg_smem + threadIdx.x;
   GridRows gw{fa.k0, fa.lo, 0.0f};
+  int g_s0 = 0;
   SunPoint sp{0.0f, 0.0f, 0.0f};
   if (FUSED) {
     if (fa.has_grid) {
       gw.tr0 = __ldg(fa.trel + off);
-      grid_segments(fa, colbase, FS, seg, gw);
+      g_s0 = stage_of(grid_seg(fa, off, gw));
+      grid_segments(fa, colbase, FS, seg, gw, g_s0);
     }
     if (fa.sky_on) sp = sun_point(fa, p);
   }
@@ -1188,10 +1221,22 @@ __device__ __forceinline__ void scan_points(
       continue;
     }
 
-    // K3 fused prepares the step's channels here; the other modes read
-    // them from the forcing where the body uses them
+    // K3 fused prepares the step's channels here, first the segment lines
+    // of the next stage where the step enters it (the steps run forward and
+    // every lane of a warp is at the same step, so each stage is entered
+    // once, by the whole warp); the other modes read them from the forcing
+    // where the body uses them
     StepIn in = {};
-    if (FUSED) in = fused_prep(fa, p, colbase, FS, seg, gw, tg, sp);
+    if (FUSED) {
+      if (fa.has_grid) {
+        const int s0 = stage_of(grid_seg(fa, tg, gw));
+        if (s0 != g_s0) {
+          g_s0 = s0;
+          grid_segments(fa, colbase, FS, seg, gw, s0);
+        }
+      }
+      in = fused_prep(fa, p, colbase, FS, seg, gw, tg, sp);
+    }
     const ScanIn<SLIM, FUSED> src{f,      FS,    in,    trf,   tg,
                                   cofs,   t_total, c.dt, cof_red, a_swc,
                                   a_lwc,  a_cend, a_obs};
@@ -1238,6 +1283,16 @@ __global__ void __launch_bounds__(BLOCK,
   scan_points<LM, DEPTH, SLIM, FUSED>(SCAN_KERNEL_ARGS);
 }
 
+// The dynamic shared memory of a fused launch: one stage of segment lines
+// of each continuous channel the grid carries, for each thread of a block
+// (160 KB at most: 10 channels, SEG_STAGE segments).
+static size_t seg_bytes(const FuseArgs& fa) {
+  if (!fa.has_grid) return 0;
+  int nch = 0;
+  for (int k = 0; k < F_PPHASE; ++k) nch += fa.g[k] != nullptr;
+  return (size_t)nch * seg_cols(fa) * 2 * BLOCK * sizeof(float);
+}
+
 // Dispatch on the layer bucket and the output-depth option; returns
 // cudaGetLastError() after the launch (0 = ok).  FUSED takes its inputs
 // from *fa (then forcing is null and T = nsteps) and its dynamic shared
@@ -1255,13 +1310,9 @@ static int launch(const ScanConsts* c, const FuseArgs* fa,
   static const FuseArgs none = {};
   size_t smem = 0;
   if (FUSED) {
-    if (fa == nullptr || (fa->has_grid && (fa->span < 1 ||
-                                            fa->span > SPAN_MAX)))
+    if (fa == nullptr || (fa->has_grid && fa->span < 1))
       return (int)cudaErrorInvalidValue;
-    int nch = 0;
-    if (fa->has_grid)
-      for (int k = 0; k < F_PPHASE; ++k) nch += fa->g[k] != nullptr;
-    smem = (size_t)nch * fa->span * 2 * BLOCK * sizeof(float);
+    smem = seg_bytes(*fa);
   }
   const FuseArgs& args = FUSED ? *fa : none;
   const dim3 grid((P + BLOCK - 1) / BLOCK);
@@ -1351,18 +1402,21 @@ static int launch(const ScanConsts* c, const FuseArgs* fa,
 //    table route prepares the window in chunks of wtc rows from row ws-1,
 //    and the grid's float32 interpolation evaluates each segment line from
 //    its chunk's first step, so the lane computes its segment lines
-//    (grid_segments, in dynamic shared memory as K3 fused's) on the raw
-//    rows of the window chunk that holds its step (wrows: each window
-//    chunk's k0 and lo) and again whenever its step enters another one:
-//    forward, or back at a rewind; lanes of a warp at different chunks
-//    never share lines, and the lane equals the table route bit for bit.
+//    (grid_segments, in dynamic shared memory as K3 fused's, a stage of
+//    SEG_STAGE segments at a time) on the raw rows of the window chunk that
+//    holds its step (wrows: each window chunk's k0 and lo) and again
+//    whenever its step enters another chunk or another stage: forward, or
+//    back at a rewind; lanes of a warp at different chunks never share
+//    lines, and the lane equals the table route bit for bit.
 //    The rewind's CheckValues reads the forcing of row end_i, the row after
 //    the pass's last step: the lane prepares it once, in a trip without a
 //    step at its first rewind (its position is end_i + 1 then), and keeps
-//    its valid flag in a register for every later rewind.  What bounds it:
-//    operations, the body's and the prep's; it reads the raw rows of the
-//    window (the grid's KW rows of each window chunk, about 0.3 GB at 1M
-//    points) where K5 read a 27 GB table that eager torch ops had written.
+//    its valid flag in a register for every later rewind; that trip may
+//    load row end_i's stage, and the re-run's first step loads its own.
+//    What bounds it: operations, the body's and the prep's; it reads the
+//    raw rows of the window (the grid's KW rows of each window chunk, about
+//    0.3 GB at 1M points) where K5 read a 27 GB table that eager torch ops
+//    had written.
 
 #define M_FIRST 0
 #define M_RERUN 1
@@ -1569,15 +1623,15 @@ window_kernel(const ScanConsts c, const FuseArgs fa, const WinArgs a) {
   const float dt = c.dt;
 
   // K5 fused: the point's column in the grid's tile rows, its segment
-  // lines (of the window chunk of table rows [w_lo, w_lo + wtc), none yet)
-  // and the sun's per-point terms
+  // lines (of the window chunk of table rows [w_lo, w_lo + wtc), the stage
+  // from segment w_s0; none yet) and the sun's per-point terms
   extern __shared__ float seg_smem[];
   float* seg = seg_smem + threadIdx.x;
   const int64_t tile = FUSED ? p / a.tp : 0;
   const int64_t colbase =
       FUSED ? tile * (int64_t)fa.K * a.tp + (p - tile * a.tp) : 0;
   GridRows gw{0, 0, 0.0f};
-  int w_lo = -2 * a.wtc;
+  int w_lo = -2 * a.wtc, w_s0 = 0;
   SunPoint sp{0.0f, 0.0f, 0.0f};
   if (FUSED && fa.sky_on) sp = sun_point(fa, p);
   // K5 fused: the forcing's CheckValues of row end_i, once prepared
@@ -1639,17 +1693,27 @@ window_kernel(const ScanConsts c, const FuseArgs fa, const WinArgs a) {
     if (mode == M_DONE) break;
 
     // K5 fused: the step's channels, prepared on the segment lines of the
-    // window chunk holding table row i - ws (global row i - 1)
+    // window chunk holding table row i - ws (global row i - 1), in the
+    // stage holding its segment: computed anew when the step enters another
+    // window chunk or another stage (a rewind into an earlier chunk too,
+    // whatever its stage)
     StepIn in = {};
     if (FUSED) {
       const int ri = i - a.ws;
-      if (fa.has_grid && (unsigned)(ri - w_lo) >= (unsigned)a.wtc) {
-        const int k = ri / a.wtc;
-        w_lo = k * a.wtc;
-        gw.k0 = __ldg(a.wrows + 2 * k);
-        gw.lo = __ldg(a.wrows + 2 * k + 1);
-        gw.tr0 = __ldg(fa.trel + (a.ws - 1) + w_lo);
-        grid_segments(fa, colbase, a.tp, seg, gw);
+      if (fa.has_grid) {
+        const bool fresh = (unsigned)(ri - w_lo) >= (unsigned)a.wtc;
+        if (fresh) {
+          const int k = ri / a.wtc;
+          w_lo = k * a.wtc;
+          gw.k0 = __ldg(a.wrows + 2 * k);
+          gw.lo = __ldg(a.wrows + 2 * k + 1);
+          gw.tr0 = __ldg(fa.trel + (a.ws - 1) + w_lo);
+        }
+        const int s0 = stage_of(grid_seg(fa, i - 1, gw));
+        if (fresh || s0 != w_s0) {
+          w_s0 = s0;
+          grid_segments(fa, colbase, a.tp, seg, gw, s0);
+        }
       }
       in = fused_prep(fa, p, colbase, a.tp, seg, gw, i - 1, sp);
       if (prep_only) {
@@ -1744,7 +1808,7 @@ window_kernel(const ScanConsts c, const FuseArgs fa, const WinArgs a) {
 // point of the block, and its dynamic shared memory holds the segment lines.
 // The default limit of 48 KB a block holds the static snapshot and the
 // dynamic part together, so K5 fused always declares its dynamic part (up
-// to 160 KB at 10 channels and SPAN_MAX, beside the snapshot's 21.5 KB).
+// to 160 KB at 10 channels and SEG_STAGE, beside the snapshot's 21.5 KB).
 template <bool FUSED>
 static int launch_window(const ScanConsts* c, const FuseArgs* fa,
                          const WinArgs* a, void* stream) {
@@ -1759,13 +1823,9 @@ static int launch_window(const ScanConsts* c, const FuseArgs* fa,
   if (FUSED) {
     if (fa == nullptr || a->p0 != 0 || a->n != a->P || a->tp <= 0 ||
         a->P % a->tp != 0 || a->tp % BLOCK != 0 || a->wtc < 1 ||
-        (fa->has_grid && (a->wrows == nullptr || fa->span < 1 ||
-                          fa->span > SPAN_MAX)))
+        (fa->has_grid && (a->wrows == nullptr || fa->span < 1)))
       return (int)cudaErrorInvalidValue;
-    int nch = 0;
-    if (fa->has_grid)
-      for (int k = 0; k < F_PPHASE; ++k) nch += fa->g[k] != nullptr;
-    smem = (size_t)nch * fa->span * 2 * BLOCK * sizeof(float);
+    smem = seg_bytes(*fa);
   } else if (a->table == nullptr || a->fidx == nullptr || a->R <= 0) {
     return (int)cudaErrorInvalidValue;
   }

@@ -138,9 +138,10 @@ class ScanConsts(ctypes.Structure):
 #: FuseArgs' pointer arrays
 RAW_FIELDS = ("tair", "tdew", "vz", "rhz", "prec", "sw", "lw", "sw_dir",
               "lw_net", "tsurf_obs", "prec_phase")
-#: the most grid segments a chunk of K3 fused holds (its shared memory
-#: takes 2 floats a segment a channel a thread)
-SPAN_MAX = 16
+#: the grid segments a lane of K3 fused or K5 fused holds in shared memory
+#: at once (2 floats a segment a channel a thread): a stage of the window's
+#: SPAN segments, computed when a step enters it (csrc/scan_kernel.cu)
+SEG_STAGE = 16
 
 _VP = ctypes.c_void_p
 _FUSE_PTRS = (("trw", "trel", "pos", "pick", "tex", "havep"),
@@ -209,9 +210,8 @@ def fuse_args(src, device) -> FuseArgs:
         setattr(fa, n, int(a.get(n, 0)))
     for n in _FUSE_FLOATS + _FUSE_DOUBLES:
         setattr(fa, n, float(a.get(n, 0.0)))
-    if fa.has_grid and not 1 <= fa.span <= SPAN_MAX:
-        raise ValueError(f"the grid's SPAN {fa.span} is outside the fused "
-                         f"kernel's 1..{SPAN_MAX}")
+    if fa.has_grid and fa.span < 1:
+        raise ValueError(f"the grid's SPAN {fa.span} is not positive")
     return fa
 
 
@@ -327,6 +327,13 @@ def _bl_fixed_point(blcond, tsurf, tair, vz, air_vcap, p: PhysicsParams,
         if (j + 1) % 5 == 0 and bool(done.all()):
             break
     return bl, psim, psih, inv_kvz, iters
+
+
+def stats_to_host(stats):
+    """``stats`` (the counts a plain version accumulates on the device, one
+    read a count instead of one a step) as Python ints, in place."""
+    if stats is not None:
+        stats.update({k: int(v) for k, v in stats.items()})
 
 
 def _warp_iters(lane_iters):
@@ -635,7 +642,8 @@ def step_rows(tmp, sc, ch, cofs, trf, cplobs, cfg: StepConfig,
         for key, n in (("point_steps", active.sum()),
                        ("bl_iters", lane.sum()),
                        ("bl_warp_iters", _warp_iters(lane))):
-            stats[key] = stats.get(key, 0) + int(n)
+            stats[key] = stats.get(key, 0) + n      # on the device
+
     raero = torch.clamp((p.log_mom + psim) * (p.log_heat + psih)
                         * (inv_kvz / p.vk_const), max=30.0)
     tak = tair + 273.15
@@ -772,6 +780,7 @@ def scan_reference(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
                                        R_ICE2, R_DEP)):
                     out[row, k] = torch.where(
                         failed_prev, torch.full_like(sc[r], -9999.0), sc[r])
+    stats_to_host(stats)
     return torch.stack(tmp), torch.stack(sc), out
 
 

@@ -246,9 +246,11 @@ def window_reference(tmp0, scal0, forc, pts: WindowPoints,
     kernel.  ``stats`` (optional dict) accumulates the steps taken and their
     boundary-layer iterations as ``scan_reference``'s do; for a fused
     window also K5 fused's prepared rows (``window_preps``: each step's,
-    and row end_i's once a point that rewinds) and the times a point's
-    prepared row enters another window chunk (``window_segments``: the
-    kernel computes the segment lines anew)."""
+    and row end_i's once a point that rewinds), the times a point's
+    prepared row enters another window chunk or, on a grid, another stage
+    of its segment lines (``window_segments``: the kernel computes the
+    stage's lines anew) and the lines so computed a channel
+    (``window_lines``: up to ``sk.SEG_STAGE`` an entry)."""
     P, n = _check_call(tmp0, scal0, forc, pts, grid, span, lo, out)
     fused = is_fused(forc)
     table, fidx, trf = forc.table() if fused else forc
@@ -286,18 +288,30 @@ def window_reference(tmp0, scal0, forc, pts: WindowPoints,
     nst = torch.zeros(n, dtype=torch.int32, device=dev)
     abnormal = lambda t: (t < -100.0) | (t > 100.0)
     wc = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    wst = torch.zeros((n,), dtype=torch.int64, device=dev)
 
     def prepared(mask, row):
-        """K5 fused prepares table row ``row`` at the points of ``mask``."""
-        nonlocal wc
+        """K5 fused prepares table row ``row`` at the points of ``mask``,
+        on the segment lines of its window chunk's stage."""
+        nonlocal wc, wst
         if not (fused and stats is not None):
             return
         k = row // forc.tc
-        stats["window_preps"] = (stats.get("window_preps", 0)
-                                 + int(mask.sum()))
-        stats["window_segments"] = (stats.get("window_segments", 0)
-                                    + int((mask & (k != wc)).sum()))
+        ka = forc.kernel_args()
+        span = int(ka.get("span", 0)) if ka.get("has_grid") else 0
+        s0 = torch.zeros_like(k)
+        if span:
+            st = (ka["pos"].to(dev)[ws - 1 + row].long()
+                  - ka["wrows"].to(dev)[k, 0].long()).clamp(0, span - 1)
+            s0 = st // sk.SEG_STAGE * sk.SEG_STAGE
+        enter = mask & ((k != wc) | (s0 != wst))
+        lines = torch.clamp(span - s0, max=sk.SEG_STAGE)
+        for key, v in (("window_preps", mask.sum()),
+                       ("window_segments", enter.sum()),
+                       ("window_lines", torch.where(enter, lines, 0).sum())):
+            stats[key] = stats.get(key, 0) + v      # on the device
         wc = torch.where(mask, k, wc)
+        wst = torch.where(mask, s0, wst)
 
     while True:
         # the pass transitions of every point past the end of its pass
@@ -386,6 +400,7 @@ def window_reference(tmp0, scal0, forc, pts: WindowPoints,
     out.cv_failed[sl] = cv.failed
     out.reruns[sl] = nre
     out.steps[sl] = nst
+    sk.stats_to_host(stats)
     return out
 
 

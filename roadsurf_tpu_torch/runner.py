@@ -150,20 +150,13 @@ def _grid_tdew(tair, tdew, rhz):
     return np.where(need, np.asarray(tdew_from_rh(tair, rhz)), tdew)
 
 
-def auto_chunk_t(n_points: int, grid_times=(), sim_epochs=None) -> int:
+def auto_chunk_t(n_points: int) -> int:
     """The kernel engine's chunk length when the caller gives none:
-    ``production.auto_chunk_t`` of the point count, halved while a grid
-    source's window would hold more segments than K3 fused keeps in shared
-    memory (``ops.scan_kernel.SPAN_MAX``).  An explicit chunk length is the
-    caller's."""
+    ``production.auto_chunk_t`` of the point count, whatever the grid
+    sources' clocks (roadsurf_tpu/runner.py:457-458).  An explicit chunk
+    length is the caller's."""
     from . import production
-    from .ops.scan_kernel import SPAN_MAX
-    chunk_t = production.auto_chunk_t(n_points)
-    while chunk_t > 8 and any(
-            production.grid_span(t, sim_epochs, chunk_t) > SPAN_MAX
-            for t in grid_times):
-        chunk_t = max(8, chunk_t // 16 * 8)
-    return chunk_t
+    return production.auto_chunk_t(n_points)
 
 
 def _laps(metrics, prefix: str):
@@ -549,8 +542,7 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
         exp_dev = mesh.devices[0]
         p_pad = production.padded_points(P, len(mesh) * nproc)
         if not chunk_t:        # 0/None = size chunks for the point count
-            chunk_t = auto_chunk_t(p_pad, [s.times for _, s in grid_srcs],
-                                   sim_epochs)
+            chunk_t = auto_chunk_t(p_pad)
         metrics.count("chunk_t", chunk_t)
         # expander parts in config-source order (overlay semantics); all
         # station sources collapse into one part at the first station

@@ -7,8 +7,8 @@ tests' tolerances: the cases of tests/test_examples.py:64 (example1's full
 feature set: sky view, coupling, relaxation), tests/test_production.py:215
 (grid points over example1's stations) and :346 (the warm-start cycle).
 Also: one run at two chunk lengths, bit for bit, on the station route (K2)
-and the grid + station route (K3 fused); and the auto chunk length under
-the fused kernel's grid window."""
+and the grid + station route (K3 fused); and the auto chunk length, the JAX
+runner's whatever the grid's SPAN."""
 import json
 import os
 
@@ -219,22 +219,24 @@ def test_results_do_not_depend_on_the_chunk_length(tmp_path, route,
         assert len({f.read_bytes() for f in files}) == 1
 
 
-def test_auto_chunk_keeps_the_grid_window_within_the_fused_kernel():
-    """A small run's auto chunk (the cap, 1,024 steps) over an hourly grid
-    at dt 120 s would hold 35 segments a window; K3 fused keeps at most
-    SPAN_MAX in shared memory, so the runner halves the chunk until it
-    fits, and grid_span is the expander's own SPAN."""
+def test_auto_chunk_is_the_jax_runners_whatever_the_grid_span():
+    """The runner's auto chunk is the JAX runner's,
+    ``production.auto_chunk_t`` of the point count
+    (roadsurf_tpu/runner.py:457-458), whatever a grid source's clock: a
+    small run's chunk over an hourly grid at dt 120 s is the cap, 1,024
+    steps, whose window holds 36 segments (K3 fused and K5 fused take any
+    SPAN); and grid_span is the expander's own SPAN."""
     from roadsurf_tpu_torch import production
-    from roadsurf_tpu_torch.ops.scan_kernel import SPAN_MAX
+    from roadsurf_tpu_torch.ops.scan_kernel import SEG_STAGE
     t0 = 1575244800
     times = t0 + 3600 * np.arange(50)
     sim = t0 + 120 * np.arange(1201)                  # 40 h
-    assert production.auto_chunk_t(128) == production.CHUNK_CAP
-    assert production.grid_span(times, sim, 1024) > SPAN_MAX
-    c = trunner.auto_chunk_t(128, [times], sim)
-    assert c == 256 and production.grid_span(times, sim, c) <= SPAN_MAX
-    assert production.grid_span(times, sim, 2 * c) > SPAN_MAX
-    assert trunner.auto_chunk_t(128, [], sim) == production.CHUNK_CAP
+    for n in (1, 128, 65536, 1048576, 10 ** 9):
+        assert trunner.auto_chunk_t(n) == production.auto_chunk_t(n)
+    c = trunner.auto_chunk_t(128)
+    assert c == production.CHUNK_CAP == 1024
+    assert production.grid_span(times, sim, c) == 36
+    assert production.grid_span(times, sim, c) > SEG_STAGE
     rng = np.random.default_rng(0)
     lats, lons = np.linspace(60, 61, 3), np.linspace(24, 25, 4)
     fields = {"tair": rng.normal(0, 1, (50, 3, 4))}

@@ -680,3 +680,38 @@ def test_storage_runout_rounding_decides_the_melt():
     assert wat == float(f32(mm) + f32(mm))      # the melt, twice
     wat, mm = runs[False]
     assert wat == mm                             # once
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlayers", [15, 20])
+def test_fused_kernel_at_any_span_on_cuda(nlayers):
+    """K3 fused on the card at SPAN > SEG_STAGE (the sub-hourly grid of
+    tests/test_torch_fused_span.py: its chunks' steps cross from the first
+    stage of segment lines to the next), at 15 and 20 layers (the <16> and
+    <32> instantiations), against its plain version on every chunk of the
+    run, bit for bit: profile, state and the output rows the chunk
+    writes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from roadsurf_tpu_torch import production as tprod
+    from test_torch_fused_span import CHUNK, port_engine, span_case
+    dev = torch.device("cuda", 0)
+    tm, exp, pts, cal, st = port_engine(
+        span_case(nlayers=nlayers, device=dev), device=dev)
+    eng = tprod._Engine(tm, exp, pts, cal, st, chunk_t=CHUNK)
+    assert eng.fused and exp.SPAN > sk.SEG_STAGE
+    args = (eng.tmp0, eng.scal0)
+    rest = (eng.cfg, eng.params, eng.grid)
+    for t0 in range(0, tm.settings.sim_len, CHUNK):
+        nsteps = min(CHUNK, tm.settings.sim_len - t0)
+        src, kw = eng.kernel_inputs(t0)
+        assert sk.fuse_args(src, dev).span == exp.SPAN
+        geo = eng.scan_kwargs(t0, nsteps)
+        got = sk.scan_cuda_fused(*args, src, *rest, **geo, **kw)
+        want = sk.scan_fused_reference(*args, src, *rest, **geo, **kw)
+        torch.cuda.synchronize()
+        k = len(range(-(-t0 // eng.os_) * eng.os_, t0 + nsteps, eng.os_))
+        for g, w in ((got[0], want[0]), (got[1], want[1]),
+                     (got[2][:k, :6], want[2][:k, :6])):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        args = (got[0], got[1])

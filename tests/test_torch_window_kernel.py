@@ -301,3 +301,38 @@ def test_window_kernel_matches_plain_on_the_card():
             want = wk.window_reference(*args)
             torch.cuda.synchronize()
             _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlayers", [15, 20])
+def test_fused_window_kernel_at_any_span_on_the_card(nlayers, monkeypatch):
+    """K5 fused on the card at SPAN > SEG_STAGE (the sub-hourly grid of
+    tests/test_torch_fused_span.py, coupled: the window spans two window
+    chunks, the first one both stages of segment lines, and the control
+    rewinds across them), at 15 and 20 layers, against its plain version
+    on the inputs the coupled run hands phase B, bit for bit: rows, state,
+    corrections, failed masks, re-runs and steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the window kernel runs only on "
+                    "the card)")
+    from test_torch_fused_span import CHUNK, port_engine, span_case
+    dev = torch.device("cuda", 0)
+    tm, exp, pts, cal, st = port_engine(
+        span_case(coupled=True, nlayers=nlayers, device=dev), device=dev)
+    assert exp.SPAN > sk.SEG_STAGE
+    kept, window = [], wk.window
+
+    def recorded(*a, **k):
+        kept.append(((a[0].clone(), a[1].clone()) + a[2:], k))
+        return window(*a, **k)
+    monkeypatch.setattr(wk, "window", recorded)
+    tprod.run_production_coupled(tm, exp, pts, cal, st, chunk_t=CHUNK,
+                                 out_stride=6)
+    (args, kw), = kept
+    forc, span = args[2], args[-1]
+    assert wk.is_fused(forc) and span.rows > forc.tc
+    got = wk.window_cuda(*args, **kw)
+    want = wk.window_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert int(want.reruns.max()) > 0
+    _same(got, want)
