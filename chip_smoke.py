@@ -26,6 +26,12 @@ JSON summary.
     python3 chip_smoke.py 3e --variant old=build/old/scan_kernel.cu
                                      # another source of the kernel beside
                                      # this one, both orders, in turns
+    python3 chip_smoke.py 3c 7w 7s --stage 16
+                                     # the fused kernels at a stage width
+                                     # of 16 beside the rule's, in turns
+    python3 chip_smoke.py 2s         # the fused time loops' SASS by part
+                                     # of the in-kernel prep (this build's
+                                     # and each --variant source's)
 
 Phases (each fails the run on any error; nothing falls back to the CPU or to
 the plain version):
@@ -96,8 +102,10 @@ the plain version):
     depth (8-step windows from step 63, 16-step chunks: five window
     chunks), and the 8-channel grid on a 5-minute clock at 15 and 20
     layers, at 48-step chunks (SPAN 6) and at 192-step chunks over 360
-    steps (SPAN above sk.SEG_STAGE, the window over two window chunks, the
-    first holding two stages of segment lines): each run's phase B
+    steps (SPAN 21, above the stage width, the window over two window
+    chunks, the first holding several stages of segment lines; each
+    launch's stage width, registers, blocks an SM and shared memory
+    printed, the blocks what its registers allow): each run's phase B
     goes through one K5 fused launch and builds no window table; K5 fused
     on the inputs the run handed it, and the run's own results, against
     its plain version (window_reference on the window's eager table), bit
@@ -116,8 +124,10 @@ the plain version):
     stations) with sky view, coupling and the decay, without and with
     relaxation, the stations alone with sky view at night and by day
     (3f, which runs alone when named), and the 8-channel grid on a 5-minute
-    clock, 16,384 points at 256-step chunks (SPAN above sk.SEG_STAGE: the
-    segment lines in stages) at 15 and 20 layers, bit for bit; then one
+    clock, 16,384 points at 256-step chunks (SPAN above the stage width:
+    the segment lines in stages) at 15 and 20 layers, bit for bit, each
+    launch's stage width, registers, blocks an SM (what its registers
+    allow) and shared memory printed; then one
     1,048,576 x 64 chunk of phase 7's grid, timed beside the unfused
     route's prep and K3 with K3 fused's bound;
  4c. the tile-major production path small on the card: 8,192 points, 97
@@ -156,7 +166,7 @@ the plain version):
     K5 fused timed again at this size.
  7s. a sub-hourly NWP feed at full width: phase 7's grid resampled to a
     5-minute clock (8 channels, as 3w's wide grid) over 2,048 steps from
-    08:00 UTC at 512-step chunks (SPAN above sk.SEG_STAGE, printed),
+    08:00 UTC at 512-step chunks (SPAN above the stage width, printed),
     1,048,576 points: the uncoupled run through K3 fused (one launch a
     chunk, no prepare_window call; wall, stream, peak memory), its second
     chunk's K3 fused launch timed beside its bound and its first 65,536
@@ -240,11 +250,17 @@ the plain version):
     runner handed it, bit for bit; a 64-point sample as 9a's.
 
 ``--variant LABEL=PATH`` (repeatable) builds another source of the kernel
-(an earlier copy, or an edited one, put under the gitignored build/) into a
-library of its own; phases 3e (K1, K2), 3w and 6 (K5), 3c's grid chunk
+(an earlier copy, or an edited one, put under the gitignored build/; its
+FuseArgs must be this build's, which ops/build.py checks by size) into a
+library of its own; phase 2s splits its fused time loops as this build's;
+phases 3e (K1, K2), 3w and 6 (K5), 3c's grid chunk
 (K3 fused), 7w (K5 fused) and 7s (K3 fused, K5 fused) print its ptxas and
 SASS counts, hold it to this build bit for bit and time it in the same
-turns.
+turns.  ``--stage W`` (repeatable) does the same for this build's fused
+kernels at the stage width W (a power of two) in place of
+ops/scan_kernel.py:stage_width's, in 3c, 7w and 7s: the width of the
+segment lines never changes a bit, only the blocks an SM and the lines
+recomputed.
 
 Every run_production launch goes through K4 (one sharded launch a chunk,
 whatever the number of blocks), so K4's launches are counted over every
@@ -261,6 +277,7 @@ summary (JSON), the card's name and power limit, and the device line
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import importlib.util
@@ -273,6 +290,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -942,9 +960,9 @@ def phase_kernel_slim_chunk(cfg6):
 # ---------------------------------------------------------------------------
 
 def kernel_label(mangled):
-    """``scan_kernel<LM, DEPTH, SLIM, FUSED>`` or ``window_kernel<LM,
-    DEPTH>`` of a mangled instantiation name (three arguments for a scan
-    kernel from before K3 fused)."""
+    """``scan_kernel<LM, DEPTH, SLIM, FUSED, CS>`` or ``window_kernel<LM,
+    DEPTH, FUSED, CS>`` of a mangled instantiation name (fewer arguments
+    for a kernel from an earlier source)."""
     m = re.search(r"\d+(scan_kernel|window_kernel)I"
                   r"((?:Li\d+E|Lb[01]E)+)E", mangled)
     if not m:
@@ -982,31 +1000,128 @@ def log_build(label, info):
         log(line)
 
 
+#: the extra nvcc flags of phase 2s's build
+LINEINFO = ("-lineinfo",)
+#: the parts of the fused prep by the marker comments that open them in
+#: csrc/scan_kernel.cu:fused_prep, and the helper functions each part calls
+PREP_MARKERS = (("grid values", "// ---- raw values"),
+                ("merge", "// ---- the merge in source order"),
+                ("CheckValues", "// ---- forcing.prepare_window"),
+                ("sky view", "// sky view"),
+                ("wind floor", "// day/night wind floor"),
+                ("relaxation, rain probability", "// relaxation"),
+                ("precipitation type", "// calc_prec_type"),
+                ("obs and coupling flags", "// obs forcing"),
+                ("thermo", "// forcing_thermo"))
+PREP_HELPERS = (("channel tests", ("grid_has",)),
+                ("step values", ("grid_step", "grid_seg", "stage_of")),
+                ("grid values", ("grid_value", "tdew_from_rh", "rh_from_tdew",
+                                 "esat_air")),
+                ("segment lines", ("grid_segments",)),
+                ("prep, the helpers", ("div_s", "clampf", "clampi")),
+                ("step body", ("step_body",)))
+
+
+def prep_parts(path):
+    """[(part, first line, last line)] of csrc/scan_kernel.cu: fused_prep's
+    lines that test a channel's pointer ("channel tests", with grid_has)
+    first, the helper functions next (a function from its signature to its
+    closing brace at column 0), then fused_prep cut at its marker
+    comments."""
+    src = open(path).read().splitlines()
+
+    def body(name):
+        i = next((k for k, x in enumerate(src)
+                  if re.search(rf"\b{name}\(", x) and not x.startswith(" ")
+                  and not x.startswith("//")), None)
+        if i is None:
+            return None
+        j = next(k for k in range(i, len(src)) if src[k] == "}")
+        return i + 1, j + 1
+    lo, hi = body("fused_prep")
+    parts = [("channel tests", k + 1, k + 1) for k in range(lo - 1, hi)
+             if "!= nullptr" in src[k]]
+    parts += [(part, *body(f)) for part, fs in PREP_HELPERS for f in fs
+              if body(f)]
+    marks = [(next(k for k in range(lo - 1, hi) if src[k].strip()
+                   .startswith(m)) + 1, part) for part, m in PREP_MARKERS]
+    ends = [m[0] - 1 for m in marks[1:]] + [hi]
+    parts += [(part, a, b) for (a, part), b in zip(marks, ends)]
+    return parts + [("prep, the rest", lo, hi)]
+
+
+def phase_sass_split(variants=()):
+    """Phase 2s (only when named): this build's source, and each source of
+    ``variants`` (label, sources), built again with -lineinfo, each fused
+    instantiation's time loop split by part of the prep (``prep_parts``),
+    the step body and the rest, in SASS instructions; each listing (about
+    30 MB) goes beside its library."""
+    for label, sources in [("this build", build.SOURCES)] + [
+            v for v in variants if not isinstance(v[1], int)]:
+        info = build.build(sources, extra=LINEINFO)
+        text = sass.library_listing(info["path"])
+        with open(info["path"] + ".sass.txt", "w") as f:
+            f.write(text)
+        src = Path(sources[0])
+        parts = prep_parts(src)
+        for name, rows in sorted(sass.line_listing(text).items()):
+            kname = kernel_label(name)
+            if not re.search(r"(scan_kernel<\d+, \w+, true, true(, \d+)?>|"
+                             r"window_kernel<\d+, \w+, true(, \d+)?>)",
+                             kname):
+                continue
+            lines = sass.loop_lines(rows)
+            split = sass.part_split(lines, parts, src.name)
+            log(f"  [{label}] {kname}: time loop {sum(lines.values())} "
+                f"instructions, by part: " + json.dumps(dict(sorted(
+                    split.items(), key=lambda kv: -kv[1]))))
+
+
 def parse_variants(argv):
     """``--variant LABEL=PATH`` options (another source of the kernel, e.g.
-    an earlier copy, built into a library of its own); returns (the other
-    arguments, [(label, sources)])."""
+    an earlier copy, built into a library of its own) and ``--stage W``
+    options (this build's fused kernels at the stage width W, a power of
+    two, in place of ``sk.stage_width``'s); returns (the other arguments,
+    [(label, sources or the width)])."""
     rest, variants = [], []
     it = iter(argv)
     for a in it:
-        if a != "--variant":
+        if a == "--stage":
+            w = int(next(it))
+            variants.append((f"stage {w}", w))
+        elif a == "--variant":
+            label, _, path = next(it).partition("=")
+            variants.append((label, (path,)))
+        else:
             rest.append(a)
-            continue
-        label, _, path = next(it).partition("=")
-        variants.append((label, (path,)))
     return rest, variants
 
 
 @contextlib.contextmanager
-def kernel_library(lib):
+def kernel_library(lib, stage=None):
     """``sk.scan_cuda`` launches ``lib`` (another build of the kernel)
-    inside the block."""
-    saved = build.load
+    inside the block, the fused kernels at the stage width ``stage`` when
+    given."""
+    saved, rule = build.load, sk.stage_width
     build.load = lambda *a, **k: lib
+    if stage is not None:
+        sk.stage_width = lambda *a, **k: stage
     try:
         yield
     finally:
-        build.load = saved
+        build.load, sk.stage_width = saved, rule
+
+
+def launch_line(kind, label=""):
+    """The stage width and occupancy of the last launch of ``kind`` ("K3
+    fused" or "K5 fused"); returns its ``sk.FusedLaunch``."""
+    f = sk.LAST_LAUNCH[kind]
+    log(f"  [{card_line()}] {kind}{' ' + label if label else ''}: stage "
+        f"width {f.stage}, {f.regs} registers, {f.blocks} blocks an SM "
+        f"(its registers allow {f.blocks_regs}), shared memory a block "
+        f"{f.smem} B of segment lines + {f.static_smem} B static, channel "
+        f"set {sk.CHANNEL_SETS[f.channel_set]}")
+    return f
 
 
 def station_order(st_idx, n_stations):
@@ -1063,6 +1178,8 @@ def phase_station_order(cfg, variants=()):
 
     libs = [("this build", build.load())]
     for label, sources in variants:
+        if isinstance(sources, int):
+            continue                     # a stage width: no fused kernel
         info = build.build(sources)
         log_build(label, info)
         libs.append((label, build.load(sources)))
@@ -1362,30 +1479,37 @@ VARIANT_LIBS = {}
 
 
 def load_variants(variants):
-    """[(label, library)] of ``variants`` (label, sources), each built
-    once and its ptxas and SASS counts printed at its first use."""
+    """[(label, library, stage width or None)] of ``variants`` (label,
+    sources or a stage width), each source built once and its ptxas and
+    SASS counts printed at its first use; a width runs this build."""
+    out = []
     for label, sources in variants:
+        if isinstance(sources, int):
+            out.append((label, build.load(), sources))
+            continue
         if label not in VARIANT_LIBS:
             log_build(label, build.build(sources))
             VARIANT_LIBS[label] = build.load(sources)
-    return [(label, VARIANT_LIBS[label]) for label, _ in variants]
+        out.append((label, VARIANT_LIBS[label], None))
+    return out
 
 
 def window_variants(label, args, kw, want, variants, reps):
-    """K5 from each of ``variants`` (label, sources) on ``args``: held to
-    this build's results ``want`` bit for bit, then timed beside this
-    build in turns (this build and each variant, then the reverse)."""
-    libs = [("this build", build.load())] + load_variants(variants)
-    for name, lib in libs[1:]:
-        with kernel_library(lib):
+    """K5 from each of ``variants`` (label, sources or a stage width) on
+    ``args``: held to this build's results ``want`` bit for bit, then
+    timed beside this build in turns (this build and each variant, then
+    the reverse)."""
+    libs = [("this build", build.load(), None)] + load_variants(variants)
+    for name, lib, stage in libs[1:]:
+        with kernel_library(lib, stage):
             got = wk.window_cuda(*args, **kw)
         torch.cuda.synchronize()
         assert_window_bitwise(f"{label}: {name} vs this build", got, want)
         del got
-    ms = {name: [] for name, _ in libs}
+    ms = {name: [] for name, _, _ in libs}
     for seq in (libs, libs[::-1]):
-        for name, lib in seq:
-            with kernel_library(lib):
+        for name, lib, stage in seq:
+            with kernel_library(lib, stage):
                 ms[name].append(cuda_ms(
                     lambda: wk.window_cuda(*args, **kw), reps=reps))
     log(f"  [{card_line()}] {label}: K5 ms a launch, in turns: "
@@ -1396,10 +1520,9 @@ def window_variants(label, args, kw, want, variants, reps):
 #: phase 3w's K5 fused cases: (configuration, relaxation)
 WINDOW_FUSED_CASES = (("grid", False), ("composite", False),
                       ("station", False), ("composite", True))
-#: phase 3w's wide grid cases (``wide_grid``: 8 channels at SPAN 6, 48 KB
-#: of segment lines a block beside the snapshot's static shared memory;
-#: and at SPAN above sk.SEG_STAGE, the lines in stages) and 3f's, by ground
-#: layers: the default 15 and 20 (the <32> instantiation)
+#: phase 3w's wide grid cases (``wide_grid``: 8 channels at SPAN 6 and at
+#: SPAN 21, the lines in stages) and 3f's, by ground layers: the default 15
+#: and 20 (the <32> instantiation)
 WINDOW_WIDE_LAYERS = (15, 20)
 
 
@@ -1472,9 +1595,11 @@ def phase_window_fused_small():
     chunks (the window spans two window chunks): the most dynamic shared
     memory a launch of these cases asks for; and at 192-step chunks over
     360 steps, 8-step windows ending at steps drawn from [170, 360), so ws
-    is 163: SPAN above sk.SEG_STAGE, the window over two window chunks, the
-    first holding two stages of segment lines, rewinds across both.
-    Returns {"err", "ms", "plain_ms", "bound"}."""
+    is 163: SPAN above the stage width, the window over two window chunks,
+    the first holding several stages of segment lines, rewinds across
+    them.  Each launch's stage width and occupancy are printed, and its
+    blocks an SM must be what its registers allow.  Returns {"err", "ms",
+    "plain_ms", "bound"}."""
     res = {"err": 0.0}
     cases = [(config, relax, depth, None, False)
              for depth in (False, True) for config, relax in
@@ -1498,7 +1623,6 @@ def phase_window_fused_small():
             g = c["exp"]
             assert g.SPAN >= 6 and len(g.var_names) >= 7, (
                 g.SPAN, g.var_names)
-            assert (g.SPAN > sk.SEG_STAGE) == staged, g.SPAN
             label += (f", {len(g.var_names)} channels at SPAN "
                       f"{g.SPAN}, {layers} layers")
         reset_counts()
@@ -1515,10 +1639,14 @@ def phase_window_fused_small():
         span, P = args[-1], args[0].shape[1]
         assert sl == slice(0, P)
         got = wk.window_cuda(*args, **kw)
+        f = launch_line("K5 fused", f"(3w, {label})")
+        assert f.blocks == f.blocks_regs, f
+        if staged:
+            assert c["exp"].SPAN > f.stage, (c["exp"].SPAN, f)
         stats = {}
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        want = wk.window_reference(*args, **kw, stats=stats)
+        want = wk.window_reference(*args, **kw, stats=stats, stage=f.stage)
         ev[1].record()
         torch.cuda.synchronize()
         err = max(assert_window_bitwise(f"{label}: the run's K5 fused "
@@ -1995,7 +2123,7 @@ def fused_head_check(label, args, kw, sl, run_part, again, model):
     want = wk.window_reference(
         tmp0[:, :n].contiguous(), scal0[:, :n].contiguous(),
         FusedHead(forc, n), wk.WindowPoints(*(x[:n] for x in pts)),
-        *args[4:], **kw, stats=stats)
+        *args[4:], **kw, stats=stats, stage=sk.LAST_LAUNCH["K5 fused"].stage)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     err = max(assert_window_bitwise(
@@ -2614,18 +2742,18 @@ def chunk_pieces(eng, t0, label):
     return forc, kw, geo, (prep_ms, kern_ms, drain_ms)
 
 
-def chunk_lines(a, off, nsteps):
+def chunk_lines(a, off, nsteps, stage):
     """The segment lines a lane of K3 fused computes for each grid channel
     on the chunk of kernel arguments ``a`` at global step ``off``: those of
     its first stage before the first step, then those of each stage of
-    ``sk.SEG_STAGE`` segments a step enters (the steps run forward)."""
+    ``stage`` segments a step enters (the steps run forward)."""
     span = a.get("span", 0)
     if not span:
         return 0
     pos = a["pos"][off:off + nsteps].long().cpu().numpy()
     st = np.clip(pos - a["k0"], 0, span - 1)
-    stages = set((st // sk.SEG_STAGE * sk.SEG_STAGE).tolist()) | {0}
-    return sum(min(sk.SEG_STAGE, span - s0) for s0 in stages)
+    stages = set((st // stage * stage).tolist()) | {0}
+    return sum(min(stage, span - s0) for s0 in stages)
 
 
 def fused_bound(eng, src, geo, stats):
@@ -2646,7 +2774,7 @@ def fused_bound(eng, src, geo, stats):
     L = eng.grid.nlayers
     rows = len(range(-(-off // stride) * stride, off + nsteps, stride))
     n_g = sum(1 for n, x in a["g"].items() if n != "prec_phase")
-    lines = chunk_lines(a, off, nsteps)
+    lines = chunk_lines(a, off, nsteps, sk.LAST_LAUNCH["K3 fused"].stage)
     g_all = len(a["g"])
     n_s = len(a["s"])
     sky = np.asarray(eng.pts_dev.sky_view.cpu())
@@ -2746,7 +2874,7 @@ def wide_grid(times, fields, h_lo, h_hi, minutes=5):
     a dew point (the air temperature less a fifth of the humidity's
     deficit) and direct shortwave (0.7 of the shortwave) added: 8 channels,
     whose segment lines span 6 raw rows at 48-step chunks of 30 s steps
-    and more than sk.SEG_STAGE from 256-step chunks on.  Returns (times,
+    and more than 16 from 256-step chunks on.  Returns (times,
     fields)."""
     h = np.arange(h_lo, h_hi + 1)
     n = (len(h) - 1) * 60 // minutes + 1
@@ -2862,10 +2990,11 @@ def phase_kernel_fused_small():
     rounding decides, so only a body that rounds as the plain version does
     holds there).  Then the wide grid (``wide_grid``: 8 channels on a
     5-minute clock) on 16,384 points at 256-step chunks over 300 steps,
-    SPAN above sk.SEG_STAGE, at each of WINDOW_WIDE_LAYERS, the 256-step
-    chunk at offset 40: its steps cross from the first stage of segment
-    lines into the next, and K3 fused must equal its plain version bit for
-    bit."""
+    SPAN above the stage width, at each of WINDOW_WIDE_LAYERS, the
+    256-step chunk at offset 40: its steps cross from the first stage of
+    segment lines into the next, and K3 fused must equal its plain version
+    bit for bit.  Each launch's stage width and occupancy are printed, and
+    its blocks an SM must be what its registers allow."""
     max_err = 0.0
     cases = [(config, relax, coupled, start_h, None)
              for config, relax, coupled, start_h in (
@@ -2887,18 +3016,20 @@ def phase_kernel_fused_small():
                if wide else {}))
         src, kw = eng.kernel_inputs(off, cofs)
         span = src.kernel_args().get("span", "-")
-        lines = chunk_lines(src.kernel_args(), off, nsteps)
-        extra = (f", {layers} layers, {lines} segment lines a lane a "
-                 f"channel" if wide else "")
+        extra = f", {layers} layers" if wide else ""
         label = (f"{config}{', sky view' if eng.enable_sky else ''}"
                  f"{', relaxation' if relax else ''}"
                  f"{', coupling, decay' if cofs else ''}, from {start_h:02d}"
                  f":00 UTC, {eng.P_pad} x {eng.chunk_t} (offset {off}, "
                  f"{nsteps} steps, SPAN {span}{extra})")
-        if wide:
-            assert span > sk.SEG_STAGE and len(eng.fused_parts[0]
-                                               .var_names) >= 8, span
         err, _ = fused_vs_routes(label, eng, src, kw, geo, bitwise=wide)
+        f = launch_line("K3 fused", f"(3f, {label})")
+        assert f.blocks == f.blocks_regs, f
+        if wide:
+            lines = chunk_lines(src.kernel_args(), off, nsteps, f.stage)
+            log(f"  3f: {lines} segment lines a lane a channel")
+            assert span > f.stage and len(eng.fused_parts[0]
+                                          .var_names) >= 8, (span, f)
         max_err = max(max_err, err)
         del eng, src
         torch.cuda.empty_cache()
@@ -2921,6 +3052,9 @@ def phase_fused_chunk(cfg, label, variants=()):
     stats = {}
     err, _ = fused_vs_routes(f"1M x 64 {label} chunk", eng, src, kw, geo,
                              stats)
+    f = launch_line("K3 fused", f"({label} chunk)")
+    # phase 7's grid, with or without 7b's stations: the NWP grid's channels
+    assert f.channel_set == 1, f
     bound = fused_bound(eng, src, geo, stats)
     args = (eng.tmp0, eng.scal0)
     rest = (eng.cfg, eng.params, eng.grid)
@@ -3348,6 +3482,7 @@ def phase_grid_full(cfg, metrics, label, depth=None):
         f"({calls.n / n_chunks:g} a chunk)")
     log(f"  [{card_line()}] phases (s): " + json.dumps(
         {k: round(v, 3) for k, v in metrics.phases.items()}))
+    launch_line("K3 fused", f"({label}, the run's last launch)")
     fig = stream_line(label, production.PIPELINE_DEPTH if depth is None
                       else depth, metrics, probe, peak, wall)
     return res, launches[3], fig
@@ -3466,6 +3601,11 @@ def phase_grid_coupled(cfg7, runs=GRID_COUPLED_RUNS, init_h=24, ph="7w",
             # (inputs kept through a later run would count in its peak)
             args, kw, sl, run_part = kept[0]
             again = wk.window_cuda(*args, **kw)
+            if not table:
+                f = launch_line("K5 fused", f"({ph})")
+                assert f.blocks == f.blocks_regs or ph != "7s", f
+                # 7w couples phase 7's grid, 7s a grid of 8 channels
+                assert f.channel_set == (ph != "7s"), f
             ms = cuda_ms(lambda: wk.window_cuda(*args, **kw), reps=3)
             lane, warp, slow = window_stats(again.steps)
             n = again.steps.shape[0]
@@ -3500,8 +3640,8 @@ def subhourly_setup(metrics, side=1024, T=2048, chunk_t=512, minutes=5,
     ``minutes`` raw clock over the run's hours (``wide_grid``: 8 channels),
     1,048,576 points on phase 7's raster, ``T`` steps of 30 s from the
     grid's hour ``start_h`` (so a 16 h analysis ends at midnight, as 7w's
-    24 h one does), hourly output, ``chunk_t``-step chunks: SPAN above
-    sk.SEG_STAGE, so each lane computes its segment lines in stages."""
+    24 h one does), hourly output, ``chunk_t``-step chunks: SPAN above the
+    stage width, so each lane computes its segment lines in stages."""
     t0 = time.perf_counter()
     times, glats, glons, fields = grid_fields_gen_production()
     times, fields = wide_grid(times, fields, start_h,
@@ -3526,7 +3666,6 @@ def subhourly_setup(metrics, side=1024, T=2048, chunk_t=512, minutes=5,
         f"K {exp.K}, KW {exp.KW}, SPAN {exp.SPAN} at {chunk_t}-step "
         f"chunks (grid_span {production.grid_span(times, sim, chunk_t)}), "
         f"raw rows on the card {rows_gb:.2f} GB")
-    assert exp.SPAN > sk.SEG_STAGE, exp.SPAN
     pts = default_point_params(len(plat))._replace(lat=plat, lon=plon)
     first = RawForcing(**{n: np.asarray(exp.first_host[n])[:, None]
                           for n in RawForcing._fields})
@@ -3540,19 +3679,19 @@ def fused_variants(label, fused, variants, reps):
     sources): held to this build's profile and state bit for bit, then
     timed beside this build in turns (this build and each variant, then
     the reverse)."""
-    libs = [("this build", build.load())] + load_variants(variants)
+    libs = [("this build", build.load(), None)] + load_variants(variants)
     want = fused()
-    for name, lib in libs[1:]:
-        with kernel_library(lib):
+    for name, lib, stage in libs[1:]:
+        with kernel_library(lib, stage):
             got = fused()
         torch.cuda.synchronize()
         assert all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                    for g, w in zip(got[:2], want[:2])), (label, name)
         del got
-    ms = {name: [] for name, _ in libs}
+    ms = {name: [] for name, _, _ in libs}
     for seq in (libs, libs[::-1]):
-        for name, lib in seq:
-            with kernel_library(lib):
+        for name, lib, stage in seq:
+            with kernel_library(lib, stage):
                 ms[name].append(cuda_ms(fused, reps=reps))
     log(f"  [{card_line()}] {label}: K3 fused ms a launch, in turns: "
         + json.dumps({k: [round(v, 4) for v in vals]
@@ -3576,6 +3715,8 @@ def subhourly_chunk(c, n=65536, variants=()):
     fused = lambda: sk.scan_cuda_fused(eng.tmp0, eng.scal0, src, *rest,
                                        **geo, **kw)
     got = fused()
+    f = launch_line("K3 fused", "(7s)")
+    assert f.blocks == f.blocks_regs and c["exp"].SPAN > f.stage, f
     ms = cuda_ms(fused, reps=5)
     if variants:
         fused_variants(f"7s, the 1M x {tc} chunk", fused, variants, reps=3)
@@ -3604,7 +3745,8 @@ def subhourly_chunk(c, n=65536, variants=()):
                                         for k, v in stats.items()})
     log(f"  [{card_line()}] 7s K3 fused, 1M x {tc} chunk at offset {t0} "
         f"(SPAN {src.kernel_args()['span']}, "
-        f"{chunk_lines(src.kernel_args(), t0, tc)} segment lines a lane a "
+        f"{chunk_lines(src.kernel_args(), t0, tc, f.stage)} segment lines "
+        f"a lane a "
         f"channel): {ms:.3f} ms against its bound {bound[0]:.3f} ms "
         f"({bound[1]}; the plain version's counts on {n} points, scaled); "
         f"== its plain version bit for bit on points [0, {n}) (profile, "
@@ -4174,8 +4316,8 @@ def main():
 def run_phases(samples):
     args, variants = parse_variants(sys.argv[1:])
     sel = set(args)
-    known = {"3", "3b", "3c", "3d", "3e", "3f", "3w", "4", "4b", "4c", "5",
-             "6", "7", "7b", "7s", "7w", "8", "8b", "9", "9d", "9t"}
+    known = {"2s", "3", "3b", "3c", "3d", "3e", "3f", "3w", "4", "4b", "4c",
+             "5", "6", "7", "7b", "7s", "7w", "8", "8b", "9", "9d", "9t"}
     if sel - known:
         raise SystemExit(f"unknown phases {sorted(sel - known)}; "
                          f"phases: {sorted(known)}")
@@ -4193,12 +4335,25 @@ def run_phases(samples):
     log(f"  card: {card}")
 
     log("== 2. build")
-    info = build.build()
+    # every library this run builds, one nvcc each, all started together
+    jobs = [((), ())] + [((src,), ()) for _, src in variants
+                         if not isinstance(src, int)]
+    jobs += [(j[0], LINEINFO) for j in jobs] if named("2s") else []
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        built = [ex.submit(lambda j: build.build(*j[0] or (build.SOURCES,),
+                                                 extra=j[1]), j)
+                 for j in jobs]
+        info = built[0].result()
+        for f in built[1:]:
+            f.result()
     log(f"  {info['path']}: {'built' if info['built'] else 'reused'} in "
-        f"{info['seconds']:.2f} s")
+        f"{info['seconds']:.2f} s ({len(jobs)} libraries built together)")
     log_build("this build", info)
     build.load()
     stamp = lambda: log(f"  ({time.perf_counter() - T0:.0f} s since start)")
+    if named("2s"):
+        log("== 2s. the fused kernels' time loops in SASS, by part")
+        phase_sass_split(variants)
 
     metrics = RunMetrics(announce=True)      # phase lines on stderr
     cfg = cfg6 = cfg7 = None

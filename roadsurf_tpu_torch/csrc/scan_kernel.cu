@@ -98,17 +98,42 @@
 // thread builds its step's 11 channels in registers right before the step
 // uses them: the grid part's gap-capped interpolation from the raw series
 // rows (the segment lines of the chunk in dynamic shared memory, 2 floats
-// a segment a channel a thread, SEG_STAGE segments at a time: each line
-// computed once a chunk, when the chunk's steps enter its stage),
-// the station part's value by a gather at the point's station, the
+// a segment a channel a thread, a stage of FuseArgs::stage segments at a
+// time: each line computed once a chunk, when the chunk's steps enter its
+// stage), the station part's value by a gather at the point's station, the
 // source-order merge, CheckValues, the wind floors, sky view (the sun's
 // per-point part from time terms formed in float64 on the host, the
 // horizon at the nearest degree, ModRadiation), relaxation in float64,
 // the precipitation type, the obs forcing and coupling flags, and
-// forcing_thermo.  What bounds it: operations (the body's plus the prep's,
+// forcing_thermo.  Its bound is operations (the body's plus the prep's,
 // about 0.7 ms a 1M x 64 chunk); it reads about 0.55-0.65 GB a chunk, the
 // raw rows, state and parameters, instead of 3.26 GB plus the 2.95 GB the
-// prep wrote.  Each prep operation is written with __f*_rn intrinsics
+// prep wrote.  What holds it back on this card is the instructions a warp
+// issues a point-step (a time loop of about 3,600 SASS instructions, the
+// body's 1,600 and the prep's; at 4 schedulers an SM the card issues
+// about 1e12 warp instructions a second) and the latency of each lane's
+// serial chain of expf/logf/acosf and IEEE divides, which only more warps
+// an SM hide.  So the segment lines must never cost the SM a block: the
+// host sizes the stage for each launch (ops/scan_kernel.py:stage_width,
+// from cudaFuncGetAttributes, the occupancy call and the device's shared
+// memory) to the widest power of two that leaves the SM the blocks the
+// registers allow (5 at <16>, 96 registers); a grid whose SPAN fits in
+// the width keeps its one layout (the hourly grid: SPAN 2).  With the
+// SPAN-53 grid's 8 channels a stage of 16 took 128 KB a block and one
+// block an SM, and ran 3.3 times slower than a stage of 4 (PERF.md,
+// Findings).  The prep issues no work twice that it can form once: the
+// step's segment, line offset, time offset and exact-time row once a step
+// for every channel (GridStep; the compiler had repeated them for each of
+// the ten unrolled channels), the merge branching once on the parts, and
+// the per-point inputs (station row, sky view, relaxation differences,
+// coupling window, predicates) once a lane before the time loop
+// (PointPrep): 3,586 -> 3,213 SASS instructions a time loop, the hourly
+// grid chunk 15% faster, bit for bit.  A grid that carries exactly the NWP
+// grid's six channels runs an instantiation with that set compiled in
+// (CS_NWP): no pointer test a step and the absent channels' work folded
+// away, 2,894 instructions a time loop and no spills, the hourly grid
+// chunk 7% faster again (PERF.md, Findings).  Each prep
+// operation is written with __f*_rn intrinsics
 // where torch rounds it on its own, a torch division by a Python scalar
 // as its multiply by the reciprocal, precise expf/logf/sinf/cosf/acosf: on
 // the card K3 fused equals K3 on the eager prep bit for bit
@@ -204,14 +229,27 @@ __device__ __forceinline__ float esat1(float t) {
 // RawForcing fields (forcing.py), the order of FuseArgs' pointer arrays
 enum { F_TAIR = 0, F_TDEW, F_VZ, F_RHZ, F_PREC, F_SW, F_LW, F_SWDIR, F_LWNET,
        F_TSOBS, F_PPHASE, NRAW };
+// The grid channel sets each fused kernel is instantiated for (template
+// parameter CS).  CS_ANY tests a channel's pointer each step it is used;
+// CS_NWP fixes at compile time the NWP grid's six channels (tair, vz, rhz,
+// prec, sw and lw: the generator's grid, tools/gen_production.py
+// --grid-source), so a step tests no pointer and the absent channels'
+// work (their values, the dew point's completion from them, the
+// precipitation phase) folds away.  The launch picks CS_NWP where the grid
+// carries exactly those channels (chan_set), with or without stations.
+enum { CS_ANY = 0, CS_NWP = 1 };
+constexpr unsigned CS_NWP_MASK = (1u << F_TAIR) | (1u << F_VZ) |
+                                 (1u << F_RHZ) | (1u << F_PREC) |
+                                 (1u << F_SW) | (1u << F_LW);
 // The segment lines a lane holds in shared memory at once: a stage of
-// SEG_STAGE consecutive segments of the window's SPAN (all of them when
-// SPAN <= SEG_STAGE).  A line depends only on its own segment and window
-// (grid_segments), so a stage computed when a step enters it holds the
-// same bits as the whole window's lines computed at once, and a grid of
-// any SPAN asks for at most nch * SEG_STAGE * 2 * BLOCK floats a block.
-#define SEG_STAGE 16
-static_assert((SEG_STAGE & (SEG_STAGE - 1)) == 0, "a power of two");
+// FuseArgs::stage consecutive segments of the window's SPAN (all of them
+// when SPAN <= stage), the stage width a power of two chosen for each
+// launch on the host (ops/scan_kernel.py:stage_width): the widest whose
+// lines, nch * min(SPAN, stage) * 2 * BLOCK floats a block, still let the
+// SM hold as many blocks as the kernel's registers allow.  A line depends
+// only on its own segment and window (grid_segments), so a stage computed
+// when a step enters it holds the same bits as the whole window's lines
+// computed at once, whatever the width.
 #define MISSING_F (-9999.9f)
 
 // Mirror of FuseArgs in ops/scan_kernel.py (pointers, then ints, then
@@ -253,8 +291,16 @@ struct FuseArgs {
       sun_stride;
   float max_gap, calm_ngt, calm_day, night_on, night_off, min_prec, p_snow,
       p_rain, miss_i, alb_sur, dt_f;
+  int stage;                   // segment lines a stage holds (a power of 2)
   double dt, p_snow_d, p_rain_d;
 };
+
+// Whether the grid carries channel c: fixed at compile time where CS fixes
+// the set, else its pointer.
+template <int CS>
+__device__ __forceinline__ bool grid_has(const FuseArgs& a, int c) {
+  return CS == CS_NWP ? ((CS_NWP_MASK >> c) & 1u) != 0 : a.g[c] != nullptr;
+}
 
 // One step's slim channels, prepared in registers.
 struct StepIn {
@@ -315,7 +361,7 @@ struct GridRows {
 // The segments a stage holds for each channel (its channel stride): the
 // whole SPAN when it fits in one stage, so such a grid keeps one layout.
 __host__ __device__ __forceinline__ int seg_cols(const FuseArgs& a) {
-  return a.span < SEG_STAGE ? a.span : SEG_STAGE;
+  return a.span < a.stage ? a.span : a.stage;
 }
 
 // Step tg's segment on window w (GridExpander.plan's s_t).
@@ -324,30 +370,46 @@ __device__ __forceinline__ int grid_seg(const FuseArgs& a, int tg,
   return clampi(__ldg(a.pos + tg) - w.k0, 0, a.span - 1);
 }
 
-// The first segment of the stage holding segment st (st >= 0).
-__device__ __forceinline__ int stage_of(int st) {
-  return st & ~(SEG_STAGE - 1);
+// The first segment of the stage holding segment st (st >= 0): a mask,
+// the width being a power of two.
+__device__ __forceinline__ int stage_of(const FuseArgs& a, int st) {
+  return st & -a.stage;
 }
 
-// The grid part's value of a continuous channel at step tg: its segment's
-// line, or the exact-time valid sample (GridExpander.evaluate).  col: the
-// point's column of the channel's rows (row r at col[r * tp]); seg: the
-// thread's (alpha, beta) of each segment of the stage holding step tg's
-// segment, BLOCK apart, computed on the window w.
-__device__ __forceinline__ float grid_value(const FuseArgs& a,
-                                            const float* col, int64_t tp,
-                                            const float* seg, int tg,
-                                            const GridRows& w) {
+// What every continuous channel's grid value at step tg shares, formed
+// once a step (GridExpander.evaluate): the offset of the step's segment in
+// its stage's lines, the step's time from the window's first step, and
+// whether the step falls on a raw time whose row is in the window (then
+// the row's offset in the point's column).
+struct GridStep {
+  int jo;           // float offset of the segment's alpha in seg
+  float dtr;        // trel[tg] - tr0
+  bool ex;          // an exact-time sample applies
+  int64_t xrow;     // its row's offset in a column
+};
+
+__device__ __forceinline__ GridStep grid_step(const FuseArgs& a, int tg,
+                                              const GridRows& w,
+                                              int64_t tp) {
   const int st = grid_seg(a, tg, w);
-  const int j = st - stage_of(st);
-  const float al = seg[(2 * j) * BLOCK];
-  const float be = seg[(2 * j + 1) * BLOCK];
-  float res =
-      __fadd_rn(al, __fmul_rn(__fsub_rn(__ldg(a.trel + tg), w.tr0), be));
   const int kg = w.k0 + st;
-  if (__ldg(a.tex + tg) && kg < a.K) {
-    const float x =
-        __ldg(col + (int64_t)(w.lo + clampi(kg - w.lo, 0, a.KW - 1)) * tp);
+  return GridStep{2 * (st - stage_of(a, st)) * BLOCK,
+                  __fsub_rn(__ldg(a.trel + tg), w.tr0),
+                  __ldg(a.tex + tg) && kg < a.K,
+                  (int64_t)(w.lo + clampi(kg - w.lo, 0, a.KW - 1)) * tp};
+}
+
+// The grid part's value of a continuous channel at step gs: its segment's
+// line, or the exact-time valid sample.  col: the point's column of the
+// channel's rows (row r at col[r * tp]); seg: the thread's (alpha, beta)
+// of each segment of the stage holding the step's segment, BLOCK apart,
+// computed on the step's window.
+__device__ __forceinline__ float grid_value(const float* col,
+                                            const float* seg,
+                                            const GridStep& gs) {
+  float res = __fadd_rn(seg[gs.jo], __fmul_rn(gs.dtr, seg[gs.jo + BLOCK]));
+  if (gs.ex) {
+    const float x = __ldg(col + gs.xrow);
     if (x > -9000.0f) res = x;
   }
   return res;
@@ -358,6 +420,7 @@ __device__ __forceinline__ float grid_value(const FuseArgs& a,
 // carries, the line through the last valid sample at or before row klm1
 // and the next valid one at or after row kl, within the gap cap; stored in
 // seg, segment s of channel ci at column ci * seg_cols + s - s0.
+template <int CS>
 __device__ void grid_segments(const FuseArgs& a, int64_t colbase, int64_t tp,
                               float* seg, const GridRows& w, int s0) {
   const float NEG = -3e38f, POS = 3e38f;
@@ -365,9 +428,8 @@ __device__ void grid_segments(const FuseArgs& a, int64_t colbase, int64_t tp,
   const int s_end = s0 + cols < a.span ? s0 + cols : a.span;
   int ci = 0;
   for (int c = 0; c < F_PPHASE; ++c) {
-    const float* g = a.g[c];
-    if (g == nullptr) continue;
-    const float* col = g + colbase;
+    if (!grid_has<CS>(a, c)) continue;
+    const float* col = a.g[c] + colbase;
     for (int s = s0; s < s_end; ++s) {
       const int kg = w.k0 + s;
       const int kl = clampi(kg - w.lo, 0, a.KW - 1);
@@ -417,38 +479,81 @@ __device__ __forceinline__ SunPoint sun_point(const FuseArgs& a, int p) {
                   div_s(__fmul_rn(__ldg(a.lon + p), pi_f), 180.0f)};
 }
 
+// The prep's per-point inputs that do not change with the step, read once
+// before a lane's time loop: the station row's start, the sky-view factor,
+// the relaxation's three differences, the initialisation length and the
+// coupling window, with the point's predicates in one flags word.
+enum { PP_ST = 1, PP_SKY = 2, PP_RELAX = 4, PP_CPL = 8 };
+struct PointPrep {
+  int64_t srow;          // the station's first row (0: no station)
+  float skyv, d_t, d_v, d_r;
+  int init_len, cst, cen;
+  unsigned flags;
+};
+
+__device__ __forceinline__ PointPrep point_prep(const FuseArgs& a, int p) {
+  PointPrep q{};
+  const bool st_ok = a.has_station && __ldg(a.sok + p);
+  q.srow = st_ok ? (int64_t)__ldg(a.sidx + p) * a.s_tpad : 0;
+  q.skyv = __ldg(a.sky + p);
+  const bool sky_act = (q.skyv < 1.0f) && (q.skyv > -0.01f);
+  bool relax_on = false;
+  if (a.relax) {
+    const float trl = __ldg(a.tr_relax + p), vrl = __ldg(a.vz_relax + p),
+                rrl = __ldg(a.rh_relax + p);
+    relax_on = trl >= -100.0f && trl <= 100.0f && vrl >= 0.0f &&
+               vrl <= 100.0f && rrl >= 0.0f && rrl <= 110.0f;
+    if (relax_on) {
+      q.d_t = __fsub_rn(trl, __ldg(a.anc_t + p));
+      q.d_v = __fsub_rn(vrl, __ldg(a.anc_v + p));
+      q.d_r = __fsub_rn(rrl, __ldg(a.anc_r + p));
+    }
+  }
+  q.init_len = __ldg(a.init_len + p);
+  q.cst = __ldg(a.cstart + p);
+  q.cen = __ldg(a.cend + p);
+  const bool coupling_on =
+      q.cen >= 1 && __ldg(a.ctsurf + p) > -100.0f && a.coupling;
+  q.flags = (st_ok ? PP_ST : 0u) | (sky_act ? PP_SKY : 0u) |
+            (relax_on ? PP_RELAX : 0u) | (coupling_on ? PP_CPL : 0u);
+  return q;
+}
+
 // The prep of one step of one point, in registers: the raw values of the
 // grid and station parts merged in source order (merge_windows), then
 // forcing.prepare_window's rules and forcing_thermo, each operation
 // rounded as torch rounds it on the card.  Relaxation promotes to float64
 // as prepare_window does.
+template <int CS>
 __device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
                                              int64_t colbase, int64_t tp,
                                              const float* seg,
                                              const GridRows& w, int tg,
-                                             const SunPoint& sp) {
+                                             const SunPoint& sp,
+                                             const PointPrep& q) {
   // ---- raw values (GridExpander._raw_window, StationExpander.window_tm)
   float raw[F_PPHASE];
   int pphase = -9999;
-  const bool st_ok = a.has_station && __ldg(a.sok + p);
-  const int64_t srow = st_ok ? (int64_t)__ldg(a.sidx + p) * a.s_tpad + tg : 0;
+  const bool st_ok = (q.flags & PP_ST) != 0;
+  const int64_t srow = st_ok ? q.srow + tg : 0;
   float gv[F_PPHASE];
   int gpp = -9999;
   if (a.has_grid) {
+    const GridStep gs = grid_step(a, tg, w, tp);
+    const int cstride = 2 * seg_cols(a) * BLOCK;
     int ci = 0;
 #pragma unroll
     for (int c = 0; c < F_PPHASE; ++c) {
       gv[c] = MISSING_F;
-      if (a.g[c] != nullptr) {
-        gv[c] = grid_value(a, a.g[c] + colbase, tp,
-                           seg + 2 * ci * seg_cols(a) * BLOCK, tg, w);
+      if (grid_has<CS>(a, c)) {
+        gv[c] = grid_value(a.g[c] + colbase, seg + ci * cstride, gs);
         ++ci;
       }
     }
     gv[F_RHZ] = gv[F_RHZ] > -9000.0f ? clampf(gv[F_RHZ], 0.0f, 100.0f)
                                      : gv[F_RHZ];
     gv[F_PREC] = gv[F_PREC] > 100.0f ? MISSING_F : gv[F_PREC];
-    if (a.g[F_PPHASE] != nullptr) {
+    if (grid_has<CS>(a, F_PPHASE)) {
       const float* col = a.g[F_PPHASE] + colbase;
       const int pc = __ldg(a.pos + tg);
       const float vex =
@@ -474,31 +579,35 @@ __device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
         gv[F_RHZ] = rh_from_tdew(t_, td);
     }
   }
+  // ---- the merge in source order (merge_windows), branching once on the
+  // parts: a grid alone reads no station series
+  if (a.has_grid && !a.has_station) {
 #pragma unroll
-  for (int c = 0; c < F_PPHASE; ++c) {
-    const float thr = c == F_LWNET ? -1000.0f : -100.0f;
-    const float sv = (a.s[c] != nullptr && st_ok) ? __ldg(a.s[c] + srow)
-                                                  : MISSING_F;
-    if (!a.has_grid) raw[c] = sv;
-    else if (!a.has_station) raw[c] = gv[c];
-    else if (a.grid_last) raw[c] = gv[c] > thr ? gv[c] : sv;
-    else raw[c] = sv > thr ? sv : gv[c];
-  }
-  {
+    for (int c = 0; c < F_PPHASE; ++c) raw[c] = gv[c];
+    pphase = gpp;
+  } else {
+#pragma unroll
+    for (int c = 0; c < F_PPHASE; ++c) {
+      const float thr = c == F_LWNET ? -1000.0f : -100.0f;
+      const float sv = (a.s[c] != nullptr && st_ok) ? __ldg(a.s[c] + srow)
+                                                    : MISSING_F;
+      if (!a.has_grid) raw[c] = sv;
+      else if (a.grid_last) raw[c] = gv[c] > thr ? gv[c] : sv;
+      else raw[c] = sv > thr ? sv : gv[c];
+    }
     const int spp =
         (a.s[F_PPHASE] != nullptr && st_ok)
             ? __ldg(reinterpret_cast<const int*>(a.s[F_PPHASE]) + srow)
             : -9999;
     if (!a.has_grid) pphase = spp;
-    else if (!a.has_station) pphase = gpp;
     else if (a.grid_last) pphase = (float)gpp > -100.0f ? gpp : spp;
     else pphase = (float)spp > -100.0f ? spp : gpp;
   }
 
   // ---- forcing.prepare_window, one point and step
   const bool last = tg == a.t_total - 1;
-  const float skyv = __ldg(a.sky + p);
-  const bool sky_act = (skyv < 1.0f) && (skyv > -0.01f);
+  const float skyv = q.skyv;
+  const bool sky_act = (q.flags & PP_SKY) != 0;
   const float tair = raw[F_TAIR], tdew = raw[F_TDEW], rhz = raw[F_RHZ];
   const float prec = raw[F_PREC], sw0 = raw[F_SW], lw0 = raw[F_LW];
   bool ok = tair >= -90.0f && tair <= 100.0f && tdew >= -90.0f &&
@@ -581,22 +690,13 @@ __device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
   bool snowy, rainy;
   if (a.relax) {
     double td_ = (double)tair, vd = (double)vz, rd = (double)rhz;
-    const float trl = __ldg(a.tr_relax + p), vrl = __ldg(a.vz_relax + p),
-                rrl = __ldg(a.rh_relax + p);
-    const bool relax_on = trl >= -100.0f && trl <= 100.0f && vrl >= 0.0f &&
-                          vrl <= 100.0f && rrl >= 0.0f && rrl <= 110.0f;
-    const int t0r = __ldg(a.init_len + p) - 1;
-    if (tg >= t0r + 1 && !last && relax_on) {
+    const int t0r = q.init_len - 1;
+    if (tg >= t0r + 1 && !last && (q.flags & PP_RELAX)) {
       const double decay = exp(__dmul_rn(
           -__dmul_rn(a.dt, (double)(tg - t0r)), 1.0 / (4.0 * 3600.0)));
-      td_ = __dsub_rn(
-          td_, __dmul_rn((double)__fsub_rn(trl, __ldg(a.anc_t + p)), decay));
-      vd = __dsub_rn(
-          vd, __dmul_rn((double)__fsub_rn(vrl, __ldg(a.anc_v + p)), decay));
-      rd = nmind(__dsub_rn(rd, __dmul_rn((double)__fsub_rn(
-                                             rrl, __ldg(a.anc_r + p)),
-                                         decay)),
-                 100.0);
+      td_ = __dsub_rn(td_, __dmul_rn((double)q.d_t, decay));
+      vd = __dsub_rn(vd, __dmul_rn((double)q.d_v, decay));
+      rd = nmind(__dsub_rn(rd, __dmul_rn((double)q.d_r, decay)), 100.0);
     }
     vd = nmaxd(vd, (double)calm);
     const double pexp =
@@ -641,10 +741,9 @@ __device__ __forceinline__ StepIn fused_prep(const FuseArgs& a, int p,
 
   // obs forcing of tsurf and the coupling-phase flag (InputOutput.f90:
   // 116-148)
-  const int cst = __ldg(a.cstart + p), cen = __ldg(a.cend + p);
-  const bool force_phase = (tg + 1) <= __ldg(a.init_len + p) || a.force_tsurf;
-  const bool coupling_on =
-      cen >= 1 && __ldg(a.ctsurf + p) > -100.0f && a.coupling;
+  const int cst = q.cst, cen = q.cen;
+  const bool force_phase = (tg + 1) <= q.init_len || a.force_tsurf;
+  const bool coupling_on = (q.flags & PP_CPL) != 0;
   const bool before_window = !coupling_on || (tg + 1) < cst;
   const float obs_raw = raw[F_TSOBS];
   const bool forced = force_phase && obs_raw > -100.0f && before_window &&
@@ -1134,8 +1233,10 @@ __device__ __forceinline__ void step_body(const ScanConsts& c,
 // prepared in registers from the raw inputs of `fa` (forcing is not read);
 // the segment lines live in dynamic shared memory, BLOCK floats apart.
 //
+// CS (FUSED): the grid channel set fixed at compile time, or CS_ANY.
+//
 // The body is scan_points, which scan_kernel runs.
-template <int LM, bool DEPTH, bool SLIM, bool FUSED>
+template <int LM, bool DEPTH, bool SLIM, bool FUSED, int CS>
 __device__ __forceinline__ void scan_points(
     const ScanConsts& c, const FuseArgs& fa, const float* __restrict__ tmp0,
     const float* __restrict__ scal0, const float* __restrict__ forcing,
@@ -1164,11 +1265,13 @@ __device__ __forceinline__ void scan_points(
   GridRows gw{fa.k0, fa.lo, 0.0f};
   int g_s0 = 0;
   SunPoint sp{0.0f, 0.0f, 0.0f};
+  PointPrep pq{};
   if (FUSED) {
+    pq = point_prep(fa, p);
     if (fa.has_grid) {
       gw.tr0 = __ldg(fa.trel + off);
-      g_s0 = stage_of(grid_seg(fa, off, gw));
-      grid_segments(fa, colbase, FS, seg, gw, g_s0);
+      g_s0 = stage_of(fa, grid_seg(fa, off, gw));
+      grid_segments<CS>(fa, colbase, FS, seg, gw, g_s0);
     }
     if (fa.sky_on) sp = sun_point(fa, p);
   }
@@ -1229,13 +1332,13 @@ __device__ __forceinline__ void scan_points(
     StepIn in = {};
     if (FUSED) {
       if (fa.has_grid) {
-        const int s0 = stage_of(grid_seg(fa, tg, gw));
+        const int s0 = stage_of(fa, grid_seg(fa, tg, gw));
         if (s0 != g_s0) {
           g_s0 = s0;
-          grid_segments(fa, colbase, FS, seg, gw, s0);
+          grid_segments<CS>(fa, colbase, FS, seg, gw, s0);
         }
       }
-      in = fused_prep(fa, p, colbase, FS, seg, gw, tg, sp);
+      in = fused_prep<CS>(fa, p, colbase, FS, seg, gw, tg, sp, pq);
     }
     const ScanIn<SLIM, FUSED> src{f,      FS,    in,    trf,   tg,
                                   cofs,   t_total, c.dt, cof_red, a_swc,
@@ -1276,21 +1379,39 @@ __device__ __forceinline__ void scan_points(
 // with it, 64 and a few bytes of spills (PERF.md, Findings).  A minimum
 // of 0 is no minimum: the other instantiations build as with the bound
 // BLOCK alone, registers and SASS alike (a minimum of 1 does not).
-template <int LM, bool DEPTH, bool SLIM, bool FUSED>
+template <int LM, bool DEPTH, bool SLIM, bool FUSED, int CS>
 __global__ void __launch_bounds__(BLOCK,
                                   (LM == 16 && !DEPTH && !FUSED) ? 8 : 0)
     scan_kernel(SCAN_KERNEL_PARAMS) {
-  scan_points<LM, DEPTH, SLIM, FUSED>(SCAN_KERNEL_ARGS);
+  scan_points<LM, DEPTH, SLIM, FUSED, CS>(SCAN_KERNEL_ARGS);
 }
 
 // The dynamic shared memory of a fused launch: one stage of segment lines
-// of each continuous channel the grid carries, for each thread of a block
-// (160 KB at most: 10 channels, SEG_STAGE segments).
+// of each continuous channel the grid carries, for each thread of a block,
+// nch * min(SPAN, stage) KB.  The host sizes the stage so that this leaves
+// the SM the blocks the registers allow (stage_width); a width past what a
+// block may hold is refused at launch, never cut.
 static size_t seg_bytes(const FuseArgs& fa) {
   if (!fa.has_grid) return 0;
   int nch = 0;
   for (int k = 0; k < F_PPHASE; ++k) nch += fa.g[k] != nullptr;
   return (size_t)nch * seg_cols(fa) * 2 * BLOCK * sizeof(float);
+}
+
+// The channel-set instantiation a fused launch of fa runs (CS_NWP where
+// the grid carries exactly its channels).
+static int chan_set(const FuseArgs& fa) {
+  unsigned m = 0;
+  for (int k = 0; k < NRAW; ++k) m |= fa.g[k] != nullptr ? 1u << k : 0u;
+  return fa.has_grid && m == CS_NWP_MASK ? CS_NWP : CS_ANY;
+}
+
+// A fused launch's FuseArgs: a grid needs a SPAN and a stage width that is
+// a power of two.
+static bool fuse_ok(const FuseArgs* fa) {
+  return fa != nullptr &&
+         (!fa->has_grid || (fa->span >= 1 && fa->stage >= 1 &&
+                            (fa->stage & (fa->stage - 1)) == 0));
 }
 
 // Dispatch on the layer bucket and the output-depth option; returns
@@ -1310,17 +1431,17 @@ static int launch(const ScanConsts* c, const FuseArgs* fa,
   static const FuseArgs none = {};
   size_t smem = 0;
   if (FUSED) {
-    if (fa == nullptr || (fa->has_grid && fa->span < 1))
-      return (int)cudaErrorInvalidValue;
+    if (!fuse_ok(fa)) return (int)cudaErrorInvalidValue;
     smem = seg_bytes(*fa);
   }
   const FuseArgs& args = FUSED ? *fa : none;
+  const int cs = FUSED ? chan_set(*fa) : CS_ANY;
   const dim3 grid((P + BLOCK - 1) / BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(LM, DEPTH)                                                   \
+#define LAUNCH_CS(LM, DEPTH, CS)                                            \
   do {                                                                      \
-    auto kern = scan_kernel<LM, DEPTH, SLIM, FUSED>;                        \
-    if (smem > 48 * 1024) {                                                 \
+    auto kern = scan_kernel<LM, DEPTH, SLIM, FUSED, CS>;                    \
+    if (FUSED) {                                                            \
       cudaError_t e = cudaFuncSetAttribute(                                 \
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
       if (e != cudaSuccess) return (int)e;                                  \
@@ -1329,12 +1450,18 @@ static int launch(const ScanConsts* c, const FuseArgs* fa,
                                    tmp_out, scal_out, out, P, tp, T, nsteps, \
                                    off, out_base, cofs, t_total, cof_red);  \
   } while (0)
+#define LAUNCH(LM, DEPTH)                                                   \
+  do {                                                                      \
+    if (cs == CS_NWP) LAUNCH_CS(LM, DEPTH, (FUSED ? CS_NWP : CS_ANY));      \
+    else LAUNCH_CS(LM, DEPTH, CS_ANY);                                      \
+  } while (0)
   if (c->L <= 16) {
     if (c->use_depth) LAUNCH(16, true); else LAUNCH(16, false);
   } else {
     if (c->use_depth) LAUNCH(32, true); else LAUNCH(32, false);
   }
 #undef LAUNCH
+#undef LAUNCH_CS
   return (int)cudaGetLastError();
 }
 
@@ -1403,20 +1530,25 @@ static int launch(const ScanConsts* c, const FuseArgs* fa,
 //    and the grid's float32 interpolation evaluates each segment line from
 //    its chunk's first step, so the lane computes its segment lines
 //    (grid_segments, in dynamic shared memory as K3 fused's, a stage of
-//    SEG_STAGE segments at a time) on the raw rows of the window chunk that
-//    holds its step (wrows: each window chunk's k0 and lo) and again
-//    whenever its step enters another chunk or another stage: forward, or
-//    back at a rewind; lanes of a warp at different chunks never share
-//    lines, and the lane equals the table route bit for bit.
+//    FuseArgs::stage segments at a time) on the raw rows of the window
+//    chunk that holds its step (wrows: each window chunk's k0 and lo) and
+//    again whenever its step enters another chunk or another stage:
+//    forward, or back at a rewind; lanes of a warp at different chunks
+//    never share lines, and the lane equals the table route bit for bit.
 //    The rewind's CheckValues reads the forcing of row end_i, the row after
 //    the pass's last step: the lane prepares it once, in a trip without a
 //    step at its first rewind (its position is end_i + 1 then), and keeps
 //    its valid flag in a register for every later rewind; that trip may
 //    load row end_i's stage, and the re-run's first step loads its own.
-//    What bounds it: operations, the body's and the prep's; it reads the
-//    raw rows of the window (the grid's KW rows of each window chunk, about
+//    Its bound is operations, the body's and the prep's; it reads the raw
+//    rows of the window (the grid's KW rows of each window chunk, about
 //    0.3 GB at 1M points) where K5 read a 27 GB table that eager torch ops
-//    had written.
+//    had written.  What holds it back is K3 fused's: the instructions a
+//    lane step issues, and warps to hide their latency (128 registers at
+//    <16>, 4 blocks an SM), plus divergence, lanes of a warp at different
+//    passes.  Its stage width leaves the SM those 4 blocks beside the
+//    static snapshot ((LM + 10) x BLOCK floats: 13 KB at <16>, 21.5 KB at
+//    <32>); a narrower stage also recomputes fewer lines at a rewind.
 
 #define M_FIRST 0
 #define M_RERUN 1
@@ -1590,7 +1722,7 @@ struct WinIn {
   }
 };
 
-template <int LM, bool DEPTH, bool FUSED>
+template <int LM, bool DEPTH, bool FUSED, int CS>
 __global__ void __launch_bounds__(BLOCK)
 window_kernel(const ScanConsts c, const FuseArgs fa, const WinArgs a) {
   const int j = blockIdx.x * BLOCK + threadIdx.x;
@@ -1634,6 +1766,8 @@ window_kernel(const ScanConsts c, const FuseArgs fa, const WinArgs a) {
   int w_lo = -2 * a.wtc, w_s0 = 0;
   SunPoint sp{0.0f, 0.0f, 0.0f};
   if (FUSED && fa.sky_on) sp = sun_point(fa, p);
+  PointPrep pq{};
+  if (FUSED) pq = point_prep(fa, p);
   // K5 fused: the forcing's CheckValues of row end_i, once prepared
   bool have_vrow = false;
   float vrow = 0.0f;
@@ -1709,13 +1843,13 @@ window_kernel(const ScanConsts c, const FuseArgs fa, const WinArgs a) {
           gw.lo = __ldg(a.wrows + 2 * k + 1);
           gw.tr0 = __ldg(fa.trel + (a.ws - 1) + w_lo);
         }
-        const int s0 = stage_of(grid_seg(fa, i - 1, gw));
+        const int s0 = stage_of(fa, grid_seg(fa, i - 1, gw));
         if (fresh || s0 != w_s0) {
           w_s0 = s0;
-          grid_segments(fa, colbase, a.tp, seg, gw, s0);
+          grid_segments<CS>(fa, colbase, a.tp, seg, gw, s0);
         }
       }
-      in = fused_prep(fa, p, colbase, a.tp, seg, gw, i - 1, sp);
+      in = fused_prep<CS>(fa, p, colbase, a.tp, seg, gw, i - 1, sp, pq);
       if (prep_only) {
         vrow = in.valid;
         have_vrow = true;
@@ -1807,8 +1941,8 @@ window_kernel(const ScanConsts c, const FuseArgs fa, const WinArgs a) {
 // ok).  K5 fused takes its inputs from *fa and *a's wrows, runs every
 // point of the block, and its dynamic shared memory holds the segment lines.
 // The default limit of 48 KB a block holds the static snapshot and the
-// dynamic part together, so K5 fused always declares its dynamic part (up
-// to 160 KB at 10 channels and SEG_STAGE, beside the snapshot's 21.5 KB).
+// dynamic part together, so K5 fused always declares its dynamic part (the
+// stage the host chose; a part past what a block may hold is refused).
 template <bool FUSED>
 static int launch_window(const ScanConsts* c, const FuseArgs* fa,
                          const WinArgs* a, void* stream) {
@@ -1821,20 +1955,21 @@ static int launch_window(const ScanConsts* c, const FuseArgs* fa,
   static const FuseArgs none = {};
   size_t smem = 0;
   if (FUSED) {
-    if (fa == nullptr || a->p0 != 0 || a->n != a->P || a->tp <= 0 ||
+    if (!fuse_ok(fa) || a->p0 != 0 || a->n != a->P || a->tp <= 0 ||
         a->P % a->tp != 0 || a->tp % BLOCK != 0 || a->wtc < 1 ||
-        (fa->has_grid && (a->wrows == nullptr || fa->span < 1)))
+        (fa->has_grid && a->wrows == nullptr))
       return (int)cudaErrorInvalidValue;
     smem = seg_bytes(*fa);
   } else if (a->table == nullptr || a->fidx == nullptr || a->R <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const FuseArgs& args = FUSED ? *fa : none;
+  const int cs = FUSED ? chan_set(*fa) : CS_ANY;
   const dim3 grid((a->n + BLOCK - 1) / BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH_W(LM, DEPTH)                                                 \
+#define LAUNCH_WCS(LM, DEPTH, CS)                                           \
   do {                                                                      \
-    auto kern = window_kernel<LM, DEPTH, FUSED>;                            \
+    auto kern = window_kernel<LM, DEPTH, FUSED, CS>;                        \
     if (FUSED) {                                                            \
       cudaError_t e = cudaFuncSetAttribute(                                 \
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
@@ -1842,14 +1977,52 @@ static int launch_window(const ScanConsts* c, const FuseArgs* fa,
     }                                                                       \
     kern<<<grid, BLOCK, smem, s>>>(*c, args, *a);                           \
   } while (0)
+#define LAUNCH_W(LM, DEPTH)                                                 \
+  do {                                                                      \
+    if (cs == CS_NWP) LAUNCH_WCS(LM, DEPTH, (FUSED ? CS_NWP : CS_ANY));     \
+    else LAUNCH_WCS(LM, DEPTH, CS_ANY);                                     \
+  } while (0)
   if (c->L <= 16) {
     if (c->use_depth) LAUNCH_W(16, true); else LAUNCH_W(16, false);
   } else {
     if (c->use_depth) LAUNCH_W(32, true); else LAUNCH_W(32, false);
   }
 #undef LAUNCH_W
+#undef LAUNCH_WCS
   return (int)cudaGetLastError();
 }
+
+// occupancy_info: roadsurf_fused_info's figures for one instantiation.
+template <class Kern>
+static int occupancy_info(Kern kern, int dyn_smem, int* info) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return (int)e;
+  const cudaDeviceAttr attrs[3] = {
+      cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+      cudaDevAttrMaxSharedMemoryPerBlockOptin,
+      cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int k = 0; k < 3; ++k) {
+    e = cudaDeviceGetAttribute(info + 4 + k, attrs[k], dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (dyn_smem < 0 || dyn_smem > info[5] - (int)fa.sharedSizeBytes)
+    return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dyn_smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(info + 2, kern, BLOCK,
+                                                      0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(info + 3, kern, BLOCK,
+                                                      (size_t)dyn_smem);
+  info[0] = fa.numRegs;
+  info[1] = (int)fa.sharedSizeBytes;
+  return (int)e;
+}
+
 
 extern "C" {
 
@@ -1965,6 +2138,42 @@ int roadsurf_window(const ScanConsts* c, const WinArgs* a, void* stream) {
 int roadsurf_window_fused(const ScanConsts* c, const FuseArgs* fa,
                           const WinArgs* a, void* stream) {
   return launch_window<true>(c, fa, a, stream);
+}
+
+// The occupancy figures of the fused instantiation that a launch of *fa
+// with nlayers layers runs (window: K5 fused, else K3 fused; its channel
+// set, chan_set) on the current device, for the stage width rule
+// (ops/scan_kernel.py:stage_width) and its reports: info[0] registers a
+// thread, [1] static shared memory a block, [2] blocks an SM with no
+// dynamic shared memory (what registers, warps and static shared memory
+// allow), [3] blocks an SM at dyn_smem bytes of dynamic shared memory, [4]
+// shared memory an SM, [5] the most a block may opt in to, [6] the shared
+// memory reserved for each block, [7] the channel set (CS_ANY, CS_NWP).
+// Returns a CUDA error (0 = ok); dyn_smem past what a block may hold is
+// refused.
+int roadsurf_fused_info(const FuseArgs* fa, int window, int nlayers,
+                        int use_depth, int dyn_smem, int* info) {
+  if (fa == nullptr || nlayers < 1 || nlayers > LMAX_ALL)
+    return (int)cudaErrorInvalidValue;
+  const int cs = chan_set(*fa);
+  info[7] = cs;
+#define INFO_CS(LM, DEPTH, CS)                                              \
+  return window ? occupancy_info(window_kernel<LM, DEPTH, true, CS>,        \
+                                 dyn_smem, info)                            \
+                : occupancy_info(scan_kernel<LM, DEPTH, true, true, CS>,    \
+                                 dyn_smem, info)
+#define INFO(LM, DEPTH)                                                     \
+  do {                                                                      \
+    if (cs == CS_NWP) INFO_CS(LM, DEPTH, CS_NWP);                           \
+    INFO_CS(LM, DEPTH, CS_ANY);                                             \
+  } while (0)
+  if (nlayers <= 16) {
+    if (use_depth) INFO(16, true); else INFO(16, false);
+  } else {
+    if (use_depth) INFO(32, true); else INFO(32, false);
+  }
+#undef INFO
+#undef INFO_CS
 }
 
 // sizeof(ScanConsts), sizeof(FuseArgs) and sizeof(WinArgs), checked

@@ -9,7 +9,9 @@ is no fallback.  ``nvcc -Xptxas -v`` output (registers, spills) is kept in
 the ``.log`` beside the library.
 
 ``build`` and ``load`` also take another source list: a measurement builds an
-earlier copy of the kernel into a library of its own beside the package's.
+earlier copy of the kernel into a library of its own beside the package's;
+``build`` also takes more flags (``-lineinfo`` for ``tools/sass.py``'s
+split of the SASS by source line).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -46,26 +49,30 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
-def library_path(sources=SOURCES) -> Path:
+def library_path(sources=SOURCES, extra=()) -> Path:
     h = hashlib.sha256()
     for src in map(Path, sources):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(FLAGS + tuple(extra)).encode())
     return BUILD_DIR / f"libroadsurf_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(sources=SOURCES) -> dict:
-    """Compile the sources unless the hashed library exists.  Returns
-    ``{"path", "seconds", "built", "log"}`` (``seconds`` 0 when reused)."""
-    lib = library_path(sources)
+def build(sources=SOURCES, extra=()) -> dict:
+    """Compile the sources (with the ``extra`` flags after FLAGS) unless
+    the hashed library exists.  Returns ``{"path", "seconds", "built",
+    "log"}`` (``seconds`` 0 when reused)."""
+    lib = library_path(sources, extra)
     log = lib.with_suffix(".log")
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "built": False,
                 "log": log.read_text() if log.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), *map(str, sources)]
+    # one temporary file a process and thread: builds of one library may
+    # run at once
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.{threading.get_ident()}"
+                        f".tmp.so")
+    cmd = [nvcc_path(), *FLAGS, *extra, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -117,6 +124,8 @@ def load(sources=SOURCES) -> ctypes.CDLL:
     lib.roadsurf_scan_sharded.argtypes = [vp, ci] + [vp] * 12 + [ci] * 7 + [
         ctypes.c_float, vp, vp]
     lib.roadsurf_scan_sharded.restype = ci
+    lib.roadsurf_fused_info.argtypes = [vp] + [ci] * 4 + [vp]
+    lib.roadsurf_fused_info.restype = ci
     lib.roadsurf_consts_size.argtypes = []
     lib.roadsurf_consts_size.restype = ci
     lib.roadsurf_fuse_args_size.argtypes = []

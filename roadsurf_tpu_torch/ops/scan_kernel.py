@@ -51,6 +51,7 @@ coalesced across a warp; output rows are ``[n_out, N_OUT_FIELDS, P]``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -138,11 +139,6 @@ class ScanConsts(ctypes.Structure):
 #: FuseArgs' pointer arrays
 RAW_FIELDS = ("tair", "tdew", "vz", "rhz", "prec", "sw", "lw", "sw_dir",
               "lw_net", "tsurf_obs", "prec_phase")
-#: the grid segments a lane of K3 fused or K5 fused holds in shared memory
-#: at once (2 floats a segment a channel a thread): a stage of the window's
-#: SPAN segments, computed when a step enters it (csrc/scan_kernel.cu)
-SEG_STAGE = 16
-
 _VP = ctypes.c_void_p
 _FUSE_PTRS = (("trw", "trel", "pos", "pick", "tex", "havep"),
               ("sidx", "sok", "lat", "lon", "sky", "hor", "init_len",
@@ -166,6 +162,7 @@ class FuseArgs(ctypes.Structure):
                 + [(n, _VP) for n in _FUSE_PTRS[1]]
                 + [(n, ctypes.c_int) for n in _FUSE_INTS]
                 + [(n, ctypes.c_float) for n in _FUSE_FLOATS]
+                + [("stage", ctypes.c_int)]
                 + [(n, ctypes.c_double) for n in _FUSE_DOUBLES])
 
 
@@ -213,6 +210,126 @@ def fuse_args(src, device) -> FuseArgs:
     if fa.has_grid and fa.span < 1:
         raise ValueError(f"the grid's SPAN {fa.span} is not positive")
     return fa
+
+
+# ---- the stage width of the segment lines (K3 fused, K5 fused) ----------
+
+#: bytes of shared memory one segment line of one channel takes in a block
+#: (an alpha and a beta float for each of the block's LANE threads)
+SEG_LINE_BYTES = 2 * 4 * LANE
+
+
+class SmBudget(NamedTuple):
+    """What bounds a fused instantiation's blocks an SM on a card, from
+    ``roadsurf_fused_info`` (``cudaFuncGetAttributes``, the occupancy call
+    and the device's attributes; bytes)."""
+    blocks: int        #: blocks an SM with no dynamic shared memory
+    static_smem: int   #: the instantiation's static shared memory a block
+    sm_smem: int       #: shared memory an SM
+    block_smem: int    #: the most shared memory a block may opt in to
+    reserved: int      #: shared memory reserved for each block
+
+
+def seg_bytes(n_ch: int, span: int, stage: int) -> int:
+    """The dynamic shared memory of a fused launch of a grid with ``n_ch``
+    continuous channels at ``span`` segments a window and stage width
+    ``stage`` (csrc/scan_kernel.cu:seg_bytes)."""
+    return n_ch * min(span, stage) * SEG_LINE_BYTES if n_ch else 0
+
+
+def stage_width(n_ch: int, span: int, budget: SmBudget) -> int:
+    """The stage width of a fused launch: the widest power of two whose
+    full stage of segment lines (``seg_bytes`` of ``n_ch`` channels at that
+    many segments) still lets the SM hold ``budget.blocks`` blocks, the
+    number the instantiation's registers allow, and fits one block; no
+    wider than the first power of two >= ``span`` (past it the layout is
+    the same: one stage holds the whole window).  At least 1: a grid whose
+    single lines do not fit is refused at launch.  A grid with SPAN <=
+    the width keeps one stage, so the hourly grid runs as it did; the
+    width never grows with the channels nor shrinks with the SPAN."""
+    def fits(w):
+        blk = budget.static_smem + seg_bytes(n_ch, w, w)
+        return (blk <= budget.block_smem and budget.blocks
+                * (blk + budget.reserved) <= budget.sm_smem)
+    w = 1
+    while w < span and fits(2 * w):
+        w *= 2
+    return w
+
+
+#: the grid channel sets a fused kernel is instantiated for, by the index
+#: the launch reports (csrc/scan_kernel.cu: CS_ANY, CS_NWP)
+CHANNEL_SETS = ("any, tested each step", "the NWP grid's, compiled in")
+
+
+class FusedLaunch(NamedTuple):
+    """One fused launch's stage width and occupancy (``fused_launch``)."""
+    stage: int         #: segment lines a stage holds a channel
+    smem: int          #: dynamic shared memory a block (bytes)
+    regs: int          #: registers a thread
+    static_smem: int   #: static shared memory a block (bytes)
+    blocks_regs: int   #: blocks an SM its registers allow
+    blocks: int        #: blocks an SM at smem (the occupancy call)
+    channel_set: int   #: the instantiation's channel set (CHANNEL_SETS)
+
+
+#: the last fused launch of each kind ("K3 fused", "K5 fused"): its
+#: ``FusedLaunch``
+LAST_LAUNCH = {}
+_INFO = {}
+
+
+def _fused_info(lib, fa, window: bool, nlayers: int, use_depth: bool,
+                dyn_smem: int, device) -> list:
+    """``roadsurf_fused_info`` of ``lib`` on ``device`` for a launch of the
+    FuseArgs ``fa`` (cached by its grid's channels)."""
+    key = (id(lib), device.index, window, nlayers <= 16, bool(use_depth),
+           bool(fa.has_grid), tuple(bool(g) for g in fa.g), dyn_smem)
+    if key not in _INFO:
+        info = (ctypes.c_int * 8)()
+        with torch.cuda.device(device):
+            rc = lib.roadsurf_fused_info(ctypes.addressof(fa), int(window),
+                                         int(nlayers), int(bool(use_depth)),
+                                         int(dyn_smem), info)
+        if rc != 0:
+            raise RuntimeError(
+                f"fused occupancy query failed: CUDA error {rc} at "
+                f"{dyn_smem} B of segment lines a block (the most a block "
+                f"may hold: {info[5]} B)")
+        _INFO[key] = list(info)
+    return _INFO[key]
+
+
+def grid_channels(fa) -> int:
+    """The continuous channels a FuseArgs' grid part carries (the segment
+    lines' channels: prec_phase has none)."""
+    return sum(1 for i, n in enumerate(RAW_FIELDS)
+               if n != "prec_phase" and fa.g[i]) if fa.has_grid else 0
+
+
+def fused_launch(lib, fa, kind: str, consts, device) -> FusedLaunch:
+    """Set ``fa.stage`` for a launch of ``kind`` ("K3 fused" or "K5 fused")
+    with the ScanConsts ``consts`` (its layers and output depth, with
+    ``fa``'s grid channels, pick the instantiation) on ``device``:
+    ``stage_width`` of the instantiation's
+    budget on the card (a measurement replaces ``stage_width`` to force a
+    width, a power of two); returns (and records in LAST_LAUNCH) the
+    launch's width and occupancy."""
+    window = kind == "K5 fused"
+    n_ch, span = grid_channels(fa), max(int(fa.span), 1)
+    inst = (lib, fa, window, consts.L, consts.use_depth)
+    info = _fused_info(*inst, 0, device)
+    budget = SmBudget(info[2], info[1], info[4], info[5], info[6])
+    stage = stage_width(n_ch, span, budget)
+    if stage < 1 or stage & (stage - 1):
+        raise ValueError(f"stage width {stage} is not a power of two")
+    fa.stage = stage
+    smem = seg_bytes(n_ch, span, stage)
+    blocks = _fused_info(*inst, smem, device)[3]
+    launch = FusedLaunch(stage, smem, info[0], info[1], info[2], blocks,
+                         info[7])
+    LAST_LAUNCH[kind] = launch
+    return launch
 
 
 def make_consts(cfg: StepConfig, p: PhysicsParams, grid: LayerGrid,
@@ -904,9 +1021,10 @@ def scan_cuda_fused(tmp0, scal0, src, cfg: StepConfig, p: PhysicsParams,
                     slim_trf=None, aux_rows=None, aux_cofs: bool = False,
                     t_total: int = None, cof_red: float = None):
     """Launch K3 fused (``roadsurf_scan_fused``) on CUDA tensors: the
-    arguments and results of :func:`scan_fused_reference`.  Runs on the
-    current stream, does not synchronise, and raises if the launch is
-    refused."""
+    arguments and results of :func:`scan_fused_reference`, at
+    :func:`stage_width`'s stage width (any power of two gives the same
+    bits).  Runs on the current stream, does not synchronise, and raises
+    if the launch is refused."""
     from . import build
 
     lpad, P, T, tp, nsteps, off, n_rows, out_base, _ = _checked_launch(
@@ -919,6 +1037,7 @@ def scan_cuda_fused(tmp0, scal0, src, cfg: StepConfig, p: PhysicsParams,
     out = torch.empty((n_rows, N_OUT_FIELDS, P), dtype=torch.float32,
                       device=tmp0.device)
     lib = build.load()
+    fused_launch(lib, fa, "K3 fused", consts, tmp0.device)
     stream = torch.cuda.current_stream(tmp0.device).cuda_stream
     with torch.cuda.device(tmp0.device):
         rc = lib.roadsurf_scan_fused(
@@ -1064,11 +1183,14 @@ def scan_cuda_sharded(tmp0, scal0, forcing, cfg: StepConfig,
     ptrs = lambda xs: (ctypes.c_void_p * n)(*(x.data_ptr() for x in xs))
     ints = lambda xs: (ctypes.c_int * n)(*xs)
     null = (ctypes.c_void_p * n)()
-    fas = ((FuseArgs * n)(*(fuse_args(f, t.device)
-                            for f, t in zip(forcing, tmp0)))
-           if fused else None)
-    failed_block = ctypes.c_int(-1)
     lib = build.load()
+    fas = None
+    if fused:
+        fas = (FuseArgs * n)(*(fuse_args(f, t.device)
+                               for f, t in zip(forcing, tmp0)))
+        for b in range(n):
+            fused_launch(lib, fas[b], "K3 fused", consts, tmp0[b].device)
+    failed_block = ctypes.c_int(-1)
     with torch.cuda.device(tmp0[0].device):
         rc = lib.roadsurf_scan_sharded(
             ctypes.addressof(consts), n,

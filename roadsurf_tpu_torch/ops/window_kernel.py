@@ -235,7 +235,7 @@ def _check_call(tmp0, scal0, forc, pts: WindowPoints, grid: LayerGrid,
 def window_reference(tmp0, scal0, forc, pts: WindowPoints,
                      cfg: StepConfig, p: PhysicsParams, grid: LayerGrid,
                      span: WindowSpan, lo: int = 0, out: WindowOut = None,
-                     stats: dict = None) -> WindowOut:
+                     stats: dict = None, stage: int = None) -> WindowOut:
     """K5's and K5 fused's semantics in plain torch ops, on any device: the
     arguments and results of :func:`window`; a fused window runs on the
     table its ``table()`` prepares eagerly.  Vectorised over the points
@@ -250,9 +250,15 @@ def window_reference(tmp0, scal0, forc, pts: WindowPoints,
     prepared row enters another window chunk or, on a grid, another stage
     of its segment lines (``window_segments``: the kernel computes the
     stage's lines anew) and the lines so computed a channel
-    (``window_lines``: up to ``sk.SEG_STAGE`` an entry)."""
+    (``window_lines``: up to ``stage`` an entry), at the stage width
+    ``stage`` (``sk.stage_width``'s, or the width a launch took,
+    ``sk.LAST_LAUNCH``; needed for these statistics on a grid)."""
     P, n = _check_call(tmp0, scal0, forc, pts, grid, span, lo, out)
     fused = is_fused(forc)
+    if (fused and stats is not None and forc.kernel_args().get("has_grid")
+            and stage is None):
+        raise ValueError("the segment-line statistics of a fused grid "
+                         "window need the stage width")
     table, fidx, trf = forc.table() if fused else forc
     if out is None:
         out = new_out(tmp0, scal0, span)
@@ -303,9 +309,9 @@ def window_reference(tmp0, scal0, forc, pts: WindowPoints,
         if span:
             st = (ka["pos"].to(dev)[ws - 1 + row].long()
                   - ka["wrows"].to(dev)[k, 0].long()).clamp(0, span - 1)
-            s0 = st // sk.SEG_STAGE * sk.SEG_STAGE
+            s0 = st // stage * stage
         enter = mask & ((k != wc) | (s0 != wst))
-        lines = torch.clamp(span - s0, max=sk.SEG_STAGE)
+        lines = torch.clamp(span - s0, max=stage or 1)
         for key, v in (("window_preps", mask.sum()),
                        ("window_segments", enter.sum()),
                        ("window_lines", torch.where(enter, lines, 0).sum())):
@@ -427,10 +433,12 @@ def window_cuda(tmp0, scal0, forc, pts: WindowPoints, cfg: StepConfig,
                 p: PhysicsParams, grid: LayerGrid, span: WindowSpan,
                 lo: int = 0, out: WindowOut = None) -> WindowOut:
     """Launch K5 (``roadsurf_window``) on a table, or K5 fused
-    (``roadsurf_window_fused``) on a fused window, on CUDA tensors: the
-    arguments and results of :func:`window_reference`.  A table's ``fidx``
-    must index its columns.  Runs on the current stream, does not
-    synchronise, and raises if the launch is refused."""
+    (``roadsurf_window_fused``) on a fused window at ``sk.stage_width``'s
+    stage width (any power of two gives the same bits), on CUDA tensors:
+    the arguments and results of
+    :func:`window_reference`.  A table's ``fidx`` must index its columns.
+    Runs on the current stream, does not synchronise, and raises if the
+    launch is refused."""
     global LAUNCHES, LAUNCHES_FUSED
     from . import build
 
@@ -475,6 +483,8 @@ def window_cuda(tmp0, scal0, forc, pts: WindowPoints, cfg: StepConfig,
                    first_hit=span.first_hit, n_out=span.n_out,
                    cof_red=span.cof_red, **geo)
     lib = build.load()
+    if fused:
+        sk.fused_launch(lib, fa, "K5 fused", consts, tmp0.device)
     stream = torch.cuda.current_stream(tmp0.device).cuda_stream
     with torch.cuda.device(tmp0.device):
         if fused:

@@ -161,7 +161,7 @@ def grid_span(times, sim_epochs, chunk_t: int) -> int:
     """The SPAN (segments a chunk's window holds) of a GridExpander of the
     raw ``times`` over ``sim_epochs`` at ``chunk_t``, without building it.
     K3 fused and K5 fused take any SPAN: a lane holds its segment lines a
-    stage (``ops.scan_kernel.SEG_STAGE`` segments) at a time."""
+    stage (``ops.scan_kernel.stage_width`` segments) at a time."""
     times = np.unique(np.asarray(times, np.int64))
     sim = np.asarray(sim_epochs, np.int64)
     t_pad = (-(-len(sim) // chunk_t) + 1) * chunk_t

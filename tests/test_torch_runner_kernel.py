@@ -227,7 +227,8 @@ def test_auto_chunk_is_the_jax_runners_whatever_the_grid_span():
     steps, whose window holds 36 segments (K3 fused and K5 fused take any
     SPAN); and grid_span is the expander's own SPAN."""
     from roadsurf_tpu_torch import production
-    from roadsurf_tpu_torch.ops.scan_kernel import SEG_STAGE
+    from roadsurf_tpu_torch.ops.scan_kernel import stage_width
+    from test_torch_fused_span import K3_16
     t0 = 1575244800
     times = t0 + 3600 * np.arange(50)
     sim = t0 + 120 * np.arange(1201)                  # 40 h
@@ -236,7 +237,8 @@ def test_auto_chunk_is_the_jax_runners_whatever_the_grid_span():
     c = trunner.auto_chunk_t(128)
     assert c == production.CHUNK_CAP == 1024
     assert production.grid_span(times, sim, c) == 36
-    assert production.grid_span(times, sim, c) > SEG_STAGE
+    # above the stage width of its one channel on an H100
+    assert production.grid_span(times, sim, c) > stage_width(1, 36, K3_16)
     rng = np.random.default_rng(0)
     lats, lons = np.linspace(60, 61, 3), np.linspace(24, 25, 4)
     fields = {"tair": rng.normal(0, 1, (50, 3, 4))}

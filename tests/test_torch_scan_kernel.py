@@ -683,14 +683,16 @@ def test_storage_runout_rounding_decides_the_melt():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stage", [None, 16])
 @pytest.mark.parametrize("nlayers", [15, 20])
-def test_fused_kernel_at_any_span_on_cuda(nlayers):
-    """K3 fused on the card at SPAN > SEG_STAGE (the sub-hourly grid of
-    tests/test_torch_fused_span.py: its chunks' steps cross from the first
-    stage of segment lines to the next), at 15 and 20 layers (the <16> and
-    <32> instantiations), against its plain version on every chunk of the
-    run, bit for bit: profile, state and the output rows the chunk
-    writes."""
+def test_fused_kernel_at_any_span_on_cuda(nlayers, stage, monkeypatch):
+    """K3 fused on the card at SPAN above the stage width (the sub-hourly
+    grid of tests/test_torch_fused_span.py: its chunks' steps cross from
+    the first stage of segment lines to the next), at 15 and 20 layers
+    (the <16> and <32> instantiations) and two widths (the rule's, and
+    16), against its plain version on every chunk of the run, bit for bit:
+    profile, state and the output rows the chunk writes; at the rule's
+    width the blocks an SM are what the registers allow."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from roadsurf_tpu_torch import production as tprod
@@ -699,7 +701,9 @@ def test_fused_kernel_at_any_span_on_cuda(nlayers):
     tm, exp, pts, cal, st = port_engine(
         span_case(nlayers=nlayers, device=dev), device=dev)
     eng = tprod._Engine(tm, exp, pts, cal, st, chunk_t=CHUNK)
-    assert eng.fused and exp.SPAN > sk.SEG_STAGE
+    assert eng.fused
+    if stage:
+        monkeypatch.setattr(sk, "stage_width", lambda *a: stage)
     args = (eng.tmp0, eng.scal0)
     rest = (eng.cfg, eng.params, eng.grid)
     for t0 in range(0, tm.settings.sim_len, CHUNK):
@@ -708,6 +712,9 @@ def test_fused_kernel_at_any_span_on_cuda(nlayers):
         assert sk.fuse_args(src, dev).span == exp.SPAN
         geo = eng.scan_kwargs(t0, nsteps)
         got = sk.scan_cuda_fused(*args, src, *rest, **geo, **kw)
+        f = sk.LAST_LAUNCH["K3 fused"]
+        assert exp.SPAN > f.stage == (stage or f.stage)
+        assert stage or f.blocks == f.blocks_regs, f
         want = sk.scan_fused_reference(*args, src, *rest, **geo, **kw)
         torch.cuda.synchronize()
         k = len(range(-(-t0 // eng.os_) * eng.os_, t0 + nsteps, eng.os_))

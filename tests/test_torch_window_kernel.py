@@ -304,14 +304,18 @@ def test_window_kernel_matches_plain_on_the_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stage", [None, 16])
 @pytest.mark.parametrize("nlayers", [15, 20])
-def test_fused_window_kernel_at_any_span_on_the_card(nlayers, monkeypatch):
-    """K5 fused on the card at SPAN > SEG_STAGE (the sub-hourly grid of
-    tests/test_torch_fused_span.py, coupled: the window spans two window
-    chunks, the first one both stages of segment lines, and the control
-    rewinds across them), at 15 and 20 layers, against its plain version
-    on the inputs the coupled run hands phase B, bit for bit: rows, state,
-    corrections, failed masks, re-runs and steps."""
+def test_fused_window_kernel_at_any_span_on_the_card(nlayers, stage,
+                                                     monkeypatch):
+    """K5 fused on the card at SPAN above the stage width (the sub-hourly
+    grid of tests/test_torch_fused_span.py, coupled: the window spans two
+    window chunks, the first one several stages of segment lines, and the
+    control rewinds across them), at 15 and 20 layers and two widths (the
+    rule's, and 16), against its plain version on the inputs the coupled
+    run hands phase B, bit for bit: rows, state, corrections, failed
+    masks, re-runs and steps; at the rule's width the blocks an SM are
+    what the registers allow."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the window kernel runs only on "
                     "the card)")
@@ -319,7 +323,6 @@ def test_fused_window_kernel_at_any_span_on_the_card(nlayers, monkeypatch):
     dev = torch.device("cuda", 0)
     tm, exp, pts, cal, st = port_engine(
         span_case(coupled=True, nlayers=nlayers, device=dev), device=dev)
-    assert exp.SPAN > sk.SEG_STAGE
     kept, window = [], wk.window
 
     def recorded(*a, **k):
@@ -331,7 +334,12 @@ def test_fused_window_kernel_at_any_span_on_the_card(nlayers, monkeypatch):
     (args, kw), = kept
     forc, span = args[2], args[-1]
     assert wk.is_fused(forc) and span.rows > forc.tc
+    if stage:
+        monkeypatch.setattr(sk, "stage_width", lambda *a: stage)
     got = wk.window_cuda(*args, **kw)
+    f = sk.LAST_LAUNCH["K5 fused"]
+    assert exp.SPAN > f.stage == (stage or f.stage)
+    assert stage or f.blocks == f.blocks_regs, f
     want = wk.window_reference(*args, **kw)
     torch.cuda.synchronize()
     assert int(want.reruns.max()) > 0
