@@ -1,12 +1,15 @@
-"""Observability: phase timers, progress reporting and profiler traces.
+"""Observability: spans, counters, progress reporting and profiler traces.
 
 The counterpart of ``roadsurf_tpu/observability.py`` (``RunMetrics``,
 ``Progress``, ``failure_summary``, ``detect_nan_points`` and
 ``profile_trace``).  The reference's observability is stdout progress
 prints every 1000 points (examples/example1/src/roadrunner.cpp:396-397).
-Here: structured phase timers around data plane/init/stream/output, a
-progress callback for chunked runs, and a ``torch.profiler`` trace of a
-run (the JAX package's ``jax.profiler`` capture).
+Here: nested spans and counters at the layer boundaries of the data plane,
+the init and the engine entry (``RunMetrics``), each span also a profiler
+range ``roadsurf::<name>`` while a torch profiler records, a progress
+callback for chunked runs, a ``torch.profiler`` trace of a run (the JAX
+package's ``jax.profiler`` capture) and the device's idle time put down to
+the spans open through it (``idle_by_span``).
 """
 from __future__ import annotations
 
@@ -16,15 +19,31 @@ import os
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+#: the prefix of the profiler ranges the spans open
+RANGE_PREFIX = "roadsurf::"
+#: where ``idle_by_span`` puts idle time no span covers
+OUTSIDE = "(outside)"
 
 
 @dataclass
 class RunMetrics:
-    """Collected phase timings + counters for one simulation run.
+    """Spans and counters of one run, or of the cycles it is handed to.
+
+    A span (``phase``) books its host-clock seconds under its name in
+    ``phases``, its calls in ``calls`` and its self time (its seconds less
+    those of the spans opened inside it) in ``self_s``, all summed over
+    its calls.  While a torch profiler records (``torch.profiler``,
+    ``emit_nvtx``), a span is also the range ``roadsurf::<name>``, with its
+    ids (the cycle's index, counted up by ``cycle``, and the chunk's index
+    within the cycle) as the range's keyword inputs, which a trace with
+    ``record_shapes`` shows; without one it costs two clock reads and a
+    flag read.
 
     ``announce=True`` prints (flushed) phase start/end lines to stderr so
     long device-bound phases (first device op waiting on a free chip, large
@@ -33,20 +52,51 @@ class RunMetrics:
     phases: Dict[str, float] = field(default_factory=dict)
     counters: Dict[str, float] = field(default_factory=dict)
     announce: bool = False
+    calls: Dict[str, int] = field(default_factory=dict)
+    self_s: Dict[str, float] = field(default_factory=dict)
+    #: engine-entry calls begun (``cycle``); the current one's index is
+    #: ``cycles - 1``
+    cycles: int = 0
+    #: the seconds of the spans closed inside each open span, innermost last
+    _inner: List[float] = field(default_factory=list, init=False,
+                                repr=False, compare=False)
 
     @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
+    def phase(self, name: str, counter: Optional[str] = None, **ids):
+        """The span ``name``; ``counter`` (optional) also adds its seconds
+        to that counter; ``ids`` are the profiler range's keyword inputs."""
+        rng = None
+        if _autograd_profiler._is_profiler_enabled:
+            rng = torch._C._profiler._RecordFunctionFast(
+                RANGE_PREFIX + name, (), ids)
+            rng.__enter__()
         if self.announce:
             print(f"[phase] {name} ...", file=sys.stderr, flush=True)
+        self._inner.append(0.0)
+        t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            inner = self._inner.pop()
+            if self._inner:
+                self._inner[-1] += dt
             self.phases[name] = self.phases.get(name, 0.0) + dt
+            self.calls[name] = self.calls.get(name, 0) + 1
+            self.self_s[name] = self.self_s.get(name, 0.0) + dt - inner
+            if counter is not None:
+                self.add(counter, dt)
+            if rng is not None:
+                rng.__exit__(None, None, None)
             if self.announce:
                 print(f"[phase] {name} done in {dt:.1f}s", file=sys.stderr,
                       flush=True)
+
+    def cycle(self):
+        """The span ``cycle`` of one engine-entry call, its index the
+        engine-entry calls begun before it."""
+        self.cycles += 1
+        return self.phase("cycle", cycle=self.cycles - 1)
 
     def count(self, name: str, value: float):
         self.counters[name] = value
@@ -62,17 +112,13 @@ class RunMetrics:
             print(f"[engine] {msg}", file=sys.stderr, flush=True)
 
     def report(self, stream=sys.stderr):
-        """One JSON line of the phase seconds and the counters."""
-        doc = {"phases_s": {k: round(v, 4) for k, v in self.phases.items()},
-               "counters": self.counters}
+        """One JSON line of the span seconds (and, where spans ran, their
+        self seconds) and the counters."""
+        doc = {"phases_s": {k: round(v, 4) for k, v in self.phases.items()}}
+        if self.self_s:
+            doc["self_s"] = {k: round(v, 4) for k, v in self.self_s.items()}
+        doc["counters"] = self.counters
         print(json.dumps(doc), file=stream, flush=True)
-
-    def point_steps_per_s(self, npoints: int, nsteps: int,
-                          phase: str = "stream") -> Optional[float]:
-        """Point-steps a second over a phase's seconds (None before it
-        ran)."""
-        t = self.phases.get(phase)
-        return npoints * nsteps / t if t else None
 
 
 class Progress:
@@ -142,20 +188,80 @@ def detect_nan_points(state):
 
 
 @contextlib.contextmanager
-def profile_trace(log_dir: Optional[str]):
+def profile_trace(log_dir: Optional[str], summary: bool = False):
     """A ``torch.profiler`` trace of the block (host and, where there is a
     card, its kernels), written to ``log_dir`` as a Chrome trace
     ``trace_<pid>.json`` (view in chrome://tracing or Perfetto); nothing
-    without a directory (observability.py:101-112)."""
+    without a directory (observability.py:101-112).  Yields the profiler
+    (None without a directory).  The trace records shapes, so the spans'
+    ranges carry their ids.  ``summary`` prints, after the trace is
+    written, one stderr line of the spans the device's idle time fell in
+    (``idle_by_span_of``), the longest first."""
     if not log_dir:
-        yield
+        yield None
         return
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
+    with profile(activities=acts, record_shapes=True) as prof:
+        yield prof
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}.json"))
+    if summary:
+        idle = sorted(idle_by_span_of(prof).items(), key=lambda kv: -kv[1])
+        print("device idle by span, s: " + (", ".join(
+            f"{name} {t:.4f}" for name, t in idle[:8]) or "none"),
+            file=sys.stderr, flush=True)
+
+
+def idle_by_span(device, spans) -> Dict[str, float]:
+    """The device's idle time put down to host spans: ``device`` its busy
+    intervals ``[(start, end)]``, ``spans`` the host's ranges
+    ``[(name, start, end)]``, on one clock.  Each stretch with nothing on
+    the device, from the first start to the last end of either, is split
+    at span edges; each piece goes to the innermost range that covers it
+    (the latest opened of those still open), or to ``OUTSIDE`` where none
+    does.  Returns ``{span name: idle time}`` in the inputs' unit."""
+    busy = []
+    for s, e in sorted(device):
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    marks = sorted({t for iv in busy for t in iv}
+                   | {t for _, s, e in spans for t in (s, e)})
+    by_start = sorted(spans, key=lambda r: r[1])
+    out, opened, si, bi = {}, [], 0, 0
+    for t0, t1 in zip(marks, marks[1:]):
+        while si < len(by_start) and by_start[si][1] <= t0:
+            opened.append(by_start[si])
+            si += 1
+        opened = [r for r in opened if r[2] > t0]
+        while bi < len(busy) and busy[bi][1] <= t0:
+            bi += 1
+        if bi < len(busy) and busy[bi][0] <= t0:
+            continue
+        # innermost: the latest start, of equal starts the earliest end
+        name = (max(opened, key=lambda r: (r[1], -r[2]))[0] if opened
+                else OUTSIDE)
+        out[name] = out.get(name, 0.0) + t1 - t0
+    return out
+
+
+def idle_by_span_of(prof) -> Dict[str, float]:
+    """``idle_by_span`` of a finished ``torch.profiler``: its device
+    events (kernels, copies, memsets) against its host ``roadsurf::``
+    ranges, in seconds, the range names without the prefix."""
+    cuda = torch.autograd.DeviceType.CUDA
+    device, spans = [], []
+    for ev in prof.events():
+        s = ev.time_range.start * 1e-6
+        e = ev.time_range.end * 1e-6
+        if ev.name.startswith(RANGE_PREFIX):
+            if ev.device_type != cuda:
+                spans.append((ev.name[len(RANGE_PREFIX):], s, e))
+        elif ev.device_type == cuda:
+            device.append((s, e))
+    return idle_by_span(device, spans)

@@ -62,6 +62,20 @@ run's output steps while the card runs the chunk just issued.
 Across processes (``parallel/distributed.py``) each process runs the blocks
 of its own point range and drains only them (``drain="shard"``); no tensor
 crosses between processes.
+
+Spans (``observability.RunMetrics``; profiler ranges ``roadsurf::<name>``
+while a torch profiler records): each engine-entry call is one ``cycle``
+(its index an id of every span inside it), split into ``cycle_setup``
+(from the entry to the first chunk's issue: ``.sky_route``, ``.blocks``,
+each block's expander block and station sort, ``.place``, the engine's
+placement, ``.build``, the kernels' library, ``.window_plan`` and
+``.host_rows``), ``stream`` and ``output``.  Within the stream each chunk
+is one ``stream.issue`` and, per block, one ``stream.drain.wait`` and one
+``stream.drain.rows`` (the chunk's index an id of each; their seconds also
+in the counters ``stream_issue_s``, ``stream_wait_s`` and
+``stream_rows_s``, the bytes copied in ``stream_rows_bytes``); a coupled
+run's stream is ``phase_a``, ``phase_b`` (``.launch``, ``.sync``) and
+``phase_c``.
 """
 from __future__ import annotations
 
@@ -88,6 +102,8 @@ OUT_FIELD_ROWS = {"tsurf": sk.R_TSURF, "wat": sk.R_WAT, "snow": sk.R_SNOW,
 #: point-count multiple (the JAX engine's mesh x lane rule,
 #: production.py:90-93, on one device): the kernel's thread block
 LANE = sk.LANE
+#: the card's warp: K5's threads run in groups of this many points
+WARP = 32
 
 #: default largest tile width of the tile-major kernel mode (K3), chosen by
 #: its timing on the card (PERF.md, Findings)
@@ -1364,7 +1380,7 @@ class _Engine:
             raise ValueError(f"expander built for {expander.num_points} "
                              f"points, need {self.P_pad}")
 
-        with self.metrics.phase("setup"):
+        with self.metrics.phase("cycle_setup.place"):
             dev = self.device
             f32 = np.float32
 
@@ -1484,7 +1500,7 @@ class _Engine:
         self.k_alloc = (chunk_t - 1) // self.os_ + 1
         if self.device.type == "cuda":
             from .ops import build
-            with self.metrics.phase("build"):
+            with self.metrics.phase("cycle_setup.build"):
                 build.load()
 
     def _fuse_base(self) -> dict:
@@ -1808,16 +1824,18 @@ class _Blocks:
                 f"{self.P_pad} ({n_real} padded to {ndev * nproc} blocks "
                 f"of whole {LANE}-point lanes)")
         per = self.P_pad // (ndev * nproc)
-        sky = sky_route(pts)
+        with metrics.phase("cycle_setup.sky_route"):
+            sky = sky_route(pts)
         self.engines, self.ranges = [], []
         for b in range(ndev):
             lo = (pid * ndev + b) * per
             cut = lambda x: _rows(x, lo, lo + per, n_real)
             with mesh.scope(b):
+                with metrics.phase("cycle_setup.blocks"):
+                    block = station_sorted(
+                        expander.block(lo, lo + per, mesh.devices[b]))
                 eng = _Engine(
-                    model, station_sorted(
-                        expander.block(lo, lo + per, mesh.devices[b])),
-                    PointParams(*(cut(x) for x in pts)), cal,
+                    model, block, PointParams(*(cut(x) for x in pts)), cal,
                     State(*(cut(x) for x in state)),
                     anchors=(tuple(cut(np.asarray(a)) for a in anchors)
                              if anchors is not None else None),
@@ -1833,6 +1851,8 @@ class _Blocks:
         self._copy = [torch.cuda.Stream(device=d) if d.type == "cuda"
                       else None for d in mesh.devices]
         self._stage, self._n_queued = {}, 0
+        #: chunks issued so far in this run: the next chunk's index
+        self._n_issued = 0
         # blocks issue on their own streams: order them after the set-up
         for d in {d for d in mesh.devices if d.type == "cuda"}:
             torch.cuda.synchronize(d)
@@ -1896,7 +1916,19 @@ class _Blocks:
             self._stage[(b, slot)] = buf
         return buf[:need].view(shape)
 
-    def _queue(self, rows, n_rows: int, out: "_HostRows", k):
+    def _ids(self, chunk=None) -> dict:
+        """A span's ids: the cycle's index and, where given, the chunk's."""
+        ids = {"cycle": self.metrics.cycles - 1}
+        if chunk is not None:
+            ids["chunk"] = chunk
+        return ids
+
+    def host_rows(self, plan) -> "_HostRows":
+        """This process's host rows of a run whose drains hold ``plan``."""
+        with self.metrics.phase("cycle_setup.host_rows"):
+            return _HostRows(plan, self.ranges, self.n_real)
+
+    def _queue(self, rows, n_rows: int, out: "_HostRows", k, chunk=None):
         """Queue the output rows ``rows[b][:n_rows]`` of every block for the
         host as drain ``k`` of ``out`` (None: the chunk has no output row).
         Each block's rows are put in the caller's order on its device and
@@ -1906,7 +1938,8 @@ class _Blocks:
         allocator keeps it until the copy has read it; on the CPU at once.
         A block with nothing to copy records an event on its stream, the
         drain's back-pressure (production.py:1840).  Returns the pending
-        item: (k, [(staged rows or None, event or None)] per block)."""
+        item: (k, [(staged rows or None, event or None)] per block, the
+        chunk's index or None)."""
         slot = self._n_queued % PIPELINE_DEPTH
         self._n_queued += 1
         staged = []
@@ -1931,21 +1964,24 @@ class _Blocks:
                 ev = torch.cuda.Event()
                 ev.record(cs)
             staged.append((buf, ev))
-        return k, staged
+        return k, staged, chunk
 
     def _drain(self, item, out: "_HostRows"):
         """Wait for a queued item's events, one block after the other, and
-        copy each block's staged rows to their place in ``out``."""
-        k, staged = item
+        copy each block's staged rows to their place in ``out``: the spans
+        ``stream.drain.wait`` and ``stream.drain.rows`` (their seconds also
+        in the counters ``stream_wait_s`` and ``stream_rows_s``), the bytes
+        copied in ``stream_rows_bytes``."""
+        k, staged, chunk = item
+        ids = self._ids(chunk)
+        metrics = self.metrics
         for b, (buf, ev) in enumerate(staged):
-            t0 = timelib.perf_counter()
-            if ev is not None:
-                ev.synchronize()
-            t1 = timelib.perf_counter()
-            if buf is not None:
-                out.put(k, b, buf)
-            self.metrics.add("stream_wait_s", t1 - t0)
-            self.metrics.add("stream_rows_s", timelib.perf_counter() - t1)
+            with metrics.phase("stream.drain.wait", "stream_wait_s", **ids):
+                if ev is not None:
+                    ev.synchronize()
+            with metrics.phase("stream.drain.rows", "stream_rows_s", **ids):
+                if buf is not None:
+                    metrics.add("stream_rows_bytes", out.put(k, b, buf))
         if k is not None:
             out.done += 1
 
@@ -1956,33 +1992,37 @@ class _Blocks:
 
     def _issue(self, carry, t0: int, nsteps: int, steps, out: "_HostRows",
                cofs):
-        """Issue the chunk at global step t0 on every block: its forcing on
-        the block's stream, one sharded launch into the blocks' alternate
-        output sets, its rows queued for the host.  Returns (the carry
-        after the chunk, the pending item of ``_queue``)."""
+        """Issue the chunk at global step t0 on every block (the span
+        ``stream.issue``, its seconds also in the counter
+        ``stream_issue_s``): its forcing on the block's stream, one sharded
+        launch into the blocks' alternate output sets, its rows queued for
+        the host.  Returns (the carry after the chunk, the pending item of
+        ``_queue``)."""
         from .parallel import sharding
-        t_issue = timelib.perf_counter()
         model = self.model
-        inputs = [eng.kernel_inputs(t0, cofs[b] if cofs else None)
-                  for b, eng in self.scopes()]
-        forc, kws = [i[0] for i in inputs], [i[1] for i in inputs]
-        kw = dict(kws[0])
-        for name in ("slim_trf", "aux_rows"):
-            if name in kw:
-                kw[name] = [k[name] for k in kws]
-        outs = [self._out_set(b, eng, carry[b][0])
-                for b, eng in self.scopes()]
-        res = sharding.scan_sharded(
-            [c[0] for c in carry], [c[1] for c in carry], forc, model.cfg,
-            model.params, model.grid, self.mesh, fence=False, out=outs,
-            **self.engines[0].scan_kwargs(t0, nsteps), **kw)
-        # the chunk's forcing goes as soon as its launch is issued: it was
-        # made on each block's stream, which reuses the room only after the
-        # launch
-        del inputs, forc, kws, kw
-        item = self._queue([r[2] for r in res], len(steps), out,
-                           out.claim(steps) if steps else None)
-        self.metrics.add("stream_issue_s", timelib.perf_counter() - t_issue)
+        chunk = self._n_issued
+        self._n_issued += 1
+        with self.metrics.phase("stream.issue", "stream_issue_s",
+                                **self._ids(chunk)):
+            inputs = [eng.kernel_inputs(t0, cofs[b] if cofs else None)
+                      for b, eng in self.scopes()]
+            forc, kws = [i[0] for i in inputs], [i[1] for i in inputs]
+            kw = dict(kws[0])
+            for name in ("slim_trf", "aux_rows"):
+                if name in kw:
+                    kw[name] = [k[name] for k in kws]
+            outs = [self._out_set(b, eng, carry[b][0])
+                    for b, eng in self.scopes()]
+            res = sharding.scan_sharded(
+                [c[0] for c in carry], [c[1] for c in carry], forc,
+                model.cfg, model.params, model.grid, self.mesh, fence=False,
+                out=outs, **self.engines[0].scan_kwargs(t0, nsteps), **kw)
+            # the chunk's forcing goes as soon as its launch is issued: it
+            # was made on each block's stream, which reuses the room only
+            # after the launch
+            del inputs, forc, kws, kw
+            item = self._queue([r[2] for r in res], len(steps), out,
+                               out.claim(steps) if steps else None, chunk)
         self.metrics.add("stream_chunks", 1)
         return [(r[0], r[1]) for r in res], item
 
@@ -2014,9 +2054,10 @@ class _Blocks:
                 progress.update(n)
         return carry
 
-    def run_uncoupled(self, progress: Optional[Progress] = None):
-        """Stream every step [0, T) and assemble the result."""
-        out = _HostRows(self.row_plan(0, self.T), self.ranges, self.n_real)
+    def run_uncoupled(self, out: "_HostRows",
+                      progress: Optional[Progress] = None):
+        """Stream every step [0, T) into ``out`` (``host_rows`` of
+        ``row_plan(0, T)``) and assemble the result."""
         with self.metrics.phase("stream"):
             t_start = timelib.perf_counter()
             carry = self.stream(self.carry0(), 0, self.T, out,
@@ -2102,11 +2143,13 @@ class _HostRows:
         self.claimed += 1
         return k
 
-    def put(self, k: int, b: int, part: torch.Tensor):
+    def put(self, k: int, b: int, part: torch.Tensor) -> int:
         """Block ``b``'s rows [n, 6, P_b] (a host tensor) of drain ``k``
-        into place."""
+        into place; returns the bytes copied."""
         c0, n_b = self.cols[b]
-        self.rows[self.dest[k], :, c0:c0 + n_b].copy_(part[:, :, :n_b])
+        src = part[:, :, :n_b]
+        self.rows[self.dest[k], :, c0:c0 + n_b].copy_(src)
+        return src.numel() * src.element_size()
 
     def fields(self) -> dict:
         """{field: [n_rows, n_loc]} views, once every drain has landed."""
@@ -2144,11 +2187,18 @@ def run_production(model: Model, expander,
     points (one process); ``"shard"`` this process's columns with their
     ``point_range`` (the only mode in a run of several processes,
     ``parallel.distributed``).
+
+    ``metrics`` gets the call's spans (module docstring, "Spans").
     """
-    run = _Blocks(model, expander, pts, cal, state, anchors=anchors,
-                  devices=devices, chunk_t=chunk_t, out_stride=out_stride,
-                  metrics=metrics, drain=drain)
-    return run.run_uncoupled(progress)
+    metrics = metrics or RunMetrics()
+    with metrics.cycle():
+        with metrics.phase("cycle_setup"):
+            run = _Blocks(model, expander, pts, cal, state, anchors=anchors,
+                          devices=devices, chunk_t=chunk_t,
+                          out_stride=out_stride, metrics=metrics,
+                          drain=drain)
+            out = run.host_rows(run.row_plan(0, run.T))
+        return run.run_uncoupled(out, progress)
 
 
 #: the most point slices a block's window runs in (``window_slices``):
@@ -2225,35 +2275,80 @@ def run_production_coupled(model: Model, expander,
     exceed it, each block runs K5 over point slices whose tables fit, at
     most ``WINDOW_SLICES_MAX`` (the same values either way: the points are
     independent, and each slice prepares its own points' window alone).
-    Phase B syncs with the host once a block, to read its re-run count.
+    Phase B syncs with the host once a block, to read its counts.
     Counters (this process's blocks): coupling_window_steps (W),
     coupling_reruns (the most rewinds of any point), coupling_window_rows
     (the steps of each block's slowest lane, summed over blocks),
     coupling_window_cached (1 where every block ran one launch: its table
     fit, it had none, or it reads a view) and the coupled / succeeded /
-    failed point counts; phases phase_a/phase_b/phase_c.
+    failed point counts; summed over calls, coupling_reruns_total (every
+    point's rewinds), coupling_window_point_steps (every point's window
+    steps) and coupling_window_lane_steps (the steps K5's warps run,
+    ``_window_counts``); phases phase_a/phase_b/phase_c.  ``metrics`` gets
+    the call's spans (module docstring, "Spans").
     """
     from .coupling import window_span
 
-    run = _Blocks(model, expander, pts, cal, state, anchors=anchors,
-                  devices=devices, chunk_t=chunk_t, out_stride=out_stride,
-                  metrics=metrics, drain=drain)
-    settings = model.settings
-    T, os_ = run.T, run.os_
-    coupled_np, span = window_span(settings, pts)
-    if span is None:
-        return run.run_uncoupled(progress)
+    metrics = metrics or RunMetrics()
+    with metrics.cycle():
+        with metrics.phase("cycle_setup"):
+            run = _Blocks(model, expander, pts, cal, state, anchors=anchors,
+                          devices=devices, chunk_t=chunk_t,
+                          out_stride=out_stride, metrics=metrics,
+                          drain=drain)
+            settings = model.settings
+            T, os_ = run.T, run.os_
+            with metrics.phase("cycle_setup.window_plan"):
+                coupled_np, span = window_span(settings, pts)
+                if span is not None:
+                    ws, we_b = span
+                    wspan = wk.WindowSpan(
+                        ws, we_b, T, os_, settings.coupling_effect_reduction)
+                    slices = window_slices(run, wspan, float(wcache_bytes))
+            if span is None:
+                out = run.host_rows(run.row_plan(0, T))
+            else:
+                # phase A's chunks, phase B's rows, phase C's chunks: the
+                # drains' order
+                rows_b = wspan.out_rows
+                plan_b = [list(rows_b)] if len(rows_b) else []
+                out = run.host_rows(run.row_plan(0, ws - 1) + plan_b
+                                    + run.row_plan(we_b, T))
+        if span is None:
+            return run.run_uncoupled(out, progress)
+        return _coupled_stream(run, out, wspan, slices, coupled_np,
+                               progress, wcache_bytes)
 
-    ws, we_b = span
+
+def _window_counts(res: wk.WindowOut, ranges):
+    """A block's window counts on its device, for phase B's one host read:
+    its most rewinds, the steps of its slowest point, its rewinds, its
+    point-steps and the lane-steps K5 pays for, each warp of ``WARP``
+    consecutive points of a launch's range running as long as its slowest
+    point (csrc/scan_kernel.cu: ``window_kernel``'s thread j runs the
+    range's point j).  Padded points are failed from the start and take no
+    step."""
+    st = res.steps
+    lanes = sum(st[lo:hi].view(-1, WARP).amax(1).sum() for lo, hi in ranges)
+    return torch.stack([res.reruns.max().long(), st.max().long(),
+                        res.reruns.sum(), st.sum(), WARP * lanes])
+
+
+def _coupled_stream(run: _Blocks, out: _HostRows, wspan: wk.WindowSpan,
+                    slices, coupled_np, progress,
+                    wcache_bytes: float) -> ProductionResult:
+    """Phases A, B and C of a coupled run set up by
+    ``run_production_coupled`` (its docstring), and the result."""
+    settings = run.model.settings
+    T = run.T
+    ws, we_b = wspan.ws, wspan.we_b
     W = we_b - ws + 1
-    wspan = wk.WindowSpan(ws, we_b, T, os_,
-                          settings.coupling_effect_reduction)
     rows_b = wspan.out_rows
-    slices = window_slices(run, wspan, float(wcache_bytes))
     one_launch = all(len(s) == 1 for s in slices)
+    metrics = run.metrics
     k5 = ("K5 fused (the forcing prepared in the kernel)"
           if run.engines[0].window_fused else "K5")
-    run.metrics.note(
+    metrics.note(
         f"coupling window through {k5}, one launch a block" if one_launch
         else f"coupling window through {k5} over point slices "
              f"({max(len(s) for s in slices)} launches a block) within "
@@ -2270,25 +2365,22 @@ def run_production_coupled(model: Model, expander,
             del forc
         return res
 
-    # phase A's chunks, phase B's rows, phase C's chunks: the drains' order
-    plan_b = [list(rows_b)] if len(rows_b) else []
-    out = _HostRows(run.row_plan(0, ws - 1) + plan_b + run.row_plan(we_b, T),
-                    run.ranges, run.n_real)
-    with run.metrics.phase("stream"):
+    with metrics.phase("stream"):
         t_start = timelib.perf_counter()
-        with run.metrics.phase("phase_a"):
+        with metrics.phase("phase_a"):
             # drains every chunk before it returns: phase B reads the carry
             carry = run.stream(run.carry0(), 0, ws - 1, out,
                                progress=progress)
-        with run.metrics.phase("phase_b"):
-            done = [phase_b(eng, slices[b], *carry[b])
-                    for b, eng in run.scopes()]
+        with metrics.phase("phase_b"):
+            with metrics.phase("phase_b.launch"):
+                done = [phase_b(eng, slices[b], *carry[b])
+                        for b, eng in run.scopes()]
             # the one host sync of each block's phase B, after every
-            # block's launches are issued: its most rewinds and the steps
-            # of its slowest lane
-            counts = [[int(v) for v in torch.stack(
-                [done[b].reruns.max(), done[b].steps.max()]).cpu()]
-                for b, _ in run.scopes()]
+            # block's launches are issued: its counts (_window_counts)
+            with metrics.phase("phase_b.sync"):
+                counts = [[int(v) for v in
+                           _window_counts(done[b], slices[b]).cpu()]
+                          for b, _ in run.scopes()]
             if max(c[0] for c in counts) > wk.MAX_RERUNS:
                 raise RuntimeError(f"a point of the coupling window passed "
                                    f"{wk.MAX_RERUNS} re-runs")
@@ -2298,7 +2390,7 @@ def run_production_coupled(model: Model, expander,
                                rows_b)
             if progress:
                 progress.update(W)
-        with run.metrics.phase("phase_c"):
+        with metrics.phase("phase_c"):
             carry = run.stream(
                 carry, we_b, T, out,
                 cofs=[(d.sw_corr, d.lw_corr) for d in done],
@@ -2313,11 +2405,15 @@ def run_production_coupled(model: Model, expander,
             device=eng.device)
         n_cpl += int(cpl.sum())
         n_failed += int((cpl & eng.to_caller(done[b].cv_failed, 0)).sum())
-    run.metrics.count("coupling_window_steps", W)
-    run.metrics.count("coupling_reruns", max(c[0] for c in counts))
-    run.metrics.count("coupling_window_rows", sum(c[1] for c in counts))
-    run.metrics.count("coupling_window_cached", int(one_launch))
-    run.metrics.count("coupling_points", n_cpl)
-    run.metrics.count("coupling_failed", n_failed)
-    run.metrics.count("coupling_succeeded", n_cpl - n_failed)
+    metrics.count("coupling_window_steps", W)
+    metrics.count("coupling_reruns", max(c[0] for c in counts))
+    metrics.count("coupling_window_rows", sum(c[1] for c in counts))
+    metrics.count("coupling_window_cached", int(one_launch))
+    metrics.count("coupling_points", n_cpl)
+    metrics.count("coupling_failed", n_failed)
+    metrics.count("coupling_succeeded", n_cpl - n_failed)
+    for name, i in (("coupling_reruns_total", 2),
+                    ("coupling_window_point_steps", 3),
+                    ("coupling_window_lane_steps", 4)):
+        metrics.add(name, sum(c[i] for c in counts))
     return run.assemble(out, carry, wall)

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import calendar
+import contextlib
 import dataclasses
 import sys
 import time as timelib
@@ -159,17 +160,18 @@ def auto_chunk_t(n_points: int) -> int:
     return production.auto_chunk_t(n_points)
 
 
-def _laps(metrics, prefix: str):
-    """``lap(name)`` books the seconds since the previous lap (or since
-    this call) as the phase ``prefix.name``: the parts of a phase."""
-    last = [timelib.perf_counter()]
+@contextlib.contextmanager
+def _parts(metrics, prefix: str):
+    """``part(name)`` ends the part open (if any) and opens the span
+    ``prefix.name``: the parts of a phase, one after the other, the last
+    ending with the block."""
+    parts = contextlib.ExitStack()
 
-    def lap(name):
-        now = timelib.perf_counter()
-        key = f"{prefix}.{name}"
-        metrics.phases[key] = metrics.phases.get(key, 0.0) + now - last[0]
-        last[0] = now
-    return lap
+    def part(name):
+        parts.close()
+        parts.enter_context(metrics.phase(f"{prefix}.{name}"))
+    with parts:
+        yield part
 
 
 def _scan_engine(model, raw, pts, cal, point_ids, checkpoint_in):
@@ -248,7 +250,7 @@ def run(config_path: str, forecast_time_s: Optional[str] = None,
 
     engine = _resolve_engine(engine, dev)
     if engine == "kernel":
-        with profile_trace(profile_dir):
+        with profile_trace(profile_dir, summary=verbose):
             return run_production_config(
                 config, settings, cal, sim_epochs, now, start,
                 output_path=output_path, checkpoint_in=checkpoint_in,
@@ -328,7 +330,8 @@ def run(config_path: str, forecast_time_s: Optional[str] = None,
     t0 = timelib.time()
     metrics.count("points", len(point_ids))
     metrics.count("steps", sim_len)
-    with profile_trace(profile_dir), metrics.phase("simulate"):
+    with profile_trace(profile_dir, summary=verbose), \
+            metrics.phase("simulate"):
         final_state, out_fields = _scan_engine(model, raw, pts, cal,
                                                point_ids, checkpoint_in)
     elapsed = timelib.time() - t0
@@ -416,10 +419,10 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
     if verbose:
         metrics.announce = True
     sim_len = settings.sim_len
-    with metrics.phase("data_plane"):
-        lap = _laps(metrics, "data_plane")
+    with metrics.phase("data_plane"), _parts(metrics, "data_plane") as part:
+        part("sources")
         handler = DataHandler.from_config(config, sim_epochs)
-        lap("sources")
+        part("stations")
         pset = parse_points_full(config)
         if pset.mode == "stations":
             if handler.has_grid_source():
@@ -498,8 +501,8 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
                       "inactive")
             st_idx = np.full(P, -1, np.int64)
             anchors_st = None
-        lap("stations")
 
+        part("params")
         # expand per-point parameters from their stations
         pcfg = config.get("parameters", {}) or {}
         svf, horizons = sky_variables(point_ids, pcfg.get("sky_view_file"),
@@ -533,10 +536,9 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
             anchors = tuple(np.full(P, -9999.9) for _ in range(3))
         model = Model(settings, PhysicsParams.from_json(settings, pcfg),
                       device=dev)
-        lap("params")
 
-    with metrics.phase("init"):
-        lap = _laps(metrics, "init")
+    with metrics.phase("init"), _parts(metrics, "init") as part:
+        part("expanders")
         mesh = sharding.make_mesh([dev] if dev.type == "cpu" else None)
         nproc = distributed.process_count()
         exp_dev = mesh.devices[0]
@@ -603,9 +605,9 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
         parts = [p for _, p in sorted(parts, key=lambda t: t[0])]
         expander = (parts[0] if len(parts) == 1
                     else production.CompositeExpander(parts))
-        lap("expanders")
 
         if grid_srcs and verbose:
+            part("screen")
             # the up-front station required-var check was skipped (grid
             # sources may fill the gaps): recover the reference's per-point
             # skip report from the MERGED forcing (roadrunner.cpp:183-231),
@@ -620,9 +622,9 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
                       f"({per_var})")
             else:
                 print("Post-merge CheckValues screen: all points valid")
-            lap("screen")
 
         if settings.use_coupling and grid_has_obsts:
+            part("coupling_windows")
             # coupling window from the MERGED obs series, per point: last
             # valid TSurfObs index/value via a device scan over the composite
             # (read_input derivation, examples/example1/src/roadrunner.cpp:
@@ -638,9 +640,9 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
             if verbose:
                 print(f"Grid-obs coupling: {int((ce >= 1).sum())}/{P} "
                       f"points carry a usable merged obs window")
-            lap("coupling_windows")
 
         if grid_srcs and settings.use_relaxation:
+            part("relaxation")
             # the relaxation fields read the MERGED overlay (read_input works
             # on DataManager-merged per-point arrays, roadrunner.cpp:157-278)
             # -- re-derive them per point: the anchor step is the latest obs
@@ -699,8 +701,8 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
                 vz_relax=np.where(has_p, vals_r["vz"], -9999.9),
                 rh_relax=np.where(has_p, vals_r["rhz"], -9999.9))
             anchors = (vals_a["tair"], vz_a, vals_a["rhz"])
-            lap("relaxation")
 
+        part("state")
         # the initial state from the first step's merged values, float32 on
         # the expander's device (runner.py:638-654)
         date0 = (int(cal.year[0]), int(cal.month[0]), int(cal.day[0]))
@@ -715,7 +717,6 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
                             use_depth=model.cfg.use_depth)
         if checkpoint_in:
             state0 = restore_state(checkpoint_in, point_ids, state0)
-        lap("state")
 
     progress = Progress(sim_len) if verbose else None
     use_coupled = bool(settings.use_coupling) and bool(

@@ -131,7 +131,9 @@ def test_coupled_depth_2_equals_depth_1(fast, monkeypatch):
         setup, chunk_t=16, out_stride=6, fast=fast))
     _assert_bitwise(two, one)
     for name in ("coupling_window_steps", "coupling_reruns",
-                 "coupling_points", "coupling_failed", "stream_chunks"):
+                 "coupling_points", "coupling_failed", "stream_chunks",
+                 "coupling_reruns_total", "coupling_window_point_steps",
+                 "coupling_window_lane_steps", "stream_rows_bytes"):
         assert m1.counters[name] == m2.counters[name], name
     assert m2.counters["pipeline_depth"] == 2
 

@@ -134,12 +134,12 @@ def test_run_metrics(capsys):
             pass
         m.count("points", 8)
         assert "stream" in m.phases
-        assert m.point_steps_per_s(100, 10, "stream") > 0
-        assert m.point_steps_per_s(100, 10, "never") is None
+    # the JAX class's rate over one phase; the port's RunMetrics has none
+    assert m.point_steps_per_s(100, 10, "stream") > 0
+    assert m.point_steps_per_s(100, 10, "never") is None
     m = RunMetrics()
     m.phases["stream"] = 2.0
     m.count("points", 8)
-    assert m.point_steps_per_s(100, 10) == 500.0
     m.report(stream=sys.stdout)
     doc = json.loads(capsys.readouterr().out)
     assert doc == {"phases_s": {"stream": 2.0}, "counters": {"points": 8}}
