@@ -66,9 +66,10 @@ crosses between processes.
 Spans (``observability.RunMetrics``; profiler ranges ``roadsurf::<name>``
 while a torch profiler records): each engine-entry call is one ``cycle``
 (its index an id of every span inside it), split into ``cycle_setup``
-(from the entry to the first chunk's issue: ``.sky_route``, ``.blocks``,
-each block's expander block and station sort, ``.place``, the engine's
-placement, ``.build``, the kernels' library, ``.window_plan`` and
+(from the entry to the first chunk's issue: ``.sky_route``, with the
+counter ``horizon_table_scans`` of the calls that read the horizon table,
+``.blocks``, each block's expander block and station sort, ``.place``, the
+engine's placement, ``.build``, the kernels' library, ``.window_plan`` and
 ``.host_rows``), ``stream`` and ``output``.  Within the stream each chunk
 is one ``stream.issue`` and, per block, one ``stream.drain.wait`` and one
 ``stream.drain.rows`` (the chunk's index an id of each; their seconds also
@@ -1222,10 +1223,13 @@ class GridPlan(NamedTuple):
 def sky_route(pts: PointParams):
     """(enable_sky, flat_horizons) of a run: whether any point's sky view
     is active, and whether every horizon is zero (the lookup is then
-    skipped and the table never read)."""
+    skipped and the table never read).  The [P, 360] horizon table is
+    scanned only where some sky view is active: with none, nothing reads
+    the horizons, and ``flat_horizons`` is True without a look at them."""
     sky = np.asarray(pts.sky_view)
-    return (bool(np.any((sky < 1.0) & (sky > -0.01))),
-            not np.asarray(pts.horizons).any())
+    if not np.any((sky < 1.0) & (sky > -0.01)):
+        return False, True
+    return True, not np.asarray(pts.horizons).any()
 
 
 def fused_parts(expander):
@@ -1366,7 +1370,6 @@ class _Engine:
             raise ValueError(
                 "per-point out_depth is not supported by the scan kernel; "
                 "use Model.run or set the global model.tsurfOutputDepth")
-        hor_np = np.asarray(pts.horizons)
         # all-zero horizons skip the lookup and never read the table
         self.enable_sky, self.flat_horizons = sky or sky_route(pts)
 
@@ -1392,7 +1395,7 @@ class _Engine:
             # the [P, 360] horizon table (1.5 GB at 1M points) only when
             # sky view reads it; else a 1-wide placeholder
             if self.enable_sky and not self.flat_horizons:
-                horizons = put_pts(hor_np, f32)
+                horizons = put_pts(pts.horizons, f32)
             else:
                 horizons = torch.zeros((self.P_pad, 1), dtype=torch.float32,
                                        device=dev)
@@ -1826,6 +1829,8 @@ class _Blocks:
         per = self.P_pad // (ndev * nproc)
         with metrics.phase("cycle_setup.sky_route"):
             sky = sky_route(pts)
+        # the route reads the horizon table only where sky view is on
+        metrics.add("horizon_table_scans", int(sky[0]))
         self.engines, self.ranges = [], []
         for b in range(ndev):
             lo = (pid * ndev + b) * per
